@@ -5,23 +5,34 @@
 
 Phases (each raises on failure; the script exits non-zero on any):
   0. the card's name and power limit; build the CUDA kernels with nvcc
-  1. each kernel (K1 POA DP, K2 POA walk, K3 banded NW, K4 tiled NW) at the
-     main path's shapes against its plain PyTorch version on the same
-     inputs, exact equality; CUDA-event times of both
+  1. each kernel (K1 POA DP, K2 POA walk, K3 banded NW, K4 tiled NW, K5/K5w
+     affine POA DP and walk, K6/K6w convex POA DP and walk) at its path's
+     shapes against its plain PyTorch version on the same inputs, exact
+     equality; CUDA-event times of both. K1-K4 at the main path's batched
+     shapes; K5-K6w at the spoa path's (one block: B=1, D=1, the graph of
+     phase 4 as it grows) and, as extra lines, at K1's batched shape
   2. `vechat --backend cuda` reproduces the two committed goldens
   3. the main path: a seeded two-strain community (2 x 12.5 kb strains,
      1% apart; 200 reads x 2.5 kb at 8% ONT-profile error) corrected by
      `vechat --backend cuda`; wall time, reads/s, error before and after,
      strain preservation, and each kernel's launches in this run
+  4. the spoa path: 32 reads of one 480-base template (8% ONT-profile
+     error) through `vechat-spoa-torch --backend cuda` with linear, affine
+     and convex scores, in nw/sw/ov and strand-ambiguous runs (the first 12
+     reads for sw, ov and the convex run at the default scores), each byte
+     for byte against `--backend host`; wall time, device alignments, host
+     routes and each kernel's launches per run
 
 The second-to-last line is {"kernels": [...]} with, per kernel, its launches
-in phase 3, the largest difference from its plain version in phase 1 (0:
+on its path (K1-K4: phase 3; K5-K6w: phase 4, counts set to 0 just before
+the phase), the largest difference from its plain version in phase 1 (0:
 the tolerance is exact), its time, the plain version's time and the bound
 (the least time the card could take for the same work). The last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout,
 it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -45,6 +56,18 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 K1_OPS_CELL, K1_OPS_EDGE = 18, 5
 NW_OPS_CELL = 15
 WALK_OPS_STEP = 20
+# K5: 2 packed maxes per in-edge over 2 rings (20); per cell the unpacks,
+# E/EB, clamps, pack and best cell (24) and the E prefix max (2: a subtract
+# and a max). K6: 5 packed maxes per in-edge over 3 rings (34); per cell the
+# chain code (30), the rest (30) and the (E, Q) recurrence (8: 4 adds and 4
+# maxes). Both scans are counted at the function's work, one pass along the
+# row: the kernels' log-step scans (K5: 5 shuffle steps and a cross-warp
+# pass; K6: ceil(log2 W) steps of 8, and 12 more a step squaring the matrix)
+# are their own choice and stay out of the bound. A three-state walk step
+# decodes two halfwords (30)
+K5_OPS_CELL, K5_OPS_EDGE = 26, 20
+K6_OPS_CELL, K6_OPS_EDGE = 68, 34
+WALK3_OPS_STEP = 30
 
 
 def log(obj):
@@ -113,6 +136,20 @@ def mutate(rng, seq, sub, ins, dele):
 
 ONT = (0.35, 0.25, 0.40)  # (sub, ins, del) split of the error rate
 
+# gap scores (m, n, g, e[, q, c]) of the spoa path: linear, affine, convex at
+# the command line's defaults, convex with every magnitude within 8
+LINEAR_SCORES = (3, -5, -4, -4)
+AFFINE_SCORES = (3, -5, -8, -6)
+CONVEX_SCORES = (5, -4, -8, -6, -10, -4)
+CONVEX_SMALL_SCORES = (3, -5, -6, -4, -8, -2)
+
+
+def score_args(scores):
+    """The command line's flags for `scores` (q, c default to g, e)."""
+    m, n, g, e = scores[:4]
+    q, c = scores[4:] or (g, e)
+    return [a for flag, v in zip("mngeqc", (m, n, g, e, q, c)) for a in (f"-{flag}", str(v))]
+
 
 def ont_read(rng, frag, rate):
     return mutate(rng, frag, rate * ONT[0], rate * ONT[1], rate * ONT[2])
@@ -151,12 +188,14 @@ def window_inputs(rng, B, N, P, W, D):
     return pack_windows(packed, N, P, W)
 
 
-def k1_k2_phase(device, rng, B=16, N=640, P=8, W=576, D=32):
+def k1_k2_phase(device, inputs):
     import torch
 
     from vechat_tpu_torch.ops.kernels import poa_linear as pl
 
-    codes, preds, sink, nid, nn, seqp, slen = window_inputs(rng, B, N, P, W, D)
+    codes, preds, sink, nid, nn, seqp, slen = inputs
+    B, P, N = preds.shape
+    D, W = seqp.shape[1], seqp.shape[2]
     dist = max(pl.max_pred_distance(preds[b].T, nn[b, 0, 0]) for b in range(B))
     log(f"K1/K2 inputs: {B} windows, nodes {int(nn.min())}-{int(nn.max())}, "
         f"max predecessor distance {dist}, D={D}, W={W}")
@@ -217,6 +256,154 @@ def k1_k2_phase(device, rng, B=16, N=640, P=8, W=576, D=32):
     return results
 
 
+def gap_kinds():
+    """kind: (int16 rings, DP, plain DP, walk, plain walk, operations per
+    cell, per in-edge per cell) of K5/K5w and K6/K6w."""
+    from vechat_tpu_torch.ops.kernels import poa_affine as pa
+    from vechat_tpu_torch.ops.kernels import poa_convex as pc
+
+    return {
+        "affine": (2, pa.poa_dp_affine, pa._dp_affine_plain, pa.traceback_walk_affine,
+                   pa._walk_affine_plain, K5_OPS_CELL, K5_OPS_EDGE),
+        "convex": (3, pc.poa_dp_convex, pc._dp_convex_plain, pc.traceback_walk_convex,
+                   pc._walk_convex_plain, K6_OPS_CELL, K6_OPS_EDGE),
+    }
+
+
+def check_gap_launch(device, kind, arrays, mode, scores, ring, time_plain):
+    """One launch of K5 or K6 and of its walk on `arrays` (the JAX layout of
+    `pack_windows`) against the plain versions: exact equality of dirs (rows
+    the kernel writes), best cells, scores, pairs and counts. Returns the DP's
+    and the walk's rows (times, bound); `plain_ms` only with `time_plain`."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels.poa_affine import pack_aux_gap
+    from vechat_tpu_torch.ops.kernels.poa_linear import SMEM_RING_MAX
+
+    n_rings, dp, dp_plain, walk, walk_plain, ops_cell, ops_edge = gap_kinds()[kind]
+    codes, preds, sink, nid, nn, seqp, slen = arrays
+    B, P, N = preds.shape
+    D, W = seqp.shape[1], seqp.shape[2]
+    L = 2 * N + W
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    nn_t = t(nn).reshape(B)
+    real_rows = torch.arange(N + 1, device=device)[None, :] <= nn_t[:, None]
+    aux, deg = pack_aux_gap(t(preds), ring)
+    args = (t(codes).reshape(B, N), aux, deg, t(sink).reshape(B, N), nn_t, t(seqp),
+            t(slen).reshape(B, D), mode, *scores, ring)
+    in_smem = n_rings * (ring + 1) * W * 2 <= SMEM_RING_MAX
+    shape = (f"B={B} N={N} D={D} W={W} P={P} ring={ring} "
+             f"({'shared' if in_smem else 'global'}) {mode}")
+    label = f"{kind} {shape}"
+    k_out = dp(*args)
+    p_out = dp_plain(*args)
+    err = _max_err(f"{label} DP", ("dirs", "maxi", "maxj", "score"),
+                   (k_out[0][real_rows], *k_out[1:]), (p_out[0][real_rows], *p_out[1:]))
+    del p_out
+    dirs, maxi, maxj, _ = k_out
+    kw = walk(dirs, maxi, maxj, mode, L, P)
+    err2 = _max_err(f"{label} walk", ("pn", "pp", "count"), kw,
+                    walk_plain(dirs, maxi, maxj, mode, L, P))
+    ms1 = time_ms(lambda: dp(*args))
+    ms2 = time_ms(lambda: walk(dirs, maxi, maxj, mode, L, P))
+    pms1 = pms2 = None
+    if time_plain:  # the comparison runs above were the warm-up
+        pms1 = time_ms(lambda: dp_plain(*args), warmup=0, reps=2)
+        pms2 = time_ms(lambda: walk_plain(dirs, maxi, maxj, mode, L, P), warmup=0, reps=2)
+    # bound inputs from this launch's data
+    n_rows = int(nn_t.sum())
+    cells = n_rows * D * W
+    deg_real = int((deg * real_rows[:, 1:]).sum())
+    dp_bytes = (n_rows * (3 + P) * 4 + seqp.nbytes + slen.nbytes
+                + (n_rows + B) * D * W * 4 + 3 * B * D * 4)
+    dp_ops = cells * ops_cell + deg_real * D * W * ops_edge
+    steps = int(kw[2].sum())
+    rows = []
+    for name, ms, pms, nb, ops, e in (
+        (f"poa_dp_{kind}", ms1, pms1, dp_bytes, dp_ops, err),
+        (f"poa_walk_{kind}", ms2, pms2, steps * 12 + B * D * 12, steps * WALK3_OPS_STEP, err2),
+    ):
+        b_ms, b_by = bound_ms(nb, ops)
+        rows.append(dict(kernel=name, shape=shape, scores="/".join(map(str, scores)), ms=ms,
+                         plain_ms=pms, max_abs_err=e, bound_ms=b_ms, bound_by=b_by))
+        log(rows[-1])
+    return rows
+
+
+def gap_kernels_phase(device, inputs):
+    """K5/K5w and K6/K6w at the batched shape of K1/K2 (no path launches them
+    so yet; the spoa path's own shapes are `gap_path_phase`): the window
+    graphs at the largest predecessor distance and at the first ring past
+    shared memory, in nw and sw, and ov once."""
+    from vechat_tpu_torch.ops.kernels.poa_linear import SMEM_RING_MAX, max_pred_distance
+
+    preds, nn, seqp = inputs[1], inputs[4], inputs[5]
+    B, P, N = preds.shape
+    D, W = seqp.shape[1], seqp.shape[2]
+    dist = max(max_pred_distance(preds[b].T, nn[b, 0, 0]) for b in range(B))
+    log(f"K5/K6 batched inputs: the {B} windows of K1/K2, D={D}, W={W}, dirs "
+        f"{(N + 1) * B * D * W * 4 / 1e6:.0f} MB (int32) per launch")
+    for kind, scores in (("affine", AFFINE_SCORES), ("convex", CONVEX_SCORES)):
+        # the first ring whose int16 rings of R+1 rows leave shared memory
+        r_global = max(dist, SMEM_RING_MAX // (gap_kinds()[kind][0] * W * 2))
+        for mode, ring in (("nw", dist), ("sw", dist), ("ov", dist), ("nw", r_global),
+                           ("sw", r_global)):
+            check_gap_launch(device, kind, inputs, mode, scores, ring, time_plain=False)
+
+
+def spoa_launch_inputs(device, reads, scores):
+    """The launches of one nw spoa run, as `cli/spoa_main.py` makes them: the
+    graph grows read by read through the engine on the card, and each
+    alignment is one launch at B=1, D=1 in the graph's buckets at the ring
+    the engine picks. Returns {(node bucket, in-edge bucket): (arrays,
+    ring)} of the last launch at each shape; stops where the engine would
+    go to the host."""
+    from vechat_tpu_torch.ops.encode import encode
+    from vechat_tpu_torch.ops.kernels.graph_engine import TorchGraphEngine
+    from vechat_tpu_torch.ops.poagraph import PoaGraph
+
+    engine = TorchGraphEngine("nw", *scores, device=device)
+    graph = PoaGraph()
+    launches = {}
+    for read in reads:
+        codes = encode(read)
+        aln = []
+        if graph.num_nodes():
+            packed = engine.pack(codes, graph)
+            if packed is None:
+                break
+            launches[packed[0][1].shape[:0:-1]] = packed  # preds [1, P, N]
+            aln = engine.align(codes, graph)
+        graph.add_alignment(aln, codes, np.ones(len(codes), np.uint32))
+    return launches
+
+
+def gap_path_phase(device, reads):
+    """K5/K5w and K6/K6w at the shapes the spoa path gives them (phase 4's
+    reads and scores; one block, B=1 D=1): the last launch at each (node
+    bucket, in-edge bucket) the run reaches, nw for every score set, sw and
+    ov for the affine one at its largest shape. The `kernels` line takes each
+    kernel's row from the largest nw launch (the graph with all but the last
+    read in it), where the plain versions are timed too."""
+    results = {}
+    for kind, scores, modes in (
+        ("affine", AFFINE_SCORES, ("nw", "sw", "ov")),
+        ("convex", CONVEX_SCORES, ("nw",)),  # the CLI defaults: 640 bucket only
+        ("convex", CONVEX_SMALL_SCORES, ("nw",)),
+    ):
+        launches = spoa_launch_inputs(device, reads, scores)
+        top = max(launches)
+        for shape in sorted(launches):
+            arrays, ring = launches[shape]
+            for mode in modes if shape == top else ("nw",):
+                rows = check_gap_launch(device, kind, arrays, mode, scores, ring,
+                                        time_plain=shape == top and mode == "nw")
+                if mode == "nw":
+                    for row in rows:
+                        results[row["kernel"]] = row
+    return results
+
+
 def _walk_err(kr, ks, kc, pr, ps, pc):
     """K2 against its plain version: the largest difference of any decoded
     header field (first pair's rank and position, run length) over all
@@ -236,6 +423,9 @@ def _walk_err(kr, ks, kc, pr, ps, pc):
     for a, b in zip(fields(kr), fields(pr)):
         err = max(err, int((a - b).abs().max()))
     return max(err, int((kc.to(torch.int64) - pc.to(torch.int64)).abs().max()))
+
+
+NW_OUTPUTS = ("pt", "pq", "count", "dist")
 
 
 def nw_pairs(rng, n, lo, hi, rate):
@@ -260,7 +450,7 @@ def k3_phase(device, rng, T=2560, BW=896, NP=256):
     NP = t.shape[0]
     k_out = pw.banded_nw(t, ext, tl, ql, lo_, BW)
     p_out = pw._banded_plain(t, ext, tl, ql, lo_, BW)
-    err = _max_err("K3", k_out, p_out)
+    err = _max_err("K3", NW_OUTPUTS, k_out, p_out)
     ms = time_ms(lambda: pw.banded_nw(t, ext, tl, ql, lo_, BW))
     pms = time_ms(lambda: pw._banded_plain(t, ext, tl, ql, lo_, BW), reps=2)
     rows = int(tl.sum())
@@ -283,7 +473,7 @@ def k4_phase(device, rng, T=512, W=512, NP=64):
     NP = t.shape[0]
     k_out = pw.tiled_nw(t, q, tl, ql)
     p_out = pw._tiled_plain(t, q, tl, ql)
-    err = _max_err("K4", k_out, p_out)
+    err = _max_err("K4", NW_OUTPUTS, k_out, p_out)
     ms = time_ms(lambda: pw.tiled_nw(t, q, tl, ql))
     pms = time_ms(lambda: pw._tiled_plain(t, q, tl, ql), reps=2)
     rows = int(tl.sum())
@@ -296,12 +486,14 @@ def k4_phase(device, rng, T=512, W=512, NP=64):
     return {"pairwise_tiled": row}
 
 
-def _max_err(label, k_out, p_out):
+def _max_err(label, names, k_out, p_out):
+    """The largest difference between a kernel's outputs and its plain
+    version's; raises if there is any (the tolerance is exact)."""
     import torch
 
     torch.cuda.synchronize()
     err = 0
-    for name, a, b in zip(("pt", "pq", "count", "dist"), k_out, p_out):
+    for name, a, b in zip(names, k_out, p_out):
         bad = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
         if bad:
             raise RuntimeError(f"{label}: {name} differs from plain by {bad}")
@@ -360,6 +552,19 @@ def community(rng, tmp, n_reads=200, genome_len=12500, read_len=(2000, 3000), ra
     return path, truth, (strain_a, strain_b)
 
 
+def device_times(prof):
+    """{kernel or copy: ms on the card} of a `torch.profiler` run that
+    recorded CUDA activity."""
+    device_ms = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us:
+            device_ms[ev.key] = device_ms.get(ev.key, 0.0) + us / 1e3
+    return device_ms
+
+
 def main_path_phase(tmp, rng, backend_name="cuda"):
     import torch
 
@@ -383,13 +588,7 @@ def main_path_phase(tmp, rng, backend_name="cuda"):
         wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     counters = backend.counters() if hasattr(backend, "counters") else {}
-    device_ms = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us:
-            device_ms[ev.key] = us / 1e3
+    device_ms = device_times(prof)
     busy_s = sum(device_ms.values()) / 1e3
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
     stages = {}
@@ -426,12 +625,109 @@ def main_path_phase(tmp, rng, backend_name="cuda"):
     if backend_name != "cuda":  # a rehearsal on the CPU
         return launches
     for k in REPLACES:
-        if launches[k] == 0:
+        if k not in GAP_KERNELS and launches[k] == 0:
             raise RuntimeError(f"kernel {k} was not launched on the main path")
     if counters["device_alignments"] <= counters["fallbacks"]:
         raise RuntimeError(f"host routes dominate: {counters}")
     if not corrected or reduction < 4:
         raise RuntimeError(f"error fell only {reduction:.2f}x (floor 4x)")
+    return launches
+
+
+# ------------------------------------------------ phase 4: the spoa path
+
+GAP_KERNELS = ("poa_dp_affine", "poa_walk_affine", "poa_dp_convex", "poa_walk_convex")
+
+
+def spoa_reads(rng, n_reads=32):
+    """One consensus/MSA unit of the size of the main path's windows: reads
+    of one 480-base template, 8% ONT-profile error, each at most 575 bases."""
+    template = rand_seq(rng, 480)
+    return [ont_read(rng, template, 0.08)[:575] for _ in range(n_reads)]
+
+
+def spoa_phase(tmp, reads, backend_name="cuda"):
+    """`reads` through the spoa command line on the card, every run byte for
+    byte against the host engine. Returns the kernels' launches in the phase."""
+    import io
+
+    import torch
+
+    from vechat_tpu_torch.cli.spoa_main import build_parser, run
+    from vechat_tpu_torch.io.fastx import SeqRecord, write_fastx
+    from vechat_tpu_torch.ops.kernels import _build
+
+    comp = str.maketrans("ACGT", "TGCA")
+    files = {}
+    for name, seqs in (
+        ("all", reads),
+        ("first12", reads[:12]),
+        ("mixed_strands", [s if i % 2 == 0 else s.translate(comp)[::-1]
+                           for i, s in enumerate(reads)]),
+    ):
+        files[name] = os.path.join(tmp, f"spoa_{name}.fa")
+        write_fastx([SeqRecord(f"s{i}", s) for i, s in enumerate(seqs)], files[name], fmt="fa")
+    affine = score_args(AFFINE_SCORES)
+    # the host engine of the convex runs is Python, over a second a read: the
+    # run at the default scores, which goes to the host past the 640-node
+    # bucket (scores of magnitude 10 leave int16 there), takes the first 12
+    # reads, enough to pass that bucket; the run within 8 stays on the card
+    runs = [
+        ("linear nw", "all", ["-l", "1", *score_args(LINEAR_SCORES)]),
+        ("affine nw", "all", ["-l", "1", *affine]),
+        ("convex nw, default scores", "first12", ["-l", "1"]),
+        ("convex nw, scores within 8", "all", ["-l", "1", *score_args(CONVEX_SMALL_SCORES)]),
+        ("affine sw", "first12", ["-l", "0", *affine]),
+        ("affine ov", "first12", ["-l", "2", *affine]),
+        ("affine nw, strand-ambiguous", "mixed_strands", ["-l", "1", "-s", *affine]),
+    ]
+
+    def spoa(argv, backend):
+        args = build_parser().parse_args([*argv, "--backend", backend])
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        engine = run(args, out)
+        if backend == "cuda":
+            torch.cuda.synchronize()
+        return out.getvalue(), engine, time.perf_counter() - t0
+
+    def profile():  # device activity only; a rehearsal on the CPU has none
+        if backend_name != "cuda":
+            return contextlib.nullcontext()
+        return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+
+    _build.reset_launches()
+    seen = dict(_build.LAUNCHES)
+    device_ms, device_wall = {}, 0.0
+    for label, which, extra in runs:
+        argv = [files[which], "-r", "0", "-r", "1", *extra]
+        with profile() as prof:
+            got, engine, wall = spoa(argv, backend_name)
+        run_ms = device_times(prof) if prof else {}
+        for k, v in run_ms.items():
+            device_ms[k] = device_ms.get(k, 0.0) + v
+        device_wall += wall
+        want, _, host_wall = spoa(argv, "host")
+        now = dict(_build.LAUNCHES)
+        log(dict(phase="spoa", run=label, reads=len(reads) if which != "first12" else 12,
+                 byte_identical=got == want, wall_s=wall, host_wall_s=host_wall,
+                 device_busy_s=sum(run_ms.values()) / 1e3,
+                 device_alignments=engine.device_alignments, fallbacks=engine.fallbacks,
+                 launches={k: now[k] - seen[k] for k in now if now[k] != seen[k]}))
+        seen = now
+        if got != want:
+            raise RuntimeError(f"spoa {label}: --backend {backend_name} differs from --backend host")
+        if engine.device_alignments == 0:
+            raise RuntimeError(f"spoa {label}: no alignment ran on the device")
+    launches = dict(_build.LAUNCHES)
+    busy_s = sum(device_ms.values()) / 1e3
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]
+    log(dict(phase="spoa_total", wall_s=device_wall, launches=launches, device_busy_s=busy_s,
+             device_idle_share=1 - busy_s / device_wall, device_ms_top=dict(top)))
+    if backend_name == "cuda":
+        for k in GAP_KERNELS:
+            if launches[k] == 0:
+                raise RuntimeError(f"kernel {k} was not launched on the spoa path")
     return launches
 
 
@@ -445,6 +741,14 @@ REPLACES = {
                         "vechat_tpu/ops/kernels/pairwise_pallas.py:397"),
     "pairwise_tiled": ("vechat_tpu_torch/csrc/pairwise_nw.cu",
                        "vechat_tpu/ops/kernels/pairwise_pallas.py:173"),
+    "poa_dp_affine": ("vechat_tpu_torch/csrc/poa_affine.cu",
+                      "vechat_tpu/ops/kernels/poa_pallas_affine.py:488"),
+    "poa_walk_affine": ("vechat_tpu_torch/csrc/poa_gap.cuh",
+                        "vechat_tpu/ops/kernels/poa_pallas_affine.py:312"),
+    "poa_dp_convex": ("vechat_tpu_torch/csrc/poa_convex.cu",
+                      "vechat_tpu/ops/kernels/poa_pallas_convex.py:563"),
+    "poa_walk_convex": ("vechat_tpu_torch/csrc/poa_gap.cuh",
+                        "vechat_tpu/ops/kernels/poa_pallas_convex.py:404"),
 }
 
 
@@ -482,13 +786,20 @@ def main():
     device = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     rows = {}
-    rows.update(k1_k2_phase(device, rng))
+    inputs = window_inputs(rng, B=16, N=640, P=8, W=576, D=32)
+    rows.update(k1_k2_phase(device, inputs))
+    gap_kernels_phase(device, inputs)
+    reads = spoa_reads(np.random.default_rng(SEED + 1))
+    rows.update(gap_path_phase(device, reads))
     rows.update(k3_phase(device, rng))
     rows.update(k4_phase(device, rng))
 
     with tempfile.TemporaryDirectory() as tmp:
         goldens_phase(tmp)
         launches = main_path_phase(tmp, rng)
+        spoa_launches = spoa_phase(tmp, reads)
+    for k in GAP_KERNELS:
+        launches[k] = spoa_launches[k]
 
     kernels = []
     for name, (source, replaces) in REPLACES.items():

@@ -15,6 +15,8 @@ import torch
 from vechat_tpu_torch.ops.encode import encode
 from vechat_tpu_torch.ops.kernels import _build
 from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
+from vechat_tpu_torch.ops.kernels import poa_affine as pa
+from vechat_tpu_torch.ops.kernels import poa_convex as pc
 from vechat_tpu_torch.ops.kernels import poa_linear as pl
 from vechat_tpu_torch.ops.kernels.backend import TorchAlignerBackend, pack_windows
 from vechat_tpu_torch.ops.kernels.dense import graph_to_dense
@@ -133,6 +135,140 @@ def test_backend_matches_host(cuda):
     assert be.fallbacks == 0 and be.device_alignments == len(items)
     for (codes, g, mode), aln in zip(items, got):
         assert aln == g.align_host(codes, mode, 3, -5, -4)
+
+
+GAP_KINDS = {
+    # name: rings, scores, DP, plain DP, walk, plain walk
+    "affine": (2, (3, -5, -8, -6), pa.poa_dp_affine, pa._dp_affine_plain,
+               pa.traceback_walk_affine, pa._walk_affine_plain),
+    "convex": (3, (5, -4, -8, -6, -10, -4), pc.poa_dp_convex, pc._dp_convex_plain,
+               pc.traceback_walk_convex, pc._walk_convex_plain),
+}
+
+
+@pytest.mark.parametrize("kind", ["affine", "convex"])
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+@pytest.mark.parametrize("ring", [64, 511])
+def test_gap_dp_and_walk_match_plain(cuda, kind, mode, ring):
+    """K5/K5w and K6/K6w against their plain versions, with the rings in
+    shared memory (64) and in the global scratch ring (511)."""
+    n_rings, scores, dp, dp_plain, walk, walk_plain = GAP_KINDS[kind]
+    B, N, P, W, D = 3, 640, 8, 128, 5
+    assert (n_rings * (ring + 1) * W * 2 > pl.SMEM_RING_MAX) == (ring == 511)
+    arrs, _, _ = windows(8, B, N, P, W, D)
+    codes, preds, sink, nn, seqp, slen = _tensors(arrs, cuda, B, N, D)
+    aux, deg = pa.pack_aux_gap(preds, ring)
+    args = (codes, aux, deg, sink, nn, seqp, slen, mode, *scores, ring)
+    before = dict(_build.LAUNCHES)
+    k = dp(*args)
+    assert _build.LAUNCHES[f"poa_dp_{kind}"] == before[f"poa_dp_{kind}"] + 1
+    p = dp_plain(*args)
+    real = torch.arange(N + 1, device=cuda)[None, :] <= nn[:, None]
+    assert torch.equal(k[0][real], p[0][real])
+    for a, b in zip(k[1:], p[1:]):
+        assert torch.equal(a, b)
+    L = 2 * N + W
+    kw = walk(k[0], k[1], k[2], mode, L, P)
+    assert _build.LAUNCHES[f"poa_walk_{kind}"] == before[f"poa_walk_{kind}"] + 1
+    for a, b in zip(kw, walk_plain(k[0], k[1], k[2], mode, L, P)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+@pytest.mark.parametrize(
+    "scores", [(3, -5, -4, -4, -4, -4), (3, -5, -8, -6, -8, -6), (5, -4, -8, -6, -10, -4)]
+)
+def test_graph_engine_matches_host(cuda, mode, scores):
+    from vechat_tpu_torch.ops.graph_align import make_engine
+    from vechat_tpu_torch.ops.kernels.graph_engine import TorchGraphEngine
+
+    from vechat_tpu_torch.ops.poagraph import PoaGraph
+
+    rng = np.random.default_rng(9)
+    base = rand_seq(rng, 300)
+    dev = TorchGraphEngine(mode, *scores, device=cuda)
+    host = make_engine(mode, *scores)
+    g = PoaGraph()
+    for s in [base] + [mutate(rng, base) for _ in range(6)]:
+        c = encode(s)
+        aln = []
+        if g.num_nodes():
+            aln, score = dev.align(c, g, return_score=True)
+            assert (aln, score) == host.align(c, g, return_score=True)
+        g.add_alignment(aln, c, np.ones(len(c), np.uint32))
+    assert (dev.device_alignments, dev.fallbacks) == (6, 0)
+
+
+@pytest.mark.parametrize("scores", [(3, -5, -8, -6, -8, -6), (3, -5, -8, -6, -10, -2)])
+@pytest.mark.parametrize("query", ["CCGTACGT", "GTACGT", "TTACCGTACGT"])
+def test_nw_walk_kernel_ends_at_the_origin_like_the_host(cuda, scores, query):
+    """nw alignments that start by deleting one or three start nodes, or by
+    an insertion: the walk kernel reaches cell (0, 0) in the vertical-chain
+    state and must end there, as the host engine's alignment does."""
+    from vechat_tpu_torch.ops.graph_align import make_engine
+    from vechat_tpu_torch.ops.kernels.graph_engine import TorchGraphEngine
+    from vechat_tpu_torch.ops.poagraph import PoaGraph
+
+    g = PoaGraph()
+    base = encode("ACCGTACGT")
+    g.add_alignment([], base, np.ones(len(base), np.uint32))
+    q = encode(query)
+    dev = TorchGraphEngine("nw", *scores, device=cuda)
+    assert dev.align(q, g, return_score=True) == make_engine("nw", *scores).align(
+        q, g, return_score=True
+    )
+    assert (dev.device_alignments, dev.fallbacks) == (1, 0)
+
+
+def test_spoa_cli_cuda_matches_host(cuda, tmp_path, capsys):
+    from vechat_tpu_torch.cli.spoa_main import main
+
+    rng = np.random.default_rng(10)
+    base = rand_seq(rng, 200)
+    fa = tmp_path / "in.fa"
+    fa.write_text("".join(f">s{i}\n{mutate(rng, base)}\n" for i in range(8)))
+    outs = {}
+    for backend in ("cuda", "host"):
+        assert main([str(fa), "-l", "1", "-r", "0", "-r", "1", "-r", "4", "--backend", backend]) == 0
+        captured = capsys.readouterr()
+        outs[backend] = captured.out
+        if backend == "cuda":
+            assert "device_alignments=7 fallbacks=0" in captured.err
+    assert outs["cuda"] == outs["host"] and ">Consensus" in outs["cuda"]
+
+
+def test_gap_wrappers_raise_on_wrong_inputs(cuda):
+    B, N, P, W, D = 1, 256, 8, 128, 2
+    arrs, _, _ = windows(11, B, N, P, W, D, depth=3, base_len=60)
+    codes, preds, sink, nn, seqp, slen = _tensors(arrs, cuda, B, N, D)
+    aux, deg = pa.pack_aux_gap(preds, 64)
+    ok = dict(codes=codes, aux=aux, deg=deg, sink=sink, n_nodes=nn, seqp=seqp, slen=slen)
+    aff = dict(align_type="nw", m=3, x=-5, g=-8, e=-6)
+    cvx = dict(aff, q=-10, c=-2)
+    for dp, kw in ((pa.poa_dp_affine, aff), (pc.poa_dp_convex, cvx)):
+        dp(**ok, **kw, R=64)  # the inputs are good as they stand
+        for change in (
+            dict(seqp=seqp.to(torch.int64)),  # dtype
+            dict(slen=slen.cpu()),  # device
+            dict(codes=codes[:, :-1].contiguous()),  # shape
+            dict(seqp=seqp[:, :, :100].contiguous()),  # W not a multiple of 32
+        ):
+            with pytest.raises(ValueError):
+                dp(**{**ok, **change}, **kw, R=64)
+        with pytest.raises(ValueError):
+            dp(**ok, **kw, R=512)  # past the 9-bit distance field
+    aux16 = torch.zeros((B, 16, N), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="P <= 8"):
+        pc.poa_dp_convex(**{**ok, "aux": aux16}, **cvx, R=64)
+    dirs = torch.zeros((B, N + 1, D, W), dtype=torch.int32, device=cuda)
+    mx = torch.zeros((B, D), dtype=torch.int32, device=cuda)
+    for walk in (pa.traceback_walk_affine, pc.traceback_walk_convex):
+        with pytest.raises(ValueError):
+            walk(dirs.to(torch.int16), mx, mx, "nw", 2 * N + W, P)
+        with pytest.raises(ValueError):
+            walk(dirs, mx.cpu(), mx, "nw", 2 * N + W, P)
+    with pytest.raises(ValueError, match="P <= 8"):
+        pc.traceback_walk_convex(dirs, mx, mx, "nw", 2 * N + W, 16)
 
 
 def _pairs(seed, n, lo, hi, rate=0.1):

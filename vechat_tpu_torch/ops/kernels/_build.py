@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG_ROOT, "csrc")
 BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
-SOURCES = ("poa_linear", "pairwise_nw")
+SOURCES = ("poa_linear", "pairwise_nw", "poa_affine", "poa_convex")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,6 +35,10 @@ LAUNCHES: Dict[str, int] = {
     "poa_walk": 0,
     "pairwise_banded": 0,
     "pairwise_tiled": 0,
+    "poa_dp_affine": 0,
+    "poa_walk_affine": 0,
+    "poa_dp_convex": 0,
+    "poa_walk_convex": 0,
 }
 
 _lock = threading.Lock()

@@ -99,24 +99,106 @@ def markers(P: int) -> Tuple[int, int]:
     return marker_d, marker_d - 1
 
 
-def pack_aux(preds: torch.Tensor, R: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-slot candidate pack and true in-degree from preds [B, P, N]
-    (DP rows, 0 = row-0 boundary, padding repeats slot 0).
-
-    aux[b, p, r] = hslot << 16 | (prio << DELTA_BITS) + delta, where hslot
-    is the H-ring slot of the predecessor row (R = the pinned row 0), prio
-    the diagonal priority of slot p and delta the row distance.
-    Returns (aux [B, P, N] int32, deg [B, N] int32)."""
-    B, P, N = preds.shape
-    dev = preds.device
-    rows = torch.arange(1, N + 1, dtype=torch.int32, device=dev)[None, None, :]
+def ring_slots(preds: torch.Tensor, R: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ring slot and row distance of every predecessor slot, and the true
+    in-degree, from preds [B, P, N] (DP rows, 0 = row-0 boundary, padding
+    repeats slot 0). hslot is the ring slot of the predecessor row (R = the
+    pinned row 0), delta the row distance (0 = "to row 0").
+    Returns (hslot [B, P, N], delta [B, P, N], deg [B, N]), int32."""
+    N = preds.shape[2]
+    rows = torch.arange(1, N + 1, dtype=torch.int32, device=preds.device)[None, None, :]
     pz = preds == 0
     hslot = torch.where(pz, R, torch.remainder(preds - 1, R))
     delta = torch.where(pz, 0, rows - preds)
-    dprio = (2 * P + 1 - torch.arange(P, dtype=torch.int32, device=dev))[None, :, None]
-    aux = (hslot << 16) | ((dprio << DELTA_BITS) + delta)
     deg = (preds[:, 1:, :] != preds[:, :1, :]).sum(dim=1, dtype=torch.int32) + 1
-    return aux.to(torch.int32).contiguous(), deg.contiguous()
+    return hslot.to(torch.int32), delta.to(torch.int32), deg.contiguous()
+
+
+def pack_aux(preds: torch.Tensor, R: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot candidate pack and true in-degree from preds [B, P, N].
+
+    aux[b, p, r] = hslot << 16 | (prio << DELTA_BITS) + delta, with prio the
+    diagonal priority of slot p (see `ring_slots` for hslot and delta).
+    Returns (aux [B, P, N] int32, deg [B, N] int32)."""
+    P = preds.shape[1]
+    hslot, delta, deg = ring_slots(preds, R)
+    dprio = (2 * P + 1 - torch.arange(P, dtype=torch.int32, device=preds.device))[None, :, None]
+    aux = (hslot << 16) | ((dprio << DELTA_BITS) + delta)
+    return aux.to(torch.int32).contiguous(), deg
+
+
+def to_i32(a, device) -> torch.Tensor:
+    """numpy array or tensor of any integer dtype -> contiguous int32 tensor
+    on `device`."""
+    t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+    return t.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _check_inputs(tensors, dtype, device):
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def check_dp_inputs(codes, aux, deg, sink, n_nodes, seqp, slen, R):
+    """Shapes, dtype, device and contiguity of a POA DP wrapper's inputs
+    (the linear, affine and convex kernels take the same ones); the ring
+    must fit the DELTA_BITS distance field. Returns (B, P, N, D, W)."""
+    if aux.dim() != 3 or seqp.dim() != 3:
+        raise ValueError("aux must be [B, P, N] and seqp [B, D, W]")
+    B, P, N = aux.shape
+    D, W = seqp.shape[1], seqp.shape[2]
+    if R >= (1 << DELTA_BITS) or R < 1:
+        raise ValueError(f"ring {R} outside [1, {1 << DELTA_BITS})")
+    shapes = dict(codes=(B, N), deg=(B, N), sink=(B, N), n_nodes=(B,), seqp=(B, D, W), slen=(B, D))
+    tensors = dict(codes=codes, aux=aux, deg=deg, sink=sink, n_nodes=n_nodes, seqp=seqp, slen=slen)
+    for name, shp in shapes.items():
+        if tuple(tensors[name].shape) != shp:
+            raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, expected {shp}")
+    _check_inputs(tensors, torch.int32, seqp.device)
+    if seqp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {seqp.device}")
+    if seqp.device.type == "cuda" and (W % 32 or W > 1024):
+        raise ValueError(f"W={W} must be a multiple of 32 and <= 1024")
+    return B, P, N, D, W
+
+
+def best_masks(n_nodes, sink, slen, N, W, mode, dev):
+    """(cell_mask [B, D, W], best_row [B, N], jlane [1, 1, W]) of a plain DP:
+    the lanes and rows that may hold the best cell (real rows; sink rows
+    only, in nw/ov)."""
+    jlane = torch.arange(W, dtype=torch.int32, device=dev)[None, None, :]
+    sl = slen[:, :, None]
+    cell_mask = (jlane == sl) if mode == "nw" else (jlane != 0) & (jlane <= sl)
+    rows = torch.arange(1, N + 1, device=dev)[None, :]
+    best_row = rows <= n_nodes[:, None]
+    if mode != "sw":
+        best_row = best_row & (sink != 0)
+    return cell_mask, best_row, jlane
+
+
+def best_init(B, D, W, mode, dev):
+    """Initial packed best cells [B, D, W] of a plain DP."""
+    if mode == "sw":
+        return torch.zeros((B, D, W), dtype=torch.int32, device=dev)
+    return torch.full((B, D, W), NEG16 * TIE + (TIE - 1), dtype=torch.int32, device=dev)
+
+
+def best_cell(bestc, jlane, mode):
+    """(maxi, maxj, score) [B, D] int32 from the packed best cells
+    (score * TIE + (TIE - 1 - row)): highest score, lowest row, lowest lane."""
+    W = bestc.shape[2]
+    best = bestc.max(dim=2).values
+    score = best >> 12
+    i_pick = (TIE - 1) - (best & (TIE - 1))
+    j_pick = torch.where(bestc == best[:, :, None], jlane, W).min(dim=2).values
+    empty = score <= 0 if mode == "sw" else i_pick == 0
+    i32 = torch.int32
+    return torch.where(empty, 0, i_pick).to(i32), torch.where(empty, 0, j_pick).to(i32), score.to(i32)
 
 
 # ------------------------------------------------------------------ K1: DP
@@ -136,16 +218,9 @@ def _dp_plain(codes, aux, deg, sink, n_nodes, seqp, slen, mode, m, x, g, R):
     VADJ = g * (1 << SH) - (P << DELTA_BITS)
     i32 = torch.int32
     ring_base = torch.arange(B, device=dev)[:, None] * (R + 1)
-    jlane = torch.arange(W, dtype=i32, device=dev)[None, None, :]
+    cell_mask, best_row, jlane = best_masks(n_nodes, sink, slen, N, W, mode, dev)
     jg = jlane * g
     lane0 = jlane == 0
-    sl = slen[:, :, None]
-    cell_mask = (jlane == sl) if mode == "nw" else (jlane != 0) & (jlane <= sl)
-    # rows that may hold the best cell: real rows, and sink rows in nw/ov
-    rows = torch.arange(1, N + 1, device=dev)[None, :]
-    best_row = rows <= n_nodes[:, None]
-    if mode != "sw":
-        best_row = best_row & (sink != 0)
     prof_m = torch.full((), m * (1 << SH), dtype=i32, device=dev)
     prof_x = torch.full((), x * (1 << SH), dtype=i32, device=dev)
     hrow = (aux >> 16).long() + ring_base[:, :, None]  # [B, P, N] row of Hf
@@ -155,11 +230,9 @@ def _dp_plain(codes, aux, deg, sink, n_nodes, seqp, slen, mode, m, x, g, R):
     H = torch.zeros((B, R + 1, D, W), dtype=torch.int16, device=dev)
     Hf = H.view(B * (R + 1), D, W)
     dirs = torch.zeros((B, N + 1, D, W), dtype=torch.int16, device=dev)
-    if mode == "sw":
-        bestc = torch.zeros((B, D, W), dtype=i32, device=dev)
-    else:
+    bestc = best_init(B, D, W, mode, dev)
+    if mode != "sw":
         H[:, R] = jg.to(torch.int16)
-        bestc = torch.full((B, D, W), NEG16 * TIE + (TIE - 1), dtype=i32, device=dev)
         dirs[:, 0] = HORIZ_CODE
     rld = torch.zeros((B, D, W), dtype=i32, device=dev)
     rlv = torch.zeros((B, D, W), dtype=i32, device=dev)
@@ -201,15 +274,7 @@ def _dp_plain(codes, aux, deg, sink, n_nodes, seqp, slen, mode, m, x, g, R):
         dirs[:, hr] = dcode.to(torch.int16)
         upd = cell_mask & best_row[:, r, None, None]
         bestc = torch.where(upd, torch.maximum(bestc, run * TIE + (TIE - 1 - hr)), bestc)
-
-    best = bestc.max(dim=2).values  # [B, D]
-    score = best >> 12
-    i_pick = (TIE - 1) - (best & (TIE - 1))
-    j_pick = torch.where(bestc == best[:, :, None], jlane, W).min(dim=2).values
-    empty = score <= 0 if mode == "sw" else i_pick == 0
-    maxi = torch.where(empty, 0, i_pick).to(i32)
-    maxj = torch.where(empty, 0, j_pick).to(i32)
-    return dirs, maxi, maxj, score.to(i32)
+    return (dirs, *best_cell(bestc, jlane, mode))
 
 
 _DP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
@@ -226,16 +291,6 @@ def _lib():
     return lib
 
 
-def _check_inputs(tensors, dtype, device):
-    for name, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-
-
 def poa_dp(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, R):
     """K1. codes/deg/sink [B, N], aux [B, P, N], n_nodes [B], seqp [B, D, W]
     (lane j = code of sequence position j-1), slen [B, D]; all int32 on one
@@ -244,23 +299,10 @@ def poa_dp(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, R):
     Returns dirs [B, N+1, D, W] int16 (rows past a graph's n_nodes are
     undefined on the card), maxi, maxj, score [B, D] int32. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
-    B, P, N = aux.shape
-    D, W = seqp.shape[1], seqp.shape[2]
-    if R >= (1 << DELTA_BITS) or R < 1:
-        raise ValueError(f"ring {R} outside [1, {1 << DELTA_BITS})")
-    shapes = dict(codes=(B, N), deg=(B, N), sink=(B, N), n_nodes=(B,), slen=(B, D))
-    tensors = dict(codes=codes, aux=aux, deg=deg, sink=sink, n_nodes=n_nodes, seqp=seqp, slen=slen)
-    for name, shp in shapes.items():
-        if tuple(tensors[name].shape) != shp:
-            raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, expected {shp}")
-    _check_inputs(tensors, torch.int32, seqp.device)
+    B, P, N, D, W = check_dp_inputs(codes, aux, deg, sink, n_nodes, seqp, slen, R)
     mode = MODES[align_type]
     if seqp.device.type == "cpu":
         return _dp_plain(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, R)
-    if seqp.device.type != "cuda":
-        raise ValueError(f"unsupported device {seqp.device}")
-    if W % 32 or W > 1024:
-        raise ValueError(f"W={W} must be a multiple of 32 and <= 1024")
     dev = seqp.device
     dirs = torch.empty((B, N + 1, D, W), dtype=torch.int16, device=dev)
     maxi = torch.empty((B, D), dtype=torch.int32, device=dev)
@@ -406,9 +448,7 @@ def poa_align(codes, preds, sink, n_nodes, seqp, seq_len, align_type, m, x, g,
     device = _build.resolve_device(device)
 
     def t(a):
-        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(
-            device=device, dtype=torch.int32
-        ).contiguous()
+        return to_i32(a, device)
 
     preds = t(preds)
     B, P, N = preds.shape
