@@ -5,12 +5,15 @@
 
 Phases (each raises on failure; the script exits non-zero on any):
   0. the card's name and power limit; build the CUDA kernels with nvcc
-  1. each kernel (K1 POA DP, K2 POA walk, K3 banded NW, K4 tiled NW, K5/K5w
-     affine POA DP and walk, K6/K6w convex POA DP and walk) at its path's
-     shapes against its plain PyTorch version on the same inputs, exact
-     equality; CUDA-event times of both. K1-K4 at the main path's batched
-     shapes; K5-K6w at the spoa path's (one block: B=1, D=1, the graph of
-     phase 4 as it grows) and, as extra lines, at K1's batched shape
+  1. each kernel (K1 POA DP, K2 POA walk, the dense POA walk, K3 banded NW,
+     K4 tiled NW, K5/K5w affine POA DP and walk, K6/K6w convex POA DP and
+     walk, K7 the int32 mix peak) at its path's shapes against its plain
+     PyTorch version on the same inputs, exact equality; CUDA-event times of
+     both. K1-K4 and the dense walk at the main path's batched shapes (the
+     dense walk's pairs also against K2's, expanded); K5-K6w at the spoa
+     path's (one block: B=1, D=1, the graph of phase 4 as it grows) and, as
+     extra lines, at K1's batched shape; K7 on one [64, 512] tile for each
+     SM, then the measurement of the mix's sustained rate
   2. `vechat --backend cuda` reproduces the two committed goldens
   3. the main path: a seeded two-strain community (2 x 12.5 kb strains,
      1% apart; 200 reads x 2.5 kb at 8% ONT-profile error) corrected by
@@ -19,17 +22,33 @@ Phases (each raises on failure; the script exits non-zero on any):
   4. the spoa path: 32 reads of one 480-base template (8% ONT-profile
      error) through `vechat-spoa-torch --backend cuda` with linear, affine
      and convex scores, in nw/sw/ov and strand-ambiguous runs (the first 12
-     reads for sw, ov and the convex run at the default scores), each byte
-     for byte against `--backend host`; wall time, device alignments, host
-     routes and each kernel's launches per run
+     reads for sw, ov and both convex runs: their host engine is Python),
+     each byte for byte against `--backend host`; wall time, device
+     alignments, host routes and each kernel's launches per run
+  5. the scale-out path, on phase 3's community and against its output:
+     (a) both goldens through a backend that shards every window batch over
+     two streams of the card (K1 + the dense walk a shard), and the dense
+     walk once more against its plain version on the largest shard this run
+     launched; (b) two
+     processes of the command line on the card, the records all-gathered
+     between the rounds over gloo: rank 0's file is phase 3's, byte for
+     byte; (c) `--stream --resume-dir` in four chunks of 50 reads, byte for
+     byte against the same command on the host engine, then one checkpoint
+     of each round deleted and the command run again
+
+The phases run one after another. One process runs beside them: 5c's
+reference on the host engine, which needs no card and takes as long as the
+main path. It is started once phase 3 has been timed and is waited for at
+5c, so the walls of phases 4, 5a and 5b are taken with that one process on
+another of the host's cores; those of phases 1 to 3 and 5c with nothing.
 
 The second-to-last line is {"kernels": [...]} with, per kernel, its launches
-on its path (K1-K4: phase 3; K5-K6w: phase 4, counts set to 0 just before
-the phase), the largest difference from its plain version in phase 1 (0:
-the tolerance is exact), its time, the plain version's time and the bound
-(the least time the card could take for the same work). The last line is
-{"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout,
-it exits non-zero and prints no result.
+on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; K7:
+the measurement; counts set to 0 just before each), the largest difference
+from its plain version (0: the tolerance is exact), its time, the plain
+version's time and the bound (the least time the card could take for
+the same work). The last line is {"ok": true, "device": {...}}. Without a
+CUDA device, or outside a checkout, it exits non-zero and prints no result.
 """
 
 import contextlib
@@ -68,6 +87,17 @@ WALK_OPS_STEP = 20
 K5_OPS_CELL, K5_OPS_EDGE = 26, 20
 K6_OPS_CELL, K6_OPS_EDGE = 68, 34
 WALK3_OPS_STEP = 30
+# K7 does 12 operations an element a round by the mix's definition, and the
+# rate it reports counts those. Its bound counts what the INT32 pipe must at
+# least run for them on sm_90a, 8 instruction slots: each add-then-max pair is
+# one VIADDMNMX, the roll is a shuffle and the subtract can go as an IMAD
+# on the FMA pipe. (As compiled the kernel takes 9: one more select, for the
+# roll's last lane.) So a count of operations over the INT32 rate is no floor
+# for code that the compiler fuses; the measured rate of the mix stands
+# beside every operation bound for that reason
+MIX_INT32_SLOTS_ROUND = 8
+# set by mix_peak_phase: the mix's measured rate, in counted operations a second
+MEASURED = {"mix_ops_per_s": None}
 
 
 def log(obj):
@@ -78,6 +108,16 @@ def bound_ms(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def log_row(row):
+    """Log a kernel's row; one bound by operations also gets the share of
+    the mix's measured rate that its counted operations a second come to."""
+    rate = MEASURED["mix_ops_per_s"]  # None in a rehearsal on the CPU
+    if rate and row["bound_by"] == "operations" and row["kernel"] != "mix_peak":
+        row["share_of_measured_mix_rate"] = (
+            row["bound_ms"] / row["ms"] * INT32_OPS_PER_S / rate)
+    log(row)
 
 
 def time_ms(fn, warmup=1, reps=5):
@@ -230,10 +270,18 @@ def k1_k2_phase(device, inputs):
         err2 = _walk_err(kr, ks, kc, pr, ps, pc)
         if err2:
             raise RuntimeError(f"K2 {mode} ring {ring}: walk differs from plain by {err2}")
+        # the dense walk (the sharded route's): against its plain version,
+        # whole buffers, and its pairs against K2's expanded
+        kd = pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P)
+        pd = pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P)
+        err3 = _max_err(f"dense walk {mode} ring {ring}", ("pn", "pp", "count"), kd, pd)
+        _dense_equals_rle(kd, kr[:ks], kc, f"{mode} ring {ring}")
         ms1 = time_ms(lambda: pl.poa_dp(*args))
         pms1 = time_ms(lambda: pl._dp_plain(*args), reps=2)
         ms2 = time_ms(lambda: pl.traceback_walk_rle(dirs, maxi, maxj, mode, L, P))
         pms2 = time_ms(lambda: pl._walk_plain(dirs, maxi, maxj, mode, L, P), reps=2)
+        ms3 = time_ms(lambda: pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P))
+        pms3 = time_ms(lambda: pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P), reps=2)
         # bound inputs from this run's data
         n_rows = int(nn_t.sum())
         deg_real = int((deg * real_rows[:, 1:]).sum())
@@ -244,16 +292,81 @@ def k1_k2_phase(device, inputs):
         steps = int((kr != 0).sum())
         k2_bytes = steps * (2 + 4) + B * D * 12
         k2_ops = steps * WALK_OPS_STEP
+        # the dense walk reads one int16 word a step (one step a pair) and
+        # writes both [B, D, L] int16 buffers whole: the -2 fill is output
+        pairs = int(kd[2].sum())
+        kd_bytes = pairs * 2 + 2 * B * D * L * 2 + B * D * 12
+        kd_ops = pairs * WALK_OPS_STEP
         shape = f"B={B} N={N} D={D} W={W} P={P} ring={ring} {mode}"
         for name, ms, pms, nb, ops, e in (("poa_dp", ms1, pms1, k1_bytes, k1_ops, err),
-                                          ("poa_walk", ms2, pms2, k2_bytes, k2_ops, err2)):
+                                          ("poa_walk", ms2, pms2, k2_bytes, k2_ops, err2),
+                                          ("poa_walk_dense", ms3, pms3, kd_bytes, kd_ops, err3)):
             b_ms, b_by = bound_ms(nb, ops)
             row = dict(kernel=name, shape=shape, ms=ms, plain_ms=pms, max_abs_err=e,
                        bound_ms=b_ms, bound_by=b_by)
-            log(row)
+            log_row(row)
             if (mode, ring) == ("nw", dist):  # the ring the backend picks
                 results[name] = row
     return results
+
+
+def _dense_equals_rle(dense, runs, count, label):
+    """The dense walk's pairs are the run-length walk's, expanded."""
+    from vechat_tpu_torch.ops.kernels.poa_linear import runs_to_pairs_np
+
+    pn, pp, cnt = (t.cpu().numpy() for t in dense)
+    runs = runs.cpu().numpy()
+    if not (cnt == count.cpu().numpy()).all():
+        raise RuntimeError(f"dense walk {label}: counts differ from the run-length walk's")
+    B, D, L = pn.shape
+    for b in range(B):
+        for d in range(D):
+            c = int(cnt[b, d])
+            rn, rp = runs_to_pairs_np(runs[:, b * D + d])
+            if not ((pn[b, d, L - c:] == rn).all() and (pp[b, d, L - c:] == rp).all()):
+                raise RuntimeError(f"dense walk {label}: pairs of walk ({b}, {d}) differ "
+                                   "from the run-length walk's expanded")
+
+
+def mix_peak_phase(device):
+    """K7 against its plain version (every lane of the four chains and the
+    checksum, exact), then the measurement: the sustained rate of the DP
+    kernels' int32 mix beside the data sheet's INT32 rate."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.utils import roofline as rf
+
+    T = torch.cuda.get_device_properties(device).multi_processor_count
+    names = ("a", "b", "c", "d", "checksum")
+    chains = rf.mix_inputs(T, SEED, device)
+    for iters in (1, 8):
+        _max_err(f"K7 iters={iters}", names, rf.mix_peak(*chains, iters, SEED),
+                 rf._mix_plain(*chains, iters, SEED))
+    _build.reset_launches()
+    m = rf.measure_mix_peak(device=device, seed=SEED)
+    launches = _build.LAUNCHES["mix_peak"]
+    iters = m["iters"]
+    # at the measurement's own depth: once more against the plain version
+    # (that run is the plain timing's warm-up)
+    err = _max_err(f"K7 iters={iters}", names, rf.mix_peak(*chains, iters, SEED),
+                   rf._mix_plain(*chains, iters, SEED))
+    plain_ms = time_ms(lambda: rf._mix_plain(*chains, iters, SEED), warmup=0, reps=2)
+    elems = T * rf.ROWS * rf.COLS
+    rounds = 4 * iters * elems  # element rounds: four chains a round each
+    b_ms, b_by = bound_ms(8 * elems * 4 + T * 4, MIX_INT32_SLOTS_ROUND * rounds)
+    row = dict(kernel="mix_peak", shape=f"T={T} tiles [64, 512] x 4 chains, iters={iters}",
+               ms=m["ms_iters"], plain_ms=plain_ms, max_abs_err=err,
+               bound_ms=b_ms, bound_by=b_by, launches=launches,
+               ms_of_counted_operations_at_paper_rate=(
+                   rf.OPS_PER_ROUND * rounds / INT32_OPS_PER_S * 1e3))
+    log_row(row)
+    MEASURED["mix_ops_per_s"] = m["ops_per_s"]
+    log(dict(phase="mix_peak", tops=m["tops"], paper_int32_tops=INT32_OPS_PER_S / 1e12,
+             share_of_paper_int32_rate=m["ops_per_s"] / INT32_OPS_PER_S,
+             ms_iters=m["ms_iters"], ms_2iters=m["ms_2iters"], iters=iters, tiles=T,
+             roll=m["roll"]))
+    return {"mix_peak": row}
 
 
 def gap_kinds():
@@ -326,7 +439,7 @@ def check_gap_launch(device, kind, arrays, mode, scores, ring, time_plain):
         b_ms, b_by = bound_ms(nb, ops)
         rows.append(dict(kernel=name, shape=shape, scores="/".join(map(str, scores)), ms=ms,
                          plain_ms=pms, max_abs_err=e, bound_ms=b_ms, bound_by=b_by))
-        log(rows[-1])
+        log_row(rows[-1])
     return rows
 
 
@@ -449,8 +562,7 @@ def k3_phase(device, rng, T=2560, BW=896, NP=256):
     t, ext, tl, ql, lo_ = pw.banded_inputs(*pw.pack_banded(pairs, T, BW), BW, device)
     NP = t.shape[0]
     k_out = pw.banded_nw(t, ext, tl, ql, lo_, BW)
-    p_out = pw._banded_plain(t, ext, tl, ql, lo_, BW)
-    err = _max_err("K3", NW_OUTPUTS, k_out, p_out)
+    err = _max_err("K3", NW_OUTPUTS, k_out, pw._banded_plain(t, ext, tl, ql, lo_, BW))
     ms = time_ms(lambda: pw.banded_nw(t, ext, tl, ql, lo_, BW))
     pms = time_ms(lambda: pw._banded_plain(t, ext, tl, ql, lo_, BW), reps=2)
     rows = int(tl.sum())
@@ -461,7 +573,7 @@ def k3_phase(device, rng, T=2560, BW=896, NP=256):
     row = dict(kernel="pairwise_banded", shape=f"{NP} pairs T={T} BW={BW}",
                ms=ms, plain_ms=pms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                accepted=accepted)
-    log(row)
+    log_row(row)
     return {"pairwise_banded": row}
 
 
@@ -472,8 +584,7 @@ def k4_phase(device, rng, T=512, W=512, NP=64):
     t, q, tl, ql = pw.tiled_inputs(*pw.pack_tiles(tiles, T, W), device)
     NP = t.shape[0]
     k_out = pw.tiled_nw(t, q, tl, ql)
-    p_out = pw._tiled_plain(t, q, tl, ql)
-    err = _max_err("K4", NW_OUTPUTS, k_out, p_out)
+    err = _max_err("K4", NW_OUTPUTS, k_out, pw._tiled_plain(t, q, tl, ql))
     ms = time_ms(lambda: pw.tiled_nw(t, q, tl, ql))
     pms = time_ms(lambda: pw._tiled_plain(t, q, tl, ql), reps=2)
     rows = int(tl.sum())
@@ -482,7 +593,7 @@ def k4_phase(device, rng, T=512, W=512, NP=64):
     b_ms, b_by = bound_ms(nbytes, rows * W * NW_OPS_CELL)
     row = dict(kernel="pairwise_tiled", shape=f"{NP} tiles T={T} W={W}", ms=ms,
                plain_ms=pms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
-    log(row)
+    log_row(row)
     return {"pairwise_tiled": row}
 
 
@@ -504,21 +615,27 @@ def _max_err(label, names, k_out, p_out):
 # -------------------------------------------------------- phase 2: goldens
 
 
+DATA = os.path.join(REPO, "tests", "data")
+# (reads, the committed expected output, the flags it was made with)
+GOLDENS = (
+    (os.path.join(DATA, "golden_reads.fq"), os.path.join(DATA, "golden_expected.fa"),
+     ["--platform", "ont"]),
+    (os.path.join(DATA, "golden2_reads.fq"), os.path.join(DATA, "golden2_expected_pb.fa"),
+     ["--platform", "pb", "--no-auto-sensitive"]),
+)
+
+
 def goldens_phase(tmp):
     from vechat_tpu_torch.cli.vechat_main import main
 
-    data = os.path.join(REPO, "tests", "data")
-    for reads, expected, extra in (
-        ("golden_reads.fq", "golden_expected.fa", ["--platform", "ont"]),
-        ("golden2_reads.fq", "golden2_expected_pb.fa", ["--platform", "pb", "--no-auto-sensitive"]),
-    ):
-        out = os.path.join(tmp, expected)
+    for reads, expected, extra in GOLDENS:
+        out = os.path.join(tmp, os.path.basename(expected))
         t0 = time.perf_counter()
-        rc = main([os.path.join(data, reads), "-o", out, "--backend", "cuda", *extra])
+        rc = main([reads, "-o", out, "--backend", "cuda", *extra])
         wall = time.perf_counter() - t0
-        with open(out, "rb") as a, open(os.path.join(data, expected), "rb") as b:
-            same = a.read() == b.read()
-        log(dict(phase="golden", reads=reads, rc=rc, byte_identical=same, wall_s=wall))
+        same = _same_bytes(out, expected)
+        log(dict(phase="golden", reads=os.path.basename(reads), rc=rc, byte_identical=same,
+                 wall_s=wall))
         if rc != 0 or not same:
             raise RuntimeError(f"--backend cuda on {reads} does not reproduce {expected}")
 
@@ -565,19 +682,21 @@ def device_times(prof):
     return device_ms
 
 
-def main_path_phase(tmp, rng, backend_name="cuda"):
+def main_path_phase(tmp, made, backend_name="cuda"):
+    """The main path on `made`, what `community` returned."""
     import torch
 
     from vechat_tpu_torch.cli.vechat_main import build_parser, run
+    from vechat_tpu_torch.io.fastx import write_fasta
     from vechat_tpu_torch.ops.encode import encode
     from vechat_tpu_torch.ops.kernels import _build
     from vechat_tpu_torch.ops.pairwise import edit_distance, edit_distance_infix
     from vechat_tpu_torch.utils.logger import Logger
 
-    path, truth, (strain_a, strain_b) = community(rng, tmp)
+    path, truth, (strain_a, strain_b) = made
+    out_path = os.path.join(tmp, "corrected.fa")
     args = build_parser().parse_args(
-        [path, "-o", os.path.join(tmp, "corrected.fa"), "--platform", "ont",
-         "--backend", backend_name]
+        [path, "-o", out_path, "--platform", "ont", "--backend", backend_name]
     )
     _build.reset_launches()
     # device activity only: CUPTI records every kernel and copy on the card
@@ -587,6 +706,7 @@ def main_path_phase(tmp, rng, backend_name="cuda"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    write_fasta(corrected, out_path)  # what phase 5 is held against
     counters = backend.counters() if hasattr(backend, "counters") else {}
     device_ms = device_times(prof)
     busy_s = sum(device_ms.values()) / 1e3
@@ -600,16 +720,16 @@ def main_path_phase(tmp, rng, backend_name="cuda"):
             stages.update(pair_pack_s=pw.t_tile, pair_device_s=pw.t_device,
                           pair_host_s=pw.t_host, pair_cigar_s=pw.t_asm)
 
+    # infix distances against the read's true origin: the corrected read may
+    # be trimmed
     pad = 120
     before, after, own_strain = [], [], 0
     for rec in corrected:
-        name = rec.name.split()[0].rstrip("r")
-        frag, is_a, start, raw = truth[name]
-        end = start + len(frag) + pad
-        own = (strain_a if is_a else strain_b)[max(0, start - pad) : end]
-        other = (strain_b if is_a else strain_a)[max(0, start - pad) : end]
-        d_own = edit_distance_infix(encode(rec.data), encode(own))
-        d_other = edit_distance_infix(encode(rec.data), encode(other))
+        frag, is_a, start, raw = truth[rec.name.split()[0].rstrip("r")]
+        lo, hi = max(0, start - pad), start + len(frag) + pad
+        own, other = (strain_a, strain_b) if is_a else (strain_b, strain_a)
+        d_own = edit_distance_infix(encode(rec.data), encode(own[lo:hi]))
+        d_other = edit_distance_infix(encode(rec.data), encode(other[lo:hi]))
         after.append(d_own / max(len(rec.data), 1))
         own_strain += d_own <= d_other
         before.append(edit_distance(encode(raw), encode(frag)) / len(raw))
@@ -623,19 +743,20 @@ def main_path_phase(tmp, rng, backend_name="cuda"):
              device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
              device_ms_top={k: v for k, v in top}))
     if backend_name != "cuda":  # a rehearsal on the CPU
-        return launches
-    for k in REPLACES:
-        if k not in GAP_KERNELS and launches[k] == 0:
+        return launches, out_path
+    for k in MAIN_PATH_KERNELS:
+        if launches[k] == 0:
             raise RuntimeError(f"kernel {k} was not launched on the main path")
     if counters["device_alignments"] <= counters["fallbacks"]:
         raise RuntimeError(f"host routes dominate: {counters}")
     if not corrected or reduction < 4:
         raise RuntimeError(f"error fell only {reduction:.2f}x (floor 4x)")
-    return launches
+    return launches, out_path
 
 
 # ------------------------------------------------ phase 4: the spoa path
 
+MAIN_PATH_KERNELS = ("poa_dp", "poa_walk", "pairwise_banded", "pairwise_tiled")
 GAP_KERNELS = ("poa_dp_affine", "poa_walk_affine", "poa_dp_convex", "poa_walk_convex")
 
 
@@ -668,15 +789,15 @@ def spoa_phase(tmp, reads, backend_name="cuda"):
         files[name] = os.path.join(tmp, f"spoa_{name}.fa")
         write_fastx([SeqRecord(f"s{i}", s) for i, s in enumerate(seqs)], files[name], fmt="fa")
     affine = score_args(AFFINE_SCORES)
-    # the host engine of the convex runs is Python, over a second a read: the
-    # run at the default scores, which goes to the host past the 640-node
-    # bucket (scores of magnitude 10 leave int16 there), takes the first 12
-    # reads, enough to pass that bucket; the run within 8 stays on the card
+    # the host engine of the convex runs is Python, over a second a read, so
+    # both take the first 12 reads: enough for the run at the default scores
+    # to pass the 640-node bucket, where it goes to the host (scores of
+    # magnitude 10 leave int16 there); the run within 8 stays on the card
     runs = [
         ("linear nw", "all", ["-l", "1", *score_args(LINEAR_SCORES)]),
         ("affine nw", "all", ["-l", "1", *affine]),
         ("convex nw, default scores", "first12", ["-l", "1"]),
-        ("convex nw, scores within 8", "all", ["-l", "1", *score_args(CONVEX_SMALL_SCORES)]),
+        ("convex nw, scores within 8", "first12", ["-l", "1", *score_args(CONVEX_SMALL_SCORES)]),
         ("affine sw", "first12", ["-l", "0", *affine]),
         ("affine ov", "first12", ["-l", "2", *affine]),
         ("affine nw, strand-ambiguous", "mixed_strands", ["-l", "1", "-s", *affine]),
@@ -731,6 +852,279 @@ def spoa_phase(tmp, reads, backend_name="cuda"):
     return launches
 
 
+# --------------------------------------------- phase 5: the scale-out path
+
+SHARD_DEVICES = ["cuda:0", "cuda:0"]  # two shards, two streams, one card
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return str(sock.getsockname()[1])
+
+
+def run_ranks(tmp, argv, world, timeout, **env):
+    """`world` processes of `vechat_main` with `argv`, rank r with RANK=r,
+    side by side: (wall s until the last has ended, their stderr logs). On a
+    failure or at the time limit every process is killed and it raises with
+    the end of the failing one's log."""
+    logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r, log_path in enumerate(logs):
+            with open(log_path, "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "vechat_tpu_torch.cli.vechat_main", *argv],
+                    cwd=REPO, stdout=subprocess.DEVNULL, stderr=err,
+                    env=dict(os.environ, PYTHONPATH=REPO, RANK=str(r), LOCAL_RANK=str(r),
+                             WORLD_SIZE=str(world), **env)))
+        for proc, log_path in zip(procs, logs):
+            try:
+                rc = proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                with open(log_path) as fh:
+                    raise RuntimeError(f"a process ended with {rc}:\n{fh.read()[-3000:]}")
+        return time.perf_counter() - t0, logs
+    finally:  # no process outlives the call
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _last_counters(log_path):
+    """The last `counters:` line a command-line run printed, as a dict."""
+    line = None
+    with open(log_path) as fh:
+        for ln in fh:
+            if "counters:" in ln:
+                line = ln
+    if line is None:
+        return {}
+    return {k: int(v) for k, v in (kv.split("=") for kv in line.split("counters:")[1].split())}
+
+
+def _same_bytes(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def _profiled(fn, on_card=True):
+    """fn() under a device-activity profile: (result, wall s, device busy s).
+    A rehearsal on the CPU has no device activity to record."""
+    import torch
+
+    if not on_card:
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0, 0.0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, sum(device_times(prof).values()) / 1e3
+
+
+def stream_argv(tmp, community_path, n_reads, backend):
+    """5c's command line: FASTQ has 4 lines a read, so --split-size n_reads
+    is a quarter of the reads a chunk, 4 chunks. Output `stream_<backend>.fa`,
+    checkpoints under `ck_<backend>`."""
+    return [community_path, "--platform", "ont", "--stream", "--split-size", str(n_reads),
+            "-o", os.path.join(tmp, f"stream_{backend}.fa"),
+            "--resume-dir", os.path.join(tmp, f"ck_{backend}"), "--backend", backend]
+
+
+def start_stream_host(tmp, community_path, n_reads=200):
+    """Start 5c's reference, the same command on the host engine, as a
+    process of its own: (process, its stderr log)."""
+    log_path = os.path.join(tmp, "stream_host.log")
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "vechat_tpu_torch.cli.vechat_main",
+             *stream_argv(tmp, community_path, n_reads, "host")],
+            cwd=REPO, stdout=subprocess.DEVNULL, stderr=err,
+            env=dict(os.environ, PYTHONPATH=REPO))
+    return proc, log_path
+
+
+def dense_walk_at(device, arrays, mode, scores, ring):
+    """The dense walk against its plain version on one shard of the sharded
+    route, as `parallel/mesh.py` launches it: K1 on `arrays` (the JAX layout
+    of `pack_windows`), then both walks on its direction words; whole buffers,
+    exact. Returns the kernel's row (times, bound)."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import poa_linear as pl
+
+    codes, preds, sink, nid, nn, seqp, slen = arrays
+    B, P, N = preds.shape
+    D, W = seqp.shape[1], seqp.shape[2]
+    L = N + W
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    R = N if ring <= 0 or ring > N else ring
+    aux, deg = pl.pack_aux(t(preds), R)
+    dirs, maxi, maxj, _ = pl.poa_dp(t(codes).reshape(B, N), aux, deg, t(sink).reshape(B, N),
+                                    t(nn).reshape(B), t(seqp), t(slen).reshape(B, D),
+                                    mode, *scores, R)
+    shape = f"B={B} N={N} D={D} W={W} P={P} ring={ring} {mode} (a shard of 5a)"
+    kd = pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P)
+    err = _max_err(f"dense walk {shape}", ("pn", "pp", "count"), kd,
+                   pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P))
+    ms = time_ms(lambda: pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P))
+    pms = time_ms(lambda: pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P), warmup=0, reps=2)
+    pairs = int(kd[2].sum())
+    b_ms, b_by = bound_ms(pairs * 2 + 2 * B * D * L * 2 + B * D * 12, pairs * WALK_OPS_STEP)
+    row = dict(kernel="poa_walk_dense", shape=shape, ms=ms, plain_ms=pms, max_abs_err=err,
+               bound_ms=b_ms, bound_by=b_by, pairs=pairs)
+    log_row(row)
+    return row
+
+
+def scale_out_phase(tmp, community_path, corrected_path, stream_host, n_reads=200,
+                    backend_name="cuda", goldens=GOLDENS):
+    """The scale-out path on the card (see the module docstring, phase 5).
+    `stream_host` is what `start_stream_host` returned. Returns the kernels' launches of 5a, the sharded route's run, and the
+    dense walk's row at the largest shard 5a launched. With another
+    `backend_name` it is a rehearsal on the CPU."""
+    import torch
+
+    from vechat_tpu_torch.cli.vechat_main import build_parser, main, run
+    from vechat_tpu_torch.io.fastx import write_fasta
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels.backend import TorchAlignerBackend
+    from vechat_tpu_torch.utils.logger import Logger
+
+    on_card = backend_name == "cuda"
+    devices = SHARD_DEVICES if on_card else ["cpu", "cpu"]
+    t_phase = time.perf_counter()
+    walls, busy = 0.0, 0.0
+
+    # 5a: both goldens through the sharded route
+    launches_5a = {k: 0 for k in _build.LAUNCHES}
+    largest = {}  # the largest sharded launch of 5a: its size, inputs, mode, scores, ring
+    for reads, expected, extra in goldens:
+        out = os.path.join(tmp, "sharded_" + os.path.basename(expected))
+        args = build_parser().parse_args([reads, "-o", out, "--backend", "cuda", *extra])
+        backend = TorchAlignerBackend(args.match, args.mismatch, args.gap, devices=devices)
+        sharded_fn = backend._sharded_fn
+
+        def keep_largest(mode, ring, sharded_fn=sharded_fn, scores=backend._scores):
+            fn = sharded_fn(mode, ring)
+
+            def launch(*arrays):
+                size = arrays[1].shape[2] * arrays[5][0].size * arrays[1].shape[0]  # N * D * W * B
+                if size > largest.get("size", 0):
+                    largest.update(size=size, arrays=arrays, mode=mode, ring=ring,
+                                   scores=scores(mode))
+                return fn(*arrays)
+
+            return launch
+
+        backend._sharded_fn = keep_largest
+        _build.reset_launches()
+        (corrected, _), wall, busy_s = _profiled(
+            lambda: run(args, Logger(), backend=backend), on_card)
+        launches = dict(_build.LAUNCHES)
+        write_fasta(corrected, out)
+        same = _same_bytes(out, expected)
+        c = backend.counters()
+        log(dict(phase="scale_out", run=f"5a sharded backend, {os.path.basename(reads)}",
+                 devices=devices, byte_identical=same, wall_s=wall,
+                 reads_per_s=len(corrected) / wall, device_busy_s=busy_s,
+                 device_alignments=c["device_alignments"], fallbacks=c["fallbacks"],
+                 sharded_dispatches=c["sharded_dispatches"],
+                 launches={k: v for k, v in launches.items() if v}))
+        if not same:
+            raise RuntimeError(f"5a: the sharded backend on {reads} does not reproduce {expected}")
+        if on_card and (launches["poa_walk_dense"] == 0 or launches["poa_walk"] != 0):
+            raise RuntimeError(f"5a: the dense-walk route was not the one taken: {launches}")
+        if c["sharded_dispatches"] != c["n_dispatches"] or not c["n_dispatches"]:
+            raise RuntimeError(f"5a: not every dispatch was sharded: {c}")
+        for k, v in launches.items():
+            launches_5a[k] += v
+        walls, busy = walls + wall, busy + busy_s
+    # the dense walk at its own path's shape: the first shard of that launch
+    per = largest["arrays"][0].shape[0] // len(devices)
+    dense_row = dense_walk_at(torch.device("cuda" if on_card else "cpu"),
+                              tuple(a[:per] for a in largest["arrays"]),
+                              largest["mode"], largest["scores"], largest["ring"])
+
+    # 5b: two processes on the card, all-gather between the rounds
+    out_5b = os.path.join(tmp, "two_process.fa")
+    wall_5b, rank_logs = run_ranks(
+        tmp, [community_path, "-o", out_5b, "--platform", "ont", "--backend", backend_name],
+        2, 600, VECHAT_DIST_INIT="1", MASTER_ADDR="localhost", MASTER_PORT=_free_port())
+    same = _same_bytes(out_5b, corrected_path)
+    per_rank = [_last_counters(path) for path in rank_logs]
+    left = [f for f in os.listdir(tmp) if ".shard" in f or ".exit" in f]
+    log(dict(phase="scale_out", run="5b two processes on cuda:0, gloo all-gather",
+             byte_identical_to_phase_3=same, wall_s=wall_5b, reads_per_s=n_reads / wall_5b,
+             per_rank=[dict(device_alignments=c.get("device_alignments"),
+                            fallbacks=c.get("fallbacks"),
+                            launches={k[9:]: v for k, v in c.items()
+                                      if k.startswith("launches_") and v})
+                       for c in per_rank],
+             exchange_files_left=left, device_busy_s="not measured"))
+    if not same:
+        raise RuntimeError("5b: rank 0's output differs from the single-process run's")
+    if left or (on_card and any(not c.get("launches_poa_dp") for c in per_rank)):
+        raise RuntimeError(f"5b: files left {left} or a rank that launched no kernel: {per_rank}")
+
+    # 5c: bounded memory and restart
+    host_proc, host_log = stream_host
+    try:
+        rc = host_proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        rc = "timeout"
+    if rc != 0:
+        with open(host_log) as fh:
+            raise RuntimeError(f"5c: the host reference ended with {rc}:\n{fh.read()[-3000:]}")
+    with open(host_log) as fh:  # the command line's own last line: "total = <seconds> s"
+        host_total = float(fh.read().rsplit("total = ", 1)[1].split()[0])
+    host_out, host_dir = os.path.join(tmp, "stream_host.fa"), os.path.join(tmp, "ck_host")
+    argv = stream_argv(tmp, community_path, n_reads, backend_name)
+    cuda_out, cuda_dir = argv[7], argv[9]
+    _build.reset_launches()
+    _, wall_full, busy_full = _profiled(lambda: main(argv), on_card)
+    full = dict(_build.LAUNCHES)
+    same = _same_bytes(cuda_out, host_out)
+    ckpts = sorted(os.listdir(cuda_dir))
+    log(dict(phase="scale_out", run="5c --stream --resume-dir, 4 chunks of 50 reads",
+             byte_identical_to_host=same, wall_s=wall_full, reads_per_s=n_reads / wall_full,
+             host_total_s_beside_phases_4_to_5b=host_total, device_busy_s=busy_full,
+             checkpoints=ckpts, launches={k: v for k, v in full.items() if v}))
+    if not same or ckpts != sorted(os.listdir(host_dir)) or len(ckpts) != 8:
+        raise RuntimeError(f"5c: --backend {backend_name} differs from --backend host "
+                           f"(checkpoints {ckpts})")
+    for ck in ("round1.chunk00002.rec", "round2.chunk00003.rec"):
+        os.unlink(os.path.join(cuda_dir, ck))
+    os.unlink(cuda_out)
+    _build.reset_launches()
+    _, wall_re, busy_re = _profiled(lambda: main(argv), on_card)
+    again = dict(_build.LAUNCHES)
+    same = _same_bytes(cuda_out, host_out)
+    log(dict(phase="scale_out", run="5c restart, one checkpoint of each round deleted",
+             byte_identical_to_host=same, wall_s=wall_re, device_busy_s=busy_re,
+             poa_dp_launches=again["poa_dp"], poa_dp_launches_full_run=full["poa_dp"],
+             launches={k: v for k, v in again.items() if v}))
+    if not same or sorted(os.listdir(cuda_dir)) != ckpts:
+        raise RuntimeError("5c: the restarted run differs from the host run")
+    if on_card and not 0 < again["poa_dp"] < full["poa_dp"]:
+        raise RuntimeError(f"5c: the restart launched K1 {again['poa_dp']} times, "
+                           f"the full run {full['poa_dp']}")
+    walls, busy = walls + wall_full + wall_re, busy + busy_full + busy_re
+    # 5b's processes are not under this process's profiler
+    log(dict(phase="scale_out_total", wall_s=time.perf_counter() - t_phase, wall_s_5a_5c=walls,
+             device_busy_s_5a_5c=busy, device_idle_share_5a_5c=1 - busy / walls,
+             launches_5a=launches_5a))
+    return launches_5a, dense_row
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -749,6 +1143,9 @@ REPLACES = {
                       "vechat_tpu/ops/kernels/poa_pallas_convex.py:563"),
     "poa_walk_convex": ("vechat_tpu_torch/csrc/poa_gap.cuh",
                         "vechat_tpu/ops/kernels/poa_pallas_convex.py:404"),
+    "poa_walk_dense": ("vechat_tpu_torch/csrc/poa_linear.cu",
+                       "vechat_tpu/ops/kernels/poa_pallas.py:350"),
+    "mix_peak": ("vechat_tpu_torch/csrc/mix_peak.cu", "scripts/roofline.py:119"),
 }
 
 
@@ -773,6 +1170,9 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(f"gpu: {gpu}")
+    log("gpu clocks.max.sm: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
@@ -785,7 +1185,12 @@ def main():
 
     device = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    rows = {}
+
+    def lap(after):
+        log(dict(phase="clock", after=after, script_s=time.perf_counter() - t_start))
+
+    # K7 first: its measured rate stands beside every operation bound below
+    rows = mix_peak_phase(device)
     inputs = window_inputs(rng, B=16, N=640, P=8, W=576, D=32)
     rows.update(k1_k2_phase(device, inputs))
     gap_kernels_phase(device, inputs)
@@ -793,13 +1198,34 @@ def main():
     rows.update(gap_path_phase(device, reads))
     rows.update(k3_phase(device, rng))
     rows.update(k4_phase(device, rng))
+    lap("phase 1")
 
     with tempfile.TemporaryDirectory() as tmp:
         goldens_phase(tmp)
-        launches = main_path_phase(tmp, rng)
-        spoa_launches = spoa_phase(tmp, reads)
+        lap("phase 2")
+        made = community(rng, tmp)
+        launches, corrected_path = main_path_phase(tmp, made)
+        lap("phase 3")
+        stream_host = start_stream_host(tmp, made[0])
+        try:
+            spoa_launches = spoa_phase(tmp, reads)
+            lap("phase 4")
+            scale_out_launches, dense_row = scale_out_phase(tmp, made[0], corrected_path,
+                                                            stream_host)
+        finally:  # no process outlives the script
+            if stream_host[0].poll() is None:
+                stream_host[0].kill()
+                stream_host[0].wait()
+    # the dense walk's row is the one at its path's shape; phase 1's, at
+    # K1/K2's batch, stay as lines of their own
+    rows["poa_walk_dense"] = dense_row
     for k in GAP_KERNELS:
         launches[k] = spoa_launches[k]
+    launches["poa_walk_dense"] = scale_out_launches["poa_walk_dense"]
+    launches["mix_peak"] = rows["mix_peak"]["launches"]
+    for k, v in launches.items():
+        if k in REPLACES and v == 0:
+            raise RuntimeError(f"kernel {k} was launched on no path")
 
     kernels = []
     for name, (source, replaces) in REPLACES.items():

@@ -100,6 +100,120 @@ def test_poa_dp_and_walk_match_plain(cuda, mode, ring):
     assert ks == ps and torch.equal(kr[:ks], pr[:ps]) and torch.equal(kc, pc)
 
 
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+@pytest.mark.parametrize("node_ids", [False, True])
+def test_dense_walk_matches_plain_and_rle(cuda, mode, node_ids):
+    """The dense walk kernel against its plain version, whole buffers with
+    their -2 padding, and its pairs against the run-length walk's expanded."""
+    B, N, P, W, D = 3, 256, 8, 128, 5
+    arrs, _, _ = windows(12, B, N, P, W, D)
+    codes, preds, sink, nn, seqp, slen = _tensors(arrs, cuda, B, N, D)
+    nid = torch.from_numpy(arrs[3]).to(cuda).reshape(B, N) if node_ids else None
+    aux, deg = pl.pack_aux(preds, 64)
+    dirs, maxi, maxj, _ = pl.poa_dp(codes, aux, deg, sink, nn, seqp, slen, mode, 3, -5, -4, 64)
+    L = N + W
+    before = _build.LAUNCHES["poa_walk_dense"]
+    k = pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P, nid)
+    assert _build.LAUNCHES["poa_walk_dense"] == before + 1
+    p = pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P, nid)
+    for name, a, b in zip(("pn", "pp", "count"), k, p):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    runs, steps, r_count = pl.traceback_walk_rle(dirs, maxi, maxj, mode, L, P)
+    assert torch.equal(k[2], r_count)
+    runs, pn, pp, count = runs[:steps].cpu().numpy(), k[0].cpu().numpy(), k[1].cpu().numpy(), k[2].cpu()
+    for b in range(B):
+        for d in range(D):
+            c = int(count[b, d])
+            rn, rp = pl.runs_to_pairs_np(runs[:, b * D + d])
+            if node_ids:
+                rn = pl.ranks_to_node_ids_np(rn, arrs[3][b, 0])
+            assert (pn[b, d, L - c:] == rn).all() and (pp[b, d, L - c:] == rp).all()
+            assert (pn[b, d, : L - c] == -2).all() and (pp[b, d, : L - c] == -2).all()
+
+
+def test_dense_walk_empty_and_wrong_inputs(cuda):
+    """No walk starts at (0, 0): count 0 and the whole buffer -2."""
+    dirs = torch.zeros((2, 9, 3, 32), dtype=torch.int16, device=cuda)
+    mx = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    pn, pp, count = pl.traceback_walk_dense(dirs, mx, mx, "sw", 40, 4)
+    assert int(count.abs().sum()) == 0 and bool((pn == -2).all()) and bool((pp == -2).all())
+    with pytest.raises(ValueError):
+        pl.traceback_walk_dense(dirs, mx.cpu(), mx, "sw", 40, 4)
+    with pytest.raises(ValueError):
+        pl.traceback_walk_dense(dirs.to(torch.int32), mx, mx, "sw", 40, 4)
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_sharded_callable_on_one_card(cuda, n_shards):
+    """Shards of one batch on streams of one card: what the unsharded call
+    gives, and both walks launched once a shard."""
+    from vechat_tpu_torch.parallel.mesh import make_mesh, sharded_poa_align_cuda
+
+    B, N, P, W, D = 6, 256, 8, 128, 4
+    arrs, _, _ = windows(13, B, N, P, W, D)
+    codes, preds, sink, nid, nn, seqp, slen = arrs
+    fn = sharded_poa_align_cuda(make_mesh(["cuda:0"] * n_shards), "nw", 3, -5, -4, ring=64)
+    before = dict(_build.LAUNCHES)
+    got = fn(*arrs)
+    assert _build.LAUNCHES["poa_dp"] == before["poa_dp"] + n_shards
+    assert _build.LAUNCHES["poa_walk_dense"] == before["poa_walk_dense"] + n_shards
+    assert _build.LAUNCHES["poa_walk"] == before["poa_walk"]
+    one = pl.poa_align(codes, preds, sink, nn, seqp, slen, "nw", 3, -5, -4, ring=64,
+                       device=cuda, emit_rle=False, emit_node_ids=True, node_id=nid)
+    cpu = pl.poa_align(codes, preds, sink, nn, seqp, slen, "nw", 3, -5, -4, ring=64,
+                       device="cpu", emit_rle=False, emit_node_ids=True, node_id=nid)
+    for g, o, c in zip(got, one, cpu):
+        assert g.device.type == "cpu" and torch.equal(g, o.cpu()) and torch.equal(g, c)
+
+
+def test_sharded_backend_matches_host(cuda):
+    rng = np.random.default_rng(14)
+    base = rand_seq(rng, 120)
+    graphs = []
+    for _ in range(3):
+        g = make_graph()
+        for s in [mutate(rng, base) for _ in range(5)]:
+            c = encode(s)
+            aln = g.align_host(c, "nw", 3, -5, -4) if g.num_nodes() else []
+            g.add_alignment(aln, c, np.ones(len(c), np.uint32))
+        graphs.append(g)
+    items = [(encode(mutate(rng, base)), g, m) for g in graphs for m in ("nw", "sw", "nw")]
+    be = TorchAlignerBackend(3, -5, -4, devices=["cuda:0", "cuda:0"])
+    before = dict(_build.LAUNCHES)
+    got = be.align_batch(items)
+    assert be.fallbacks == 0 and be.device_alignments == len(items)
+    assert be.n_sharded_dispatches == be.n_dispatches > 0
+    assert _build.LAUNCHES["poa_walk_dense"] > before["poa_walk_dense"]
+    assert _build.LAUNCHES["poa_walk"] == before["poa_walk"]
+    for (codes, g, mode), aln in zip(items, got):
+        assert aln == g.align_host(codes, mode, 3, -5, -4)
+
+
+@pytest.mark.parametrize("iters,seed,tiles", [(0, 0, 1), (1, 0, 2), (7, 3, 5), (64, 1000, 3)])
+def test_mix_peak_matches_plain(cuda, iters, seed, tiles):
+    """K7 against its plain version: every lane of the four chains and the
+    checksum; the wrap of the roll (lane 0 from lane 511) is among them."""
+    from vechat_tpu_torch.utils import roofline as rf
+
+    chains = rf.mix_inputs(tiles, seed, cuda)
+    before = _build.LAUNCHES["mix_peak"]
+    k = rf.mix_peak(*chains, iters, seed)
+    assert _build.LAUNCHES["mix_peak"] == before + 1
+    p = rf._mix_plain(*chains, iters, seed)
+    for name, a, b in zip(("a", "b", "c", "d", "checksum"), k, p):
+        assert torch.equal(a, b), name
+    cpu = rf.mix_peak(*[t.cpu() for t in chains], iters, seed)
+    assert torch.equal(k[4].cpu(), cpu[4])
+
+
+def test_measure_mix_peak(cuda):
+    from vechat_tpu_torch.utils import roofline as rf
+
+    m = rf.measure_mix_peak(iters=200)
+    assert m["ms_2iters"] > m["ms_iters"] > 0 and m["tops"] > 0.1
+    assert m["tiles"] == torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def test_poa_global_ring_matches_host(cuda):
     """A ring too large for shared memory ((R+1)*W*2 bytes > 200 KB) runs
     from the global scratch ring; alignments equal the host oracle's."""

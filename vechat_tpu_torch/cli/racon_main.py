@@ -52,11 +52,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_backend(name: str, match: int, mismatch: int, gap: int, threads: int = 1,
-                 device=None):
+                 device=None, devices=None):
     """The aligner backend `name`. `cuda` runs the kernels on `device`
-    (default "cuda") and raises when no GPU is present; `torch` runs their
-    plain PyTorch versions on the CPU; `host` runs the C++ engine. There is
-    no silent fallback from one to another."""
+    (default "cuda": every visible card, window batches sharded over them
+    when there are several) or on the explicit list `devices`, and raises
+    when no GPU is present; `torch` runs their plain PyTorch versions on the
+    CPU; `host` runs the C++ engine. There is no silent fallback from one
+    to another."""
     if name == "host":
         from ..pipeline.windows import HostAlignerBackend
 
@@ -64,7 +66,9 @@ def make_backend(name: str, match: int, mismatch: int, gap: int, threads: int = 
     from ..ops.kernels.backend import TorchAlignerBackend
 
     if name == "cuda":
-        return TorchAlignerBackend(match, mismatch, gap, device=device or "cuda")
+        return TorchAlignerBackend(
+            match, mismatch, gap, device=device or "cuda", devices=devices
+        )
     if name == "torch":
         return TorchAlignerBackend(match, mismatch, gap, device="cpu")
     raise ValueError(f"unknown backend {name!r}; choose from {BACKENDS}")

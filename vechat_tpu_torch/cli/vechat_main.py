@@ -9,16 +9,41 @@ identity -> linear racon consensus.
 The alignments run on the CUDA kernels (`--backend cuda`, the default),
 their plain PyTorch versions on the CPU (`--backend torch`) or the host C++
 engine (`--backend host`).
+
+Scale-out: `--split` corrects the targets a chunk at a time, `--stream`
+also passes the rounds through files so that a chunk holds only its own
+reads, `--resume-dir` checkpoints every chunk; N processes (`RANK`,
+`WORLD_SIZE`, `LOCAL_RANK`, as `torchrun` sets them) each correct a block
+of the targets and merge between the rounds, through files or, with
+`VECHAT_DIST_INIT=1`, a `torch.distributed` all-gather.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
+import tempfile
 from typing import List, Optional
 
-from ..io.fastx import SeqRecord, read_fastx, write_fasta
-from ..io.paf import read_paf, write_paf
+from ..io.fastx import (
+    SeqRecord,
+    fastx_names,
+    iter_fastx,
+    read_fastx,
+    subset_fastx,
+    write_fasta,
+)
+from ..io.paf import iter_paf, read_paf, write_paf
+from ..parallel.dist import (
+    ProcessGroup,
+    exchange_records,
+    finish_exchange,
+    read_records_blob,
+    shard_targets,
+    write_records_blob,
+)
 from ..pipeline.overlapper import (
     OverlapParams,
     filter_fpa,
@@ -52,6 +77,28 @@ def build_parser() -> argparse.ArgumentParser:
         help="disable automatic escalation to the sensitive presets when "
         "round-1 overlap health looks degraded (high divergence or thin "
         "per-read coverage)",
+    )
+    p.add_argument("--split", action="store_true", help="chunk targets")
+    p.add_argument("--split-size", type=int, default=1000000)
+    p.add_argument(
+        "--stream",
+        action="store_true",
+        help="bounded-memory chunked mode: rounds pass FASTA/PAF files, each "
+        "chunk loads only its own targets + overlapping queries (the "
+        "reference's extract_sub_sequences flow, scripts/vechat:99-169, "
+        "with bioparser's chunked-parse memory profile, "
+        "src/polisher.cpp:234-272). Implies --split. Peak RSS = full read "
+        "set ONLY during the global overlap-discovery phase (the minimap2 "
+        "index analog); correction holds one chunk's working set",
+    )
+    p.add_argument(
+        "--resume-dir",
+        default=None,
+        metavar="DIR",
+        help="with --split: checkpoint each corrected chunk into DIR and "
+        "skip already-completed chunks on restart (the reference's "
+        "chunk-level manual restart, scripts/vechat_hpc.fast.sh:62, "
+        "made automatic)",
     )
     p.add_argument("--scrub", action="store_true", help="scrub chimeric reads")
     p.add_argument("-u", "--include-unpolished", action="store_true")
@@ -94,6 +141,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--keep-paf", default=None, help="write round-1 overlaps here")
     p.add_argument(
+        "--profile",
+        default=None,
+        metavar="DIR",
+        help="capture a torch.profiler trace of the run (CPU activity, and "
+        "the GPU's with --backend cuda) into DIR as a Chrome trace "
+        "(view with chrome://tracing or Perfetto)",
+    )
+    p.add_argument(
         "--consensus-only",
         action="store_true",
         help="run only the >=0.99-identity linear consensus round on the "
@@ -123,6 +178,34 @@ def _discover_overlaps(reads, args, iteration, logger, target_names=None):
         )
         return overlaps
     return find_overlaps(reads, params, target_names=target_names)
+
+
+def _round_overlaps(reads, iteration, args, logger, backend, target_names=None):
+    """Discover a round's overlaps over `reads` and filter them as the
+    reference's pipeline does between minimap2 and racon."""
+    overlaps = _discover_overlaps(reads, args, iteration, logger, target_names)
+    if iteration == 1:
+        # minimap2 | awk '$11>=500' | fpa drop (scripts/vechat:37-39)
+        overlaps = filter_length_identity(overlaps, min_block=500)
+        overlaps = filter_fpa(overlaps)
+        if args.base:
+            # base-level round 1: minimap2 -cx + identity >= min_identity
+            # (scripts/vechat:41-45,246-248)
+            overlaps = refine_identity(overlaps, reads, backend)
+            overlaps = filter_length_identity(
+                overlaps, min_block=500, min_identity=args.min_identity
+            )
+        return overlaps
+    # >=1000bp, >=0.99 identity consensus round (scripts/vechat:47-49):
+    # base-level identity like minimap2 -c, via exact re-alignment
+    overlaps = filter_length_identity(overlaps, min_block=args.min_ovlplen_cns)
+    overlaps = filter_fpa(overlaps)
+    overlaps = refine_identity(overlaps, reads, backend)
+    return filter_length_identity(
+        overlaps,
+        min_block=args.min_ovlplen_cns,
+        min_identity=args.min_identity_cns,
+    )
 
 
 def _correction_sane(
@@ -217,31 +300,7 @@ def run_round(
     if overlaps_path:
         overlaps = read_paf(overlaps_path)
     else:
-        overlaps = _discover_overlaps(reads, args, iteration, logger)
-        if iteration == 1:
-            # minimap2 | awk '$11>=500' | fpa drop (scripts/vechat:37-39)
-            overlaps = filter_length_identity(overlaps, min_block=500)
-            overlaps = filter_fpa(overlaps)
-            if args.base:
-                # base-level round 1: minimap2 -cx + identity >= min_identity
-                # (scripts/vechat:41-45,246-248)
-                overlaps = refine_identity(overlaps, reads, backend)
-                overlaps = filter_length_identity(
-                    overlaps, min_block=500, min_identity=args.min_identity
-                )
-        else:
-            # >=1000bp, >=0.99 identity consensus round (scripts/vechat:47-49):
-            # base-level identity like minimap2 -c, via exact re-alignment
-            overlaps = filter_length_identity(
-                overlaps, min_block=args.min_ovlplen_cns
-            )
-            overlaps = filter_fpa(overlaps)
-            overlaps = refine_identity(overlaps, reads, backend)
-            overlaps = filter_length_identity(
-                overlaps,
-                min_block=args.min_ovlplen_cns,
-                min_identity=args.min_identity_cns,
-            )
+        overlaps = _round_overlaps(reads, iteration, args, logger, backend)
         if args.keep_paf and iteration == 1:
             write_paf(overlaps, args.keep_paf)
     logger.log(f"round {iteration}: {len(overlaps)} overlaps")
@@ -249,12 +308,249 @@ def run_round(
     return _polish(reads, reads, overlaps, linear, args, logger, backend)
 
 
-def run(args, logger: Logger):
-    """The whole correction run on parsed `args`: returns the corrected
-    reads and the aligner backend, whose counters cover both rounds."""
-    backend = make_backend(
-        args.backend, args.match, args.mismatch, args.gap, threads=args.threads
+def _chunking(args, iteration: int, fastq_lines: bool, orig_fastq: bool):
+    """Reads per chunk of a split round, as the reference's `split -l N`
+    counts lines: 4 a record for FASTQ input, 2 for FASTA. Rounds after
+    the first read FASTA; the reference halves the split line count when
+    the ORIGINAL input was FASTQ so that the reads per chunk stay constant
+    across rounds (scripts/vechat:319-320)."""
+    split_size = args.split_size
+    fmt_lines = 4 if fastq_lines else 2
+    if iteration > 1:
+        split_size = args.split_size // 2 if orig_fastq else args.split_size
+        fmt_lines = 2
+    return max(1, split_size // fmt_lines)
+
+
+def _checkpoint_path(args, iteration: int, chunk: int) -> Optional[str]:
+    if not args.resume_dir:
+        return None
+    os.makedirs(args.resume_dir, exist_ok=True)
+    return os.path.join(args.resume_dir, f"round{iteration}.chunk{chunk:05d}.rec")
+
+
+def run_round_split(
+    reads: List[SeqRecord],
+    iteration: int,
+    args,
+    logger: Logger,
+    backend,
+    overlaps_path: Optional[str] = None,
+    orig_fastq: bool = False,
+) -> List[SeqRecord]:
+    """Chunked targets: correct a chunk at a time against the full query set,
+    concatenate chunk outputs in order (reference: scripts/vechat:300-361,
+    where `split -l N` makes line-count chunks and results are `cat`-merged
+    in filename order)."""
+    reads_per_chunk = _chunking(
+        args, iteration, any(r.quality is not None for r in reads), orig_fastq
     )
+    out: List[SeqRecord] = []
+    for off in range(0, len(reads), reads_per_chunk):
+        chunk = reads[off : off + reads_per_chunk]
+        ck = off // reads_per_chunk + 1
+        ck_path = _checkpoint_path(args, iteration, ck)
+        if ck_path and os.path.exists(ck_path):
+            logger.log(f"round {iteration}: chunk {ck} resumed from checkpoint")
+            out.extend(read_records_blob(ck_path))
+            continue
+        logger.log(f"round {iteration}: chunk {ck} ({len(chunk)} targets)")
+        corrected = run_round_targets(
+            chunk, reads, iteration, args, logger, backend, overlaps_path
+        )
+        if ck_path:
+            write_records_blob(corrected, ck_path)
+        out.extend(corrected)
+    return out
+
+
+def run_round_targets(
+    targets: List[SeqRecord],
+    queries: List[SeqRecord],
+    iteration: int,
+    args,
+    logger: Logger,
+    backend,
+    overlaps_path: Optional[str] = None,
+    overlaps_records: Optional[List] = None,
+) -> List[SeqRecord]:
+    """One correction pass with distinct target/query sets."""
+    linear = args.linear or iteration == 2
+    if overlaps_records is not None:
+        overlaps = overlaps_records
+    elif overlaps_path:
+        overlaps = read_paf(overlaps_path)
+    else:
+        # overlap chunk targets vs all queries (both roles present);
+        # target_names restricts pair expansion so each chunk does ~1/K of
+        # the all-vs-all work instead of recomputing the full matrix
+        # (reference per-chunk query subsetting, scripts/vechat:99-169)
+        pool = {r.name: r for r in queries}
+        for t in targets:
+            pool.setdefault(t.name, t)
+        tnames = {t.name for t in targets}
+        all_reads = list(pool.values())
+        restrict = tnames if len(targets) < len(all_reads) else None
+        overlaps = _round_overlaps(
+            all_reads, iteration, args, logger, backend, target_names=restrict
+        )
+        # keep only overlaps whose target is in this chunk
+        overlaps = [ov for ov in overlaps if ov.t_name in tnames]
+
+    if not overlaps:
+        # a chunk whose targets attracted no overlaps after filtering (thin
+        # coverage): nothing can be polished — matches racon's default
+        # drop-unpolished semantics instead of failing the whole run. With
+        # -u/--include-unpolished the targets pass through unpolished with
+        # the same header tags polish() would emit for a zero-coverage read
+        # (reference: racon -u keeps unpolished sequences, src/main.cpp:86-88)
+        logger.log(
+            f"round {iteration}: no overlaps for this chunk; "
+            f"{len(targets)} targets left unpolished"
+        )
+        if args.include_unpolished:
+            return [
+                SeqRecord(
+                    name=f"{t.name}r LN:i:{len(t.data)} RC:i:0 XC:f:0.000000",
+                    data=t.data,
+                )
+                for t in targets
+            ]
+        return []
+
+    return _polish(targets, queries, overlaps, linear, args, logger, backend)
+
+
+def run_round_stream(
+    reads_path: str,
+    iteration: int,
+    args,
+    logger: Logger,
+    backend,
+    out_path: str,
+    overlaps_path: Optional[str] = None,
+    orig_fastq: bool = False,
+) -> int:
+    """Bounded-memory chunked round: rounds exchange FILES, each chunk loads
+    only its targets plus the queries its overlaps name (the reference's
+    per-chunk extract_sub_sequences flow, scripts/vechat:54-55,99-169).
+
+    Memory profile: the full read set is resident only during the global
+    overlap-discovery phase (reads only — the minimap2 index analog); every
+    correction chunk holds one chunk's targets, its overlapping queries and
+    its overlap records. The inter-round corrected pool lives on disk.
+
+    Per-chunk window-type selection (NGS/TGS by mean query length,
+    src/polisher.cpp:284-285) sees the chunk's query subset — exactly like
+    the reference's per-chunk racon invocation, and unlike the in-memory
+    --split path which sees the full pool.
+
+    Returns the number of corrected reads written to out_path.
+    """
+    tmp_paf = None
+    if overlaps_path is None:
+        # global overlap phase: the one O(total reads) resident phase
+        reads = read_fastx(reads_path)
+        overlaps = _round_overlaps(reads, iteration, args, logger, backend)
+        fd, tmp_paf = tempfile.mkstemp(suffix=".paf")
+        os.close(fd)
+        write_paf(overlaps, tmp_paf)
+        logger.log(f"round {iteration}: {len(overlaps)} overlaps -> {tmp_paf}")
+        del reads, overlaps  # free the pool before chunked correction
+        overlaps_path = tmp_paf
+
+    names = fastx_names(reads_path)
+    reads_per_chunk = _chunking(
+        args, iteration, orig_fastq and iteration == 1, orig_fastq
+    )
+    n_out = 0
+    with open(out_path, "w") as fw:
+        for off in range(0, len(names), reads_per_chunk):
+            chunk_names = names[off : off + reads_per_chunk]
+            chunk_set = set(chunk_names)
+            ck = off // reads_per_chunk + 1
+            ck_path = _checkpoint_path(args, iteration, ck)
+            if ck_path and os.path.exists(ck_path):
+                corrected = read_records_blob(ck_path)
+                logger.log(f"round {iteration}: chunk {ck} resumed from checkpoint")
+            else:
+                chunk_ovl = [
+                    ov for ov in iter_paf(overlaps_path) if ov.t_name in chunk_set
+                ]
+                qnames = {ov.q_name for ov in chunk_ovl} | chunk_set
+                recs = subset_fastx(reads_path, qnames)
+                by_name = {r.name: r for r in recs}
+                targets = [by_name[n] for n in chunk_names if n in by_name]
+                logger.log(
+                    f"round {iteration}: chunk {ck} ({len(targets)} targets, "
+                    f"{len(recs)} resident reads, {len(chunk_ovl)} overlaps)"
+                )
+                corrected = run_round_targets(
+                    targets, recs, iteration, args, logger, backend,
+                    overlaps_records=chunk_ovl,
+                )
+                if ck_path:
+                    write_records_blob(corrected, ck_path)
+            write_fasta(corrected, fw)
+            n_out += len(corrected)
+    if tmp_paf:
+        os.unlink(tmp_paf)
+    return n_out
+
+
+def _run_stream(args, logger: Logger, backend, reads, rounds, orig_fastq) -> None:
+    """The bounded-memory run: file-mediated rounds (run_round_stream), then
+    the final length filter, streaming into args.outfile."""
+    cur_path = args.sequences
+    tmp_files = []
+    if args.scrub:
+        # scrubbing needs the whole pool once; write the scrubbed set out
+        fd, cur_path = tempfile.mkstemp(suffix=".fa")
+        os.close(fd)
+        write_fasta(reads, cur_path)
+        tmp_files.append(cur_path)
+    del reads
+    for idx, i in enumerate(rounds, start=1):
+        overlaps_path = args.overlaps if idx == 1 else None
+        fd, rpath = tempfile.mkstemp(suffix=f".r{idx}.fa")
+        os.close(fd)
+        tmp_files.append(rpath)
+        n = run_round_stream(
+            cur_path, i, args, logger, backend, rpath, overlaps_path,
+            orig_fastq=orig_fastq,
+        )
+        logger.log(f"round {i} complete: {n} corrected reads")
+        cur_path = rpath
+    with open(args.outfile, "w") as fw:
+        for rec in iter_fastx(cur_path, shorten_names=False):
+            if len(rec.data) >= args.min_corrected_length:
+                fw.write(f">{rec.name}\n{rec.data}\n")
+    for p in tmp_files:
+        os.unlink(p)
+
+
+def _rounds(args) -> List[int]:
+    if args.consensus_only:
+        # standalone consensus round (reference: scripts/vechat.iter2.py)
+        return [2]
+    return [1] if args.linear else [1, 2]
+
+
+def run(args, logger: Logger, backend=None, group: Optional[ProcessGroup] = None):
+    """The whole correction run on parsed `args`: returns the corrected
+    reads and the aligner backend, whose counters cover both rounds. One
+    backend serves the run: the caller's, or the one `args.backend` names on
+    this process's device. In a group of processes (`group`, by default the
+    environment's) every process returns the merged reads; writing them and
+    `finish_exchange` are the caller's (`main`). With --stream
+    (single process) the reads go to args.outfile chunk by chunk and None is
+    returned in their place."""
+    group = group or ProcessGroup.from_env()
+    if backend is None:
+        backend = make_backend(
+            args.backend, args.match, args.mismatch, args.gap,
+            threads=args.threads, device=group.device(),
+        )
     reads = read_fastx(args.sequences)
     logger.log(f"loaded {len(reads)} reads")
 
@@ -265,17 +561,35 @@ def run(args, logger: Logger):
         reads = scrub_reads(reads, scrub_overlaps, min_coverage=min_cov)
         logger.log(f"scrubbed to {len(reads)} reads")
 
-    if args.consensus_only:
-        # standalone consensus round (reference: scripts/vechat.iter2.py)
-        rounds = [2]
-    elif args.linear:
-        rounds = [1]
-    else:
-        rounds = [1, 2]
+    rounds = _rounds(args)
+    orig_fastq = any(r.quality is not None for r in reads)
 
+    if args.stream and group.num_processes == 1:
+        _run_stream(args, logger, backend, reads, rounds, orig_fastq)
+        return None, backend
+
+    # multi-process sharding (reference: scripts/vechat_hpc.fast.sh:28-60):
+    # WORLD_SIZE/RANK shard the TARGET reads per round; the corrected set is
+    # re-merged in rank order between rounds so round 2 sees the full
+    # round-1 output, exactly like the reference's cat merge
     for idx, i in enumerate(rounds, start=1):
         overlaps_path = args.overlaps if idx == 1 else None
-        reads = run_round(reads, i, args, logger, backend, overlaps_path)
+        if group.num_processes > 1:
+            my_targets = shard_targets(reads, group)
+            logger.log(
+                f"round {i}: process {group.process_id}/{group.num_processes} "
+                f"owns {len(my_targets)} targets"
+            )
+            mine = run_round_targets(
+                my_targets, reads, i, args, logger, backend, overlaps_path
+            )
+            reads = exchange_records(mine, group, f"{args.outfile}.r{idx}")
+        elif args.split:
+            reads = run_round_split(
+                reads, i, args, logger, backend, overlaps_path, orig_fastq=orig_fastq
+            )
+        else:
+            reads = run_round(reads, i, args, logger, backend, overlaps_path)
         # the reference round-trips through FASTA files between rounds, which
         # truncates names at the first whitespace (bioparser Shorten); mirror
         # that so round-2 headers match (e.g. "read0r" + new tags)
@@ -290,12 +604,45 @@ def run(args, logger: Logger):
     return reads, backend
 
 
+@contextlib.contextmanager
+def _profiled(args, group: ProcessGroup, logger: Logger):
+    """--profile DIR: a torch.profiler trace of the run, written into DIR as
+    a Chrome trace; the card's activity is recorded with --backend cuda."""
+    if not args.profile:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if args.backend == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile, exist_ok=True)
+    path = os.path.join(args.profile, f"vechat.rank{group.process_id}.trace.json")
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(path)
+    logger.log(f"profiler trace written to {path}")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logger = Logger()
     logger.tick()
-    reads, _ = run(args, logger)
-    write_fasta(reads, args.outfile)
+    group = ProcessGroup.from_env()
+    if group.num_processes > 1 and os.environ.get("VECHAT_DIST_INIT") == "1":
+        group.initialize_torch()
+    with _profiled(args, group, logger):
+        reads, _ = run(args, logger, group=group)
+    # every process of a group holds the merged set; rank 0 writes, then the
+    # exchange files go once all ranks have checked out
+    if reads is not None and group.process_id == 0:
+        write_fasta(reads, args.outfile)
+    for idx in range(1, len(_rounds(args)) + 1):
+        finish_exchange(group, f"{args.outfile}.r{idx}")
+    if group.num_processes > 1 and os.environ.get("VECHAT_DIST_INIT") == "1":
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     logger.total("total =")
     return 0
 

@@ -1,8 +1,8 @@
-// Linear-gap sequence-to-graph DP (K1) and its run-length traceback walk
-// (K2) for Hopper (sm_90a), with a plain C interface for ctypes.
+// Linear-gap sequence-to-graph DP (K1) and its traceback walks, run-length
+// (K2) and dense, for Hopper (sm_90a), with a plain C interface for ctypes.
 //
 // Replaces vechat_tpu/ops/kernels/poa_pallas.py: _dp_kernel (pallas_call in
-// _poa_dp_pallas) and _traceback_walk_rle. The direction codes, run markers,
+// _poa_dp_pallas), _traceback_walk_rle and _traceback_walk. The direction codes, run markers,
 // best-cell pack and run headers are the reference's bit for bit; the plain
 // PyTorch versions in ops/kernels/poa_linear.py compute the same outputs.
 //
@@ -12,6 +12,8 @@
 // else in a global scratch ring; direction rows go out as coalesced int16
 // stores.
 // K2: one thread per walk; bound by one dependent dirs load per step.
+// The dense walk (poa_walk_dense_kernel, the sharded route's walk) replaces
+// _traceback_walk: see the note above the kernel.
 
 #include <cuda_runtime.h>
 
@@ -177,6 +179,77 @@ __global__ void poa_walk_kernel(
   if (step) atomicMax(steps, step);
 }
 
+// The dense walk: one (rank, position) pair a step, written back to front
+// into pn/pp [B*D, L] int16, so that walk w's pairs are its last count[w]
+// columns; every column before them holds -2. Replaces _traceback_walk of
+// poa_pallas.py (all walks stepping together, one gather a step). One thread
+// per walk, one warp per block: the walk is a chain of dependent int16 loads
+// (bound by load latency, not by bytes), so the blocks are small to spread
+// the chains over the SMs, and the warp then fills its 32 walks' unused
+// columns with coalesced stores. A run marker is read as the unit move it
+// stands for. With node_id != nullptr pn holds node ids, else DP ranks.
+constexpr int kDenseThreads = 32;
+
+__global__ void poa_walk_dense_kernel(
+    const short* __restrict__ dirs,  // [B, N1, D, W]
+    const int* __restrict__ maxi, const int* __restrict__ maxj,  // [B, D]
+    const int* __restrict__ node_id,  // [B, N1 - 1] or nullptr
+    short* __restrict__ pn, short* __restrict__ pp,  // [B*D, L]
+    int* __restrict__ count,                         // [B, D]
+    int B, int N1, int D, int W, int L, int P, int mode) {
+  __shared__ int used[kDenseThreads];
+  const int BD = B * D;
+  const int w = blockIdx.x * kDenseThreads + threadIdx.x;
+  int step = 0;
+  if (w < BD) {
+    const int b = w / D, d = w % D;
+    const int pb = 32 - __clz(2 * P + 3);  // ceil(log2(2P + 4))
+    const int MARKER_D = (1 << pb) - 1, MARKER_V = MARKER_D - 1;
+    const short* base = dirs + (size_t)b * N1 * D * W + (size_t)d * W;
+    const int* nid = node_id ? node_id + (size_t)b * (N1 - 1) : nullptr;
+    const size_t row_stride = (size_t)D * W;
+    short* pn_w = pn + (size_t)w * L;
+    short* pp_w = pp + (size_t)w * L;
+    int i = maxi[w], j = maxj[w];
+    const bool started = !(i == 0 && j == 0);
+    bool active = mode == kOV ? (started && i != 0 && j != 0) : started;
+    while (active && step < L) {
+      const int code = base[(size_t)i * row_stride + j];
+      const int pr = code >> kDeltaBits, dl = code & kDmask;
+      if (mode == kSW && pr == 0) break;
+      const bool mrkd = pr == MARKER_D, mrkv = pr == MARKER_V;
+      const bool is_diag = (pr >= P + 2 && pr < MARKER_V) || mrkd;
+      const bool is_vert = (pr >= 2 && pr <= P + 1) || mrkv;
+      const bool moves = is_diag || is_vert;
+      const int delta = (mrkd || mrkv) ? 1 : dl;
+      int pi = moves ? i - delta : i;
+      if (delta == 0) pi = moves ? 0 : i;  // delta 0: the predecessor is row 0
+      const int pj = (is_diag || !is_vert) ? j - 1 : j;
+      const int rank = i - 1;
+      pn_w[L - 1 - step] = pi == i ? -1 : (short)(nid && rank >= 0 ? nid[rank] : rank);
+      pp_w[L - 1 - step] = pj == j ? -1 : (short)(j - 1);
+      i = pi;
+      j = pj;
+      ++step;
+      if (mode == kNW) active = !(i == 0 && j == 0);
+      else if (mode == kOV) active = !(i == 0 || j == 0);
+    }
+    count[w] = started ? step : 0;
+  }
+  used[threadIdx.x] = step;
+  __syncthreads();
+  const int w0 = blockIdx.x * kDenseThreads;
+  for (int k = 0; k < kDenseThreads && w0 + k < BD; ++k) {
+    const int fill = L - used[k];
+    short* pn_k = pn + (size_t)(w0 + k) * L;
+    short* pp_k = pp + (size_t)(w0 + k) * L;
+    for (int c = threadIdx.x; c < fill; c += kDenseThreads) {
+      pn_k[c] = -2;
+      pp_k[c] = -2;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -208,6 +281,15 @@ int poa_walk_launch(const short* dirs, const int* maxi, const int* maxj, int* ru
   const int blocks = (B * D + threads - 1) / threads;
   poa_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       dirs, maxi, maxj, runs, count, steps, B, N1, D, W, L, P, mode);
+  return (int)cudaGetLastError();
+}
+
+int poa_walk_dense_launch(const short* dirs, const int* maxi, const int* maxj,
+                          const int* node_id, short* pn, short* pp, int* count, int B,
+                          int N1, int D, int W, int L, int P, int mode, void* stream) {
+  const int blocks = (B * D + kDenseThreads - 1) / kDenseThreads;
+  poa_walk_dense_kernel<<<blocks, kDenseThreads, 0, (cudaStream_t)stream>>>(
+      dirs, maxi, maxj, node_id, pn, pp, count, B, N1, D, W, L, P, mode);
   return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG_ROOT, "csrc")
 BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
-SOURCES = ("poa_linear", "pairwise_nw", "poa_affine", "poa_convex")
+SOURCES = ("poa_linear", "pairwise_nw", "poa_affine", "poa_convex", "mix_peak")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +39,8 @@ LAUNCHES: Dict[str, int] = {
     "poa_walk_affine": 0,
     "poa_dp_convex": 0,
     "poa_walk_convex": 0,
+    "poa_walk_dense": 0,
+    "mix_peak": 0,
 }
 
 _lock = threading.Lock()

@@ -11,6 +11,13 @@ counted in `fallbacks`; the host result is byte-identical.
 
 `device` picks where the DP runs: a CUDA device launches the kernels, the
 CPU runs their plain PyTorch versions (the tests and `--backend torch`).
+
+With more than one entry in `devices` (by default every visible card) a
+chunk's window batch is cut into one shard per entry (`parallel/mesh.py`),
+each shard runs K1 and the dense walk on its own device and stream, and the
+pairs come back as int16 [B, D, L] buffers: the counterpart of the JAX
+backend's multi-device route. With one entry a chunk is one launch of K1 and
+the run-length walk K2.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ...parallel.mesh import make_mesh, sharded_poa_align_cuda
 from ..graph_align import LinearAligner
 from ..poagraph import Alignment, PoaGraph
 from . import _build, dense
@@ -35,18 +43,20 @@ from .poa_linear import (
 
 D_MAX = 64  # sequences per graph slot in one launch
 MAX_RING = (1 << DELTA_BITS) - 1  # largest predecessor distance a code holds
-# device bytes of one launch: the int16 dirs tensor plus, for rings that do
-# not fit in shared memory, the int16 H ring
+# device bytes of one launch (of one shard's, on the sharded route): the
+# int16 dirs tensor, for rings that do not fit in shared memory the int16 H
+# ring, and on the sharded route the two int16 [B, D, L] pair buffers
 LAUNCH_BYTES = 1 << 30
 
 
-def pack_windows(dense_seqs, nb: int, pb: int, wb: int):
-    """JAX-layout inputs of `poa_align` for B graphs packed by
+def pack_windows(dense_seqs, nb: int, pb: int, wb: int, B: int = 0):
+    """JAX-layout inputs of `poa_align` for the graphs packed by
     `graph_to_dense(graph, nb, pb)`, each with the code arrays aligned
     against it: codes/sink/node_id [B, 1, nb], preds [B, pb, nb], n_nodes
     [B, 1, 1], seqp [B, D, wb] (lane j = position j-1), seq_len [B, 1, D]
-    (numpy int32). Padding sequences are one 'A'."""
-    B = len(dense_seqs)
+    (numpy int32). Padding sequences are one 'A'; with B over the number
+    of graphs the slots past them are padding too (one sink node 'A')."""
+    B = max(B, len(dense_seqs))
     D = max(len(seqs) for _, seqs in dense_seqs)
     codes = np.zeros((B, 1, nb), np.int32)
     preds = np.zeros((B, pb, nb), np.int32)
@@ -72,11 +82,21 @@ def pack_windows(dense_seqs, nb: int, pb: int, wb: int):
 class TorchAlignerBackend:
     """Drop-in batch aligner running the POA kernels on `device`."""
 
-    def __init__(self, match: int, mismatch: int, gap: int, device="cuda"):
+    def __init__(self, match: int, mismatch: int, gap: int, device="cuda", devices=None):
         self.match = match
         self.mismatch = mismatch
         self.gap = gap
-        self.device = _build.resolve_device(device)
+        if devices is None:
+            device = _build.resolve_device(device)
+            # "cuda" is every visible card; "cuda:1" or "cpu" is that device
+            all_cards = device.type == "cuda" and device.index is None
+            devices = None if all_cards else [device]
+        # one entry per shard of a window batch; the pairwise kernels and
+        # the single-shard route run on the first
+        self.devices = make_mesh(devices)
+        self.device = self.devices[0]
+        self._sharded_fns: Dict[Tuple, object] = {}
+        self.n_sharded_dispatches = 0
         self._host_nw = LinearAligner("nw", match, mismatch, gap)
         self._host_sw = LinearAligner("sw", 3, -5, -4)  # src/window.cpp:326
         self.fallbacks = 0
@@ -101,6 +121,7 @@ class TorchAlignerBackend:
             fallbacks=self.fallbacks,
             cell_updates=self.cell_updates,
             n_dispatches=self.n_dispatches,
+            sharded_dispatches=self.n_sharded_dispatches,
             exact_pairs=pw.exact_pairs if pw else 0,
             exact_rejects=pw.exact_rejects if pw else 0,
             device_tiles=pw.device_tiles if pw else 0,
@@ -117,6 +138,16 @@ class TorchAlignerBackend:
 
             self._pairwise = DevicePairwiseAligner(device=self.device)
         return self._pairwise.edit_align_batch(pairs)
+
+    def _sharded_fn(self, mode: str, ring: int):
+        key = (mode, ring)
+        fn = self._sharded_fns.get(key)
+        if fn is None:
+            fn = sharded_poa_align_cuda(
+                self.devices, mode, *self._scores(mode), ring=ring, emit_node_ids=False
+            )
+            self._sharded_fns[key] = fn
+        return fn
 
     def _scores(self, mode: str) -> Tuple[int, int, int]:
         if mode == "nw":
@@ -194,7 +225,10 @@ class TorchAlignerBackend:
                     entries.append((graph, idxs[off : off + D_MAX]))
             d_used = max(len(idxs) for _, idxs in entries)
             per_slot = (nb + 1) * d_used * wb * 2 + d_used * ((ring + 1) * wb * 2)
-            max_b = max(1, LAUNCH_BYTES // per_slot)
+            n_shards = len(self.devices)
+            if n_shards > 1:
+                per_slot += 2 * d_used * (nb + wb) * 2
+            max_b = max(1, LAUNCH_BYTES // per_slot) * n_shards
             for off in range(0, len(entries), max_b):
                 self._run_chunk(
                     items, results, entries[off : off + max_b], mode, nb, pb, wb, ring
@@ -203,20 +237,30 @@ class TorchAlignerBackend:
 
     def _run_chunk(self, items, results, entries, mode, nb, pb, wb, ring):
         _t0 = time.perf_counter()
+        n_shards = len(self.devices)
+        # a sharded batch must divide by the shard count: padding slots
         codes, preds, sink, nid, nn, seqp, slen = pack_windows(
             [(self._dense(graph, nb, pb), [items[i][0] for i in idxs]) for graph, idxs in entries],
-            nb, pb, wb,
+            nb, pb, wb, B=-(-len(entries) // n_shards) * n_shards,
         )
         D = seqp.shape[1]
         self.t_pack += time.perf_counter() - _t0
 
         _t0 = time.perf_counter()
         m, x, g = self._scores(mode)
-        runs, steps, count, _ = poa_align(
-            codes, preds, sink, nn, seqp, slen, mode, m, x, g,
-            ring=ring, device=self.device,
-        )
-        runs = runs[:steps].cpu().numpy()
+        if n_shards > 1:
+            dpn, dpp, count, _ = self._sharded_fn(mode, ring)(
+                codes, preds, sink, nid, nn, seqp, slen
+            )
+            dpn, dpp = dpn.numpy(), dpp.numpy()
+            L = dpn.shape[2]
+            self.n_sharded_dispatches += 1
+        else:
+            runs, steps, count, _ = poa_align(
+                codes, preds, sink, nn, seqp, slen, mode, m, x, g,
+                ring=ring, device=self.device,
+            )
+            runs = runs[:steps].cpu().numpy()
         count = count.cpu().numpy()
         self.t_device += time.perf_counter() - _t0
         self.n_dispatches += 1
@@ -224,10 +268,15 @@ class TorchAlignerBackend:
         _t0 = time.perf_counter()
         for b, (graph, idxs) in enumerate(entries):
             for di, i in enumerate(idxs):
-                pn, pp = runs_to_pairs_np(runs[:, b * D + di])
+                c = int(count[b, 0, di])
+                if n_shards > 1:
+                    # the pairs are the columns that do not hold -2: the last c
+                    k = int(np.count_nonzero(dpp[b, di] != -2))
+                    pn, pp = dpn[b, di, L - k :], dpp[b, di, L - k :]
+                else:
+                    pn, pp = runs_to_pairs_np(runs[:, b * D + di])
                 pn = ranks_to_node_ids_np(pn, nid[b, 0])
                 aln = list(zip(pn.tolist(), pp.tolist()))
-                c = int(count[b, 0, di])
                 if len(aln) != c:
                     # a kernel bug: never fall back, never pass silently
                     raise RuntimeError(

@@ -1,11 +1,12 @@
-"""Linear-gap sequence-to-graph DP (K1) and its run-length traceback walk
-(K2): CUDA kernels in `csrc/poa_linear.cu`, their plain PyTorch versions,
-and the host helpers that decode the walk.
+"""Linear-gap sequence-to-graph DP (K1) and its traceback walks, run-length
+(K2) and dense: CUDA kernels in `csrc/poa_linear.cu`, their plain PyTorch
+versions, and the host helpers that decode the walks.
 
 Replaces `vechat_tpu/ops/kernels/poa_pallas.py`: `_dp_kernel` (the Pallas
-kernel behind `_poa_dp_pallas`) and `_traceback_walk_rle`. The direction
-codes, the run-marker scheme, the best-cell pack and the run-header layout
-are the reference's, bit for bit, so `runs_to_pairs_np` decodes both.
+kernel behind `_poa_dp_pallas`), `_traceback_walk_rle` and `_traceback_walk`.
+The direction codes, the run-marker scheme, the best-cell pack and the
+run-header layout are the reference's, bit for bit, so `runs_to_pairs_np`
+decodes both.
 
 K1 (`poa_dp`). One thread block per (window graph b, sequence d), one
 thread per lane j (W <= 1024), looping over DP rows 1..n_nodes. Each row
@@ -25,6 +26,13 @@ reads one direction code and writes one packed header into
 ``runs[step, walk]``, so a warp's stores coalesce. A marked diagonal or
 vertical run is jumped in one step. Bound by dependent-load latency: one
 dirs read per step, steps serial per walk.
+
+The dense walk (`traceback_walk_dense`), which the sharded route of
+`parallel/mesh.py` uses. One thread per walk again, one pair a step written
+back to front into int16 [B, D, L] buffers; a run marker is read as the
+unit move it stands for. Bound by the same dependent-load latency; blocks
+of one warp spread the walks over the SMs, and the warp fills its walks'
+unused columns with -2 in coalesced stores.
 """
 
 from __future__ import annotations
@@ -279,6 +287,7 @@ def _dp_plain(codes, aux, deg, sink, n_nodes, seqp, slen, mode, m, x, g, R):
 
 _DP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 _WALK_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_WALK_DENSE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _lib():
@@ -288,6 +297,8 @@ def _lib():
         lib.poa_dp_launch.restype = ctypes.c_int
         lib.poa_walk_launch.argtypes = _WALK_ARGS
         lib.poa_walk_launch.restype = ctypes.c_int
+        lib.poa_walk_dense_launch.argtypes = _WALK_DENSE_ARGS
+        lib.poa_walk_dense_launch.restype = ctypes.c_int
     return lib
 
 
@@ -432,20 +443,125 @@ def traceback_walk_rle(dirs, maxi, maxj, align_type, L, P):
     return runs, int(steps.item()), count
 
 
+# ------------------------------------------------------- the dense walk
+
+
+def _walk_dense_plain(dirs, maxi, maxj, mode, L, P, node_id=None):
+    """Plain PyTorch version of the dense walk: all B*D walks step together,
+    one gather a step, one pair a step (a run marker is the unit move it
+    stands for). Returns (pn, pp [B, D, L] int16, count [B, D] int32)."""
+    B, N1, D, W = dirs.shape
+    BD = B * D
+    dev = dirs.device
+    cf = dirs.reshape(-1)
+    w = torch.arange(BD, device=dev)
+    bidx, didx = w // D, w % D
+    i = maxi.reshape(BD).to(torch.int64)
+    j = maxj.reshape(BD).to(torch.int64)
+    started = ~((i == 0) & (j == 0))
+    active = started & (i != 0) & (j != 0) if mode == "ov" else started
+    cnt = torch.zeros(BD, dtype=torch.int32, device=dev)
+    pn = torch.full((BD, L), -2, dtype=torch.int16, device=dev)
+    pp = torch.full((BD, L), -2, dtype=torch.int16, device=dev)
+    nid = None if node_id is None else node_id.reshape(-1).to(torch.int64)
+    step = 0
+    while step < L and bool(active.any()):
+        code = cf[((bidx * N1 + i) * D + didx) * W + j].to(torch.int32)
+        is_diag, is_vert, delta, _, _, is_stop = _decode_move(code, P)
+        do = active & ~is_stop if mode == "sw" else active
+        moves = is_diag | is_vert
+        prev_i = torch.where(moves, i - delta, i)
+        # delta 0: the predecessor is row 0
+        prev_i = torch.where(delta == 0, torch.where(moves, 0, i), prev_i)
+        prev_j = torch.where(is_diag | ~is_vert, j - 1, j)
+        rank = (i - 1).clamp_min(0)
+        node = rank if nid is None else nid[bidx * (N1 - 1) + rank]
+        col = L - 1 - step
+        pn[:, col] = torch.where(do, torch.where(prev_i == i, -1, node), -2).to(torch.int16)
+        pp[:, col] = torch.where(do, torch.where(prev_j == j, -1, j - 1), -2).to(torch.int16)
+        i = torch.where(do, prev_i, i)
+        j = torch.where(do, prev_j, j)
+        cnt = cnt + do.to(torch.int32)
+        if mode == "sw":
+            active = do
+        elif mode == "nw":
+            active = do & ~((i == 0) & (j == 0))
+        else:
+            active = do & ~((i == 0) | (j == 0))
+        step += 1
+    cnt = torch.where(started, cnt, 0)
+    return pn.reshape(B, D, L), pp.reshape(B, D, L), cnt.reshape(B, D)
+
+
+def traceback_walk_dense(dirs, maxi, maxj, align_type, L, P, node_id=None):
+    """The dense walk. dirs [B, N1, D, W] int16 from `poa_dp`, maxi/maxj
+    [B, D] int32; node_id [B, N1-1] int32 or None.
+
+    Returns (pn, pp [B, D, L] int16, count [B, D] int32): the pairs of walk
+    (b, d) back to front, so that `pn[b, d, L-c:]` with c = count[b, d] is
+    the alignment front to back; every column before it holds -2. pn holds
+    DP ranks (row - 1), or node ids when `node_id` is given; -1 marks an
+    insertion (pn) or a deletion (pp). CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    B, N1, D, W = dirs.shape
+    if N1 > 32767 or W > 32767:
+        raise ValueError(f"shape N1={N1}, W={W} exceeds the int16 pair fields")
+    dev = dirs.device
+    if dirs.dtype != torch.int16 or not dirs.is_contiguous():
+        raise ValueError("dirs must be a contiguous int16 tensor")
+    ints = dict(maxi=maxi, maxj=maxj)
+    shapes = dict(maxi=(B, D), maxj=(B, D))
+    if node_id is not None:
+        ints["node_id"] = node_id
+        shapes["node_id"] = (B, N1 - 1)
+    for name, t in ints.items():
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
+    _check_inputs(ints, torch.int32, dev)
+    if dev.type == "cpu":
+        return _walk_dense_plain(dirs, maxi, maxj, align_type, L, P, node_id)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    pn = torch.empty((B, D, L), dtype=torch.int16, device=dev)
+    pp = torch.empty_like(pn)
+    count = torch.empty((B, D), dtype=torch.int32, device=dev)
+    if B * D == 0:
+        return pn, pp, count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().poa_walk_dense_launch(
+            dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(),
+            0 if node_id is None else node_id.data_ptr(),
+            pn.data_ptr(), pp.data_ptr(), count.data_ptr(),
+            B, N1, D, W, L, P, MODES[align_type],
+            stream,
+        )
+    _build.check(_lib(), rc, "poa_walk_dense")
+    _build.LAUNCHES["poa_walk_dense"] += 1
+    return pn, pp, count
+
+
 # ------------------------------------------------------- public entry point
 
 
 def poa_align(codes, preds, sink, n_nodes, seqp, seq_len, align_type, m, x, g,
-              ring: int = 0, device="cuda"):
-    """K1 then K2 on the JAX package's layouts (`poa_align_pallas(...,
-    emit_rle=True)`): codes/sink [B, 1, N], preds [B, P, N] (DP rows),
-    n_nodes [B, 1, 1], seqp [B, D, W], seq_len [B, 1, D]; numpy arrays or
-    tensors of any integer dtype. ring: H-ring rows (0 = full history).
+              ring: int = 0, device="cuda", emit_rle: bool = True,
+              emit_node_ids: bool = False, node_id=None):
+    """K1 then a walk on the JAX package's layouts (`poa_align_pallas`):
+    codes/sink [B, 1, N], preds [B, P, N] (DP rows), n_nodes [B, 1, 1], seqp
+    [B, D, W], seq_len [B, 1, D]; numpy arrays or tensors of any integer
+    dtype. ring: H-ring rows (0 = full history). L = N + W.
 
-    Returns (runs [L, B*D] int32, steps, count [B, 1, D], score [B, 1, D]),
-    tensors on `device`; L = N + W. `device` is the card unless the caller
-    asks for "cpu" (the plain versions); without a GPU, "cuda" raises."""
+    With emit_rle (K2) returns (runs [L, B*D] int32, steps, count [B, 1, D],
+    score [B, 1, D]). Without it (the dense walk) returns (pn, pp [B, D, L]
+    int16, count, score) as `traceback_walk_dense` lays them out; pn holds
+    DP ranks, or with emit_node_ids the ids of `node_id` [B, 1, N].
+
+    Tensors on `device`, which is the card unless the caller asks for "cpu"
+    (the plain versions); without a GPU, "cuda" raises."""
     device = _build.resolve_device(device)
+    if emit_node_ids and (emit_rle or node_id is None):
+        raise ValueError("emit_node_ids needs emit_rle=False and node_id")
 
     def t(a):
         return to_i32(a, device)
@@ -461,8 +577,12 @@ def poa_align(codes, preds, sink, n_nodes, seqp, seq_len, align_type, m, x, g,
         t(n_nodes).reshape(B), seqp, t(seq_len).reshape(B, D),
         align_type, m, x, g, R,
     )
-    runs, steps, count = traceback_walk_rle(dirs, maxi, maxj, align_type, N + W, P)
-    return runs, steps, count[:, None, :], score[:, None, :]
+    if emit_rle:
+        runs, steps, count = traceback_walk_rle(dirs, maxi, maxj, align_type, N + W, P)
+        return runs, steps, count[:, None, :], score[:, None, :]
+    nid = t(node_id).reshape(B, N) if emit_node_ids else None
+    pn, pp, count = traceback_walk_dense(dirs, maxi, maxj, align_type, N + W, P, nid)
+    return pn, pp, count[:, None, :], score[:, None, :]
 
 
 # ------------------------------------------------------------ host decode
