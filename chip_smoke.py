@@ -18,7 +18,11 @@ Phases (each raises on failure; the script exits non-zero on any):
   3. the main path: a seeded two-strain community (2 x 12.5 kb strains,
      1% apart; 200 reads x 2.5 kb at 8% ONT-profile error) corrected by
      `vechat --backend cuda`; wall time, reads/s, error before and after,
-     strain preservation, and each kernel's launches in this run
+     strain preservation, each kernel's launches in this run, and the tally
+     of K1's launch shapes (B, D, N, W, P, ring in shared or global memory)
+ 3b. K1 at the main path's own launches: inputs made at the two heaviest
+     shapes of that tally (launches x B*D*N*W), held to K1's plain version
+     and both timed
   4. the spoa path: 32 reads of one 480-base template (8% ONT-profile
      error) through `vechat-spoa-torch --backend cuda` with linear, affine
      and convex scores, in nw/sw/ov and strand-ambiguous runs (the first 12
@@ -47,7 +51,8 @@ on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; K7:
 the measurement; counts set to 0 just before each), the largest difference
 from its plain version (0: the tolerance is exact), its time, the plain
 version's time and the bound (the least time the card could take for
-the same work). The last line is {"ok": true, "device": {...}}. Without a
+the same work); K1's are at phase 3b's heaviest shape, which its entry
+names. The last line is {"ok": true, "device": {...}}. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no result.
 """
 
@@ -210,7 +215,7 @@ def window_inputs(rng, B, N, P, W, D):
 
     packed = []
     while len(packed) < B:
-        backbone = rand_seq(rng, min(500, W - 76))
+        backbone = rand_seq(rng, min(500, W - 76, N - 80))
         g = make_graph()
         codes = encode(backbone)
         g.add_alignment([], codes, np.ones(len(codes), np.uint32))
@@ -226,6 +231,18 @@ def window_inputs(rng, B, N, P, W, D):
         seqs = [encode(ont_read(rng, backbone, 0.08))[: W - 1] for _ in range(D)]
         packed.append((d, seqs))
     return pack_windows(packed, N, P, W)
+
+
+def k1_work(nn_t, deg, real_rows, P, D, W, seqp, slen):
+    """(bytes, counted operations) of one K1 launch on this run's data: the
+    real rows' graph words, the sequences, the direction rows written and
+    the best cells; 18 operations a cell and 5 a real in-edge a cell."""
+    B = nn_t.shape[0]
+    n_rows = int(nn_t.sum())
+    deg_real = int((deg * real_rows[:, 1:]).sum())
+    nbytes = (n_rows * (3 + P) * 4 + seqp.nbytes + slen.nbytes
+              + (n_rows + B) * D * W * 2 + 3 * B * D * 4)
+    return nbytes, n_rows * D * W * K1_OPS_CELL + deg_real * D * W * K1_OPS_EDGE
 
 
 def k1_k2_phase(device, inputs):
@@ -283,12 +300,7 @@ def k1_k2_phase(device, inputs):
         ms3 = time_ms(lambda: pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P))
         pms3 = time_ms(lambda: pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P), reps=2)
         # bound inputs from this run's data
-        n_rows = int(nn_t.sum())
-        deg_real = int((deg * real_rows[:, 1:]).sum())
-        cells = n_rows * D * W
-        k1_bytes = (n_rows * (3 + P) * 4 + seqp.nbytes + slen.nbytes
-                    + (n_rows + B) * D * W * 2 + 3 * B * D * 4)
-        k1_ops = cells * K1_OPS_CELL + deg_real * D * W * K1_OPS_EDGE
+        k1_bytes, k1_ops = k1_work(nn_t, deg, real_rows, P, D, W, seqp, slen)
         steps = int((kr != 0).sum())
         k2_bytes = steps * (2 + 4) + B * D * 12
         k2_ops = steps * WALK_OPS_STEP
@@ -706,11 +718,18 @@ def main_path_phase(tmp, made, backend_name="cuda"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    # K1's launch shapes in this run, the heaviest (launches x B*D*N*W) first
+    k1_shapes = sorted(({"B": B, "D": D, "N": N, "W": W, "P": P, "ring": ring, "launches": n}
+                        for (B, D, N, W, P, ring), n in _build.K1_SHAPES.items()),
+                       key=lambda r: -r["launches"] * r["B"] * r["D"] * r["N"] * r["W"])
     write_fasta(corrected, out_path)  # what phase 5 is held against
     counters = backend.counters() if hasattr(backend, "counters") else {}
     device_ms = device_times(prof)
     busy_s = sum(device_ms.values()) / 1e3
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
+    # K1 has an instantiation a lane count, in-edge slots, ring and mode:
+    # its device time summed over them
+    k1_device_s = sum(v for k, v in device_ms.items() if "poa_dp_kernel<" in k) / 1e3
     stages = {}
     if hasattr(backend, "t_pack"):
         stages = dict(poa_pack_s=backend.t_pack, poa_device_s=backend.t_device,
@@ -741,9 +760,10 @@ def main_path_phase(tmp, made, backend_name="cuda"):
              strain_preservation=f"{own_strain}/{len(corrected)}",
              launches=launches, counters=counters, stages_s=stages,
              device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
-             device_ms_top={k: v for k, v in top}))
+             poa_dp_kernel_device_s=k1_device_s,
+             device_ms_top={k: v for k, v in top}, k1_shapes=k1_shapes))
     if backend_name != "cuda":  # a rehearsal on the CPU
-        return launches, out_path
+        return launches, out_path, k1_shapes
     for k in MAIN_PATH_KERNELS:
         if launches[k] == 0:
             raise RuntimeError(f"kernel {k} was not launched on the main path")
@@ -751,7 +771,48 @@ def main_path_phase(tmp, made, backend_name="cuda"):
         raise RuntimeError(f"host routes dominate: {counters}")
     if not corrected or reduction < 4:
         raise RuntimeError(f"error fell only {reduction:.2f}x (floor 4x)")
-    return launches, out_path
+    return launches, out_path, k1_shapes
+
+
+def k1_path_phase(device, k1_shapes, n_shapes=2):
+    """Phase 3b: K1 at the main path's own launches, the `n_shapes` heaviest
+    of phase 3's tally: window inputs made at each shape, nw at the ring the
+    backend would pick (511 where the tally's ring was in global memory and
+    that one is not), held to the plain version and both timed. Returns the
+    rows, the heaviest first."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import poa_linear as pl
+
+    rng = np.random.default_rng(SEED + 2)
+    rows = []
+    for shp in k1_shapes[:n_shapes]:
+        B, D, N, W, P = (shp[k] for k in "BDNWP")
+        codes, preds, sink, nid, nn, seqp, slen = window_inputs(rng, B, N, P, W, D)
+        ring = max(1, max(pl.max_pred_distance(preds[b].T, nn[b, 0, 0]) for b in range(B)))
+        if shp["ring"] == "global" and pl.dp_launch_plan(B, D, W, ring, P)["use_smem"]:
+            ring = 511
+        plan = pl.dp_launch_plan(B, D, W, ring, P)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        nn_t, seqp_t, slen_t = t(nn).reshape(B), t(seqp), t(slen).reshape(B, D)
+        aux, deg = pl.pack_aux(t(preds), ring)
+        args = (t(codes).reshape(B, N), aux, deg, t(sink).reshape(B, N), nn_t, seqp_t, slen_t,
+                "nw", 3, -5, -4, ring)
+        k_out = pl.poa_dp(*args)
+        p_out = pl._dp_plain(*args)
+        real_rows = torch.arange(N + 1, device=device)[None, :] <= nn_t[:, None]
+        err = _max_err(f"K1 at the main path's {shp}", ("dirs", "maxi", "maxj", "score"),
+                       (k_out[0][real_rows], *k_out[1:]), (p_out[0][real_rows], *p_out[1:]))
+        ms = time_ms(lambda: pl.poa_dp(*args))
+        pms = time_ms(lambda: pl._dp_plain(*args), reps=2)
+        b_ms, b_by = bound_ms(*k1_work(nn_t, deg, real_rows, P, D, W, seqp, slen))
+        row = dict(kernel="poa_dp", phase="3b", launches_in_phase_3=shp["launches"],
+                   shape=(f"B={B} N={N} D={D} W={W} P={P} ring={ring} "
+                          f"({'shared' if plan['use_smem'] else 'global'}) nw"),
+                   ms=ms, plain_ms=pms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+        log_row(row)
+        rows.append(row)
+    return rows
 
 
 # ------------------------------------------------ phase 4: the spoa path
@@ -1204,8 +1265,12 @@ def main():
         goldens_phase(tmp)
         lap("phase 2")
         made = community(rng, tmp)
-        launches, corrected_path = main_path_phase(tmp, made)
+        launches, corrected_path, k1_shapes = main_path_phase(tmp, made)
         lap("phase 3")
+        # K1's row in the kernels line is the one at the main path's heaviest
+        # launch shape; phase 1's rows stay as lines of their own
+        rows["poa_dp"] = k1_path_phase(device, k1_shapes)[0]
+        lap("phase 3b")
         stream_host = start_stream_host(tmp, made[0])
         try:
             spoa_launches = spoa_phase(tmp, reads)
@@ -1234,6 +1299,8 @@ def main():
                             launches=launches[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
+        if name == "poa_dp":
+            kernels[-1]["shape"] = r["shape"]
     log(f"gpu: {gpu}  total {time.perf_counter() - t_start:.1f} s")
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Probes of K1, the linear POA DP kernel of vechat_tpu_torch, on one
+NVIDIA GPU (the timing) or on the output of `cuobjdump -sass` (the count).
+
+    python3 k1_probe.py time DIR [DIR ...]   # DIR: the root of a checkout
+    python3 k1_probe.py sass FILE            # cuobjdump -sass output or a .so
+
+`time` runs K1 of each DIR's package in a process of its own, in the order
+given (list A B B A to compare two versions in turns), on the window inputs
+of chip_smoke.py's phase 1 (B=16 N=640 D=32 W=576 P=8, nw and sw, the
+backend's ring and ring 511) and phase 3b (the main path's two heaviest
+launch shapes as its phase 3 tallied them: B=14 N=640 D=55 and D=51 W=576
+P=4, ring 511 in global memory), drawn from the same seeds, and at phase
+1's shape with twice the windows (B=32: two warps to a scheduler where
+phase 1 gives one, which tells latency from throughput). Each line is one
+(DIR, shape): the CUDA-event median of 20 launches, chip_smoke.py's bound
+for that work, and the share of K7's mix rate measured by the same process.
+
+`sass` counts, for every poa_dp_kernel instantiation, the instructions a
+thread executes for its lanes in one DP row, divided by its lanes (W/32):
+the straight-line code from the in-edges' end to the ring and stage stores
+(profile, in-row scan, direction code, run markers, packing: "per cell"),
+and one guarded in-edge block after the first ("per in-edge"), each split
+into the INT32 pipe's instructions (integer ALU, DPX min/max), IMAD (FMA
+pipe), shared-memory and shuffle instructions (MIO) and the rest.
+"""
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from collections import Counter
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# (label, seed offset, [(B, N, P, W, D), ...], modes, rings): inputs drawn in
+# order from one generator, as chip_smoke.py draws them; ring None = the
+# backend's (the largest predecessor distance)
+SHAPES = [
+    ("phase 1", 0, [(16, 640, 8, 576, 32)], ("nw", "sw"), (None, 511)),
+    ("phase 3b", 2, [(14, 640, 4, 576, 55), (14, 640, 4, 576, 51)], ("nw",), (511,)),
+    # twice phase 1's windows: two warps to each of the 528 schedulers, not one
+    ("phase 1, 32 windows", 7, [(32, 640, 8, 576, 32)], ("nw",), (None,)),
+]
+
+
+def _time_one(pkg_dir):
+    """Time K1 of the package under pkg_dir; prints one JSON line a case
+    with its bound and its share of the measured mix rate (K7, this run)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, pkg_dir)
+    # this checkout's chip_smoke.py (its inputs and bounds), whatever DIR holds
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vechat_tpu_torch.ops.kernels import poa_linear as pl
+    from vechat_tpu_torch.utils.roofline import measure_mix_peak
+
+    assert pl.__file__.startswith(os.path.abspath(pkg_dir)), pl.__file__
+    dev = torch.device("cuda")
+    mix_ops_per_s = measure_mix_peak()["tops"] * 1e12
+    for label, seed, shapes, modes, rings in SHAPES:
+        rng = np.random.default_rng(cs.SEED + seed)
+        for B, N, P, W, D in shapes:
+            codes, preds, sink, nid, nn, seqp, slen = cs.window_inputs(rng, B, N, P, W, D)
+            dist = max(pl.max_pred_distance(preds[b].T, nn[b, 0, 0]) for b in range(B))
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+            nn_t = t(nn).reshape(B)
+            real_rows = torch.arange(N + 1, device=dev)[None, :] <= nn_t[:, None]
+            for mode in modes:
+                for ring in rings:
+                    R = ring or max(1, dist)
+                    aux, deg = pl.pack_aux(t(preds), R)
+                    args = (t(codes).reshape(B, N), aux, deg, t(sink).reshape(B, N), nn_t,
+                            t(seqp), t(slen).reshape(B, D), mode, 3, -5, -4, R)
+                    ms = cs.time_ms(lambda: pl.poa_dp(*args), warmup=2, reps=20)
+                    nbytes, ops = cs.k1_work(nn_t, deg, real_rows, P, D, W, seqp, slen)
+                    b_ms, b_by = cs.bound_ms(nbytes, ops)
+                    print(json.dumps(dict(
+                        pkg=pkg_dir, shape=f"{label}: B={B} N={N} D={D} W={W} P={P} ring={R} {mode}",
+                        ms=ms, bound_ms=b_ms, bound_by=b_by,
+                        share_of_measured_mix_rate=ops / (ms * 1e-3) / mix_ops_per_s,
+                        mix_tops=mix_ops_per_s / 1e12)), flush=True)
+
+
+INT32 = re.compile(r"^(IADD3|LOP3|SHF|ISETP|SEL|VIMNMX|VIADDMNMX|VIMNMX3|VIADD|PRMT|LEA|IABS|"
+                   r"IMNMX|FLO|POPC|BMSK|P2R|R2P|PLOP3)")
+
+
+def _pipe(op):
+    if INT32.match(op):
+        return "int32"
+    if op.startswith("IMAD"):
+        return "imad"
+    if op.startswith(("LDS", "STS", "SHFL")):
+        return "mio"
+    return "other"
+
+
+def sass_counts(text):
+    """{instantiation: counts} from cuobjdump -sass text."""
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        m = re.search(r"poa_dp_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E", name)
+        if not m:
+            continue
+        lpt, pmax, smem, exact, sw = (int(v) for v in m.groups())
+        if not exact:
+            continue
+        ins = []
+        for line in fn.splitlines():
+            mm = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if mm:
+                text_i = re.sub(r"^@!?U?P[T0-9]+\s+", "", mm.group(2))
+                ins.append((int(mm.group(1), 16), text_i.split()[0], text_i))
+        addr = [a for a, _, _ in ins]
+
+        def region(lo, hi):
+            return Counter(_pipe(op) for a, op, _ in ins if lo <= a < hi)
+
+        # the warp scan's last step (shuffle up by 16) is unique
+        scan = next(a for a, op, t in ins if op.startswith("SHFL.UP") and ", 0x10," in t)
+        back = [a for a, op, t in ins if op.startswith("BRA") and a < scan
+                and int(t.split()[-1], 16) < a]
+        start = max(back) + 16
+        stores = [a for a, op, _ in ins if op.startswith("STS") and a > scan]
+        copy = min(a for a, op, _ in ins if op.startswith("LDS.128") and a > scan)
+        end = max(a for a in stores if a < copy) + 16
+        # guarded in-edge blocks: "@!P BRA skip" then the aux shuffle
+        edges = []
+        for k, (a, op, t) in enumerate(ins[:-1]):
+            if op == "BRA" and ins[k + 1][1].startswith("SHFL.IDX"):
+                skip = int(t.split()[-1], 16)
+                body = [o for b, o, _ in ins if a < b < skip]
+                if (any(o.startswith(("LDS", "LDG")) for o in body)
+                        and sum(o.startswith("SHFL") for o in body) == 2):
+                    edges.append((a, skip))
+        cell = region(start, end)
+        edge = region(*edges[1]) if len(edges) > 1 else Counter()
+        out[f"LPT={lpt} PMAX={pmax} smem={smem} sw={sw}"] = dict(
+            lanes=lpt, instructions=len(addr),
+            per_cell={k: v / lpt for k, v in sorted(cell.items())},
+            per_in_edge={k: v / lpt for k, v in sorted(edge.items())})
+    return out
+
+
+def main(argv):
+    if len(argv) >= 2 and argv[0] == "time":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        for d in argv[1:]:
+            rc = subprocess.run([sys.executable, __file__, "_time", os.path.abspath(d)]).returncode
+            if rc:
+                return rc
+        return 0
+    if len(argv) == 2 and argv[0] == "_time":
+        _time_one(argv[1])
+        return 0
+    if len(argv) == 2 and argv[0] == "sass":
+        path = argv[1]
+        if path.endswith(".so"):
+            tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+            text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                                  check=True).stdout
+        else:
+            with open(path) as f:
+                text = f.read()
+        for k, v in sass_counts(text).items():
+            print(json.dumps(dict(kernel=k, **v)))
+        return 0
+    print(__doc__, file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -100,6 +100,71 @@ def test_poa_dp_and_walk_match_plain(cuda, mode, ring):
     assert ks == ps and torch.equal(kr[:ks], pr[:ps]) and torch.equal(kc, pc)
 
 
+def dag_windows(seed, B, N, P, W, D, max_dist):
+    """K1's inputs for B random rank-ordered DAGs (numpy, from `seed`): up
+    to P in-edges a node, each from one of the `max_dist` rows above it,
+    n_nodes < N, and D random sequences whose lengths include 1 and W-1."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (B, N)).astype(np.int32)
+    preds = np.zeros((B, P, N), np.int32)
+    sink = (rng.random((B, N)) < 0.2).astype(np.int32)
+    nn = rng.integers(N // 2, N, B).astype(np.int32)
+    for b in range(B):
+        for r in range(N):
+            cand = np.arange(max(0, r + 1 - max_dist), r + 1)
+            ps = rng.choice(cand, size=int(rng.integers(1, min(P, len(cand)) + 1)), replace=False)
+            preds[b, :, r] = ps[0]  # padding repeats slot 0
+            preds[b, : len(ps), r] = ps
+    slen = rng.integers(1, W, (B, D)).astype(np.int32)
+    slen.flat[0], slen.flat[-1] = 1, W - 1
+    seqp = np.full((B, D, W), 0xFF, np.int32)
+    for b in range(B):
+        for d in range(D):
+            seqp[b, d, 1 : 1 + slen[b, d]] = rng.integers(0, 4, slen[b, d])
+    return codes, preds, sink, nn, seqp, slen
+
+
+def _k1_equals_plain(device, arrays, mode, R, smem):
+    codes, preds, sink, nn, seqp, slen = (torch.from_numpy(a).to(device) for a in arrays)
+    B, P, N = preds.shape
+    D, W = seqp.shape[1:]
+    assert pl.dp_launch_plan(B, D, W, R, P)["use_smem"] == smem
+    aux, deg = pl.pack_aux(preds, R)
+    args = (codes, aux, deg, sink, nn, seqp, slen, mode, 3, -5, -4, R)
+    before = _build.LAUNCHES["poa_dp"]
+    k = pl.poa_dp(*args)
+    assert _build.LAUNCHES["poa_dp"] == before + 1
+    p = pl._dp_plain(*args)
+    real = torch.arange(N + 1, device=device)[None, :] <= nn[:, None]
+    assert torch.equal(k[0][real], p[0][real])
+    for name, a, b in zip(("maxi", "maxj", "score"), k[1:], p[1:]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+@pytest.mark.parametrize("P", [4, 8, 16])
+@pytest.mark.parametrize("W", [128, 320, 576, 768])
+@pytest.mark.parametrize("smem", [True, False])
+def test_poa_dp_buckets_match_plain(cuda, mode, P, W, smem):
+    """K1 at every W and P bucket and mode, its ring in shared memory (12
+    rows) and in global memory (511), against its plain version: B*D = 15
+    and D = 5 are no multiple of a block's 4 warps, n_nodes < N, sequences
+    of length 1 and W-1."""
+    arrays = dag_windows(W + P + len(mode), 3, 192, P, W, 5, 12 if smem else 200)
+    _k1_equals_plain(cuda, arrays, mode, 12 if smem else 511, smem)
+
+
+@pytest.mark.parametrize("W,R,smem", [(128, 511, True), (576, 511, False), (96, 40, True),
+                                      (32, 511, True), (1024, 64, True), (1024, 300, False)])
+def test_poa_dp_one_window_one_sequence_matches_plain(cuda, W, R, smem):
+    """B = D = 1 (the spoa path's launches), also at widths outside the
+    buckets (lane counts not among the kernel's own instantiations), and
+    in-degrees past the 16 slots fetched ahead (P = 20)."""
+    for mode in ("nw", "sw", "ov"):
+        arrays = dag_windows(W + R, 1, 160, 20, W, 1, min(R, 150))
+        _k1_equals_plain(cuda, arrays, mode, R, smem)
+
+
 @pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
 @pytest.mark.parametrize("node_ids", [False, True])
 def test_dense_walk_matches_plain_and_rle(cuda, mode, node_ids):
@@ -215,10 +280,11 @@ def test_measure_mix_peak(cuda):
 
 
 def test_poa_global_ring_matches_host(cuda):
-    """A ring too large for shared memory ((R+1)*W*2 bytes > 200 KB) runs
-    from the global scratch ring; alignments equal the host oracle's."""
+    """A ring too large for shared memory (a block's warps' slices of
+    (R+1)*W*2 bytes over 227 KB) runs from the global scratch ring;
+    alignments equal the host oracle's."""
     B, N, P, W, D, R = 2, 640, 8, 320, 3, 511
-    assert (R + 1) * W * 2 > pl.SMEM_RING_MAX
+    assert not pl.dp_launch_plan(B, D, W, R, P)["use_smem"]
     arrs, graphs, seqs = windows(2, B, N, P, W, D)
     codes, preds, sink, nid, nn, seqp, slen = arrs
     runs, steps, _, _ = pl.poa_align(

@@ -17,7 +17,7 @@ from vechat_tpu.ops.poagraph import PoaGraph as JaxPoaGraph
 from vechat_tpu_torch.ops.encode import encode
 from vechat_tpu_torch.ops.graph_align import LinearAligner
 from vechat_tpu_torch.ops.kernels import poa_linear as tpl
-from vechat_tpu_torch.ops.kernels.dense import graph_to_dense
+from vechat_tpu_torch.ops.kernels.dense import N_BUCKETS, P_BUCKETS, W_BUCKETS, graph_to_dense
 from vechat_tpu_torch.ops.poagraph import PoaGraph
 
 
@@ -255,3 +255,34 @@ def test_poa_align_defaults_to_the_card(monkeypatch):
     codes, preds, sink, nid, nn, seqp, slen = pack(jgraphs, seq_lists, 32, 4, 32)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpl.poa_align(codes, preds, sink, nn, seqp, slen, "nw", 3, -5, -4)
+
+
+@pytest.mark.parametrize("N", N_BUCKETS)
+@pytest.mark.parametrize("P", P_BUCKETS)
+@pytest.mark.parametrize("W", W_BUCKETS)
+def test_dp_launch_plan_fits_and_covers(N, P, W):
+    """K1's launch at every shape bucket, every D <= 64 and every ring the
+    wrapper can be given at N (1..min(N, 511)): the block fits in shared
+    memory, the ring leaves it only when a block's slices would not fit,
+    and the grid's warps cover every (b, d) exactly once."""
+    B = 3
+    for D in range(1, 65):
+        for R in range(1, min(N, 511) + 1):
+            plan = tpl.dp_launch_plan(B, D, W, R, P)
+            warps, (gb, gd) = plan["warps"], plan["grid"]
+            assert plan["lanes_per_thread"] * 32 == W
+            assert plan["edge_slots"] >= min(P, 16) and plan["edge_slots"] in (8, 16)
+            assert 1 <= warps <= min(D, tpl.K1_WARPS_MAX) and plan["threads"] == 32 * warps
+            stage, ring = 4 * W, (R + 1) * W * 2
+            assert plan["smem_bytes"] == warps * (stage + (ring if plan["use_smem"] else 0))
+            assert plan["smem_bytes"] <= tpl.SMEM_MAX
+            assert plan["use_smem"] == (warps * (stage + ring) <= tpl.SMEM_MAX)
+            assert gb == B and (gd - 1) * warps < D <= gd * warps  # no empty block
+            d = np.arange(gd)[:, None] * warps + np.arange(warps)[None, :]
+            assert sorted(d[d < D].tolist()) == list(range(D))
+
+
+@pytest.mark.parametrize("W", [0, 16, 100, 575, 1056, 2048])
+def test_dp_launch_plan_refuses_bad_widths(W):
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tpl.dp_launch_plan(1, 4, W, 8, 8)

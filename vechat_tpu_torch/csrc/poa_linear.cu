@@ -6,18 +6,31 @@
 // best-cell pack and run headers are the reference's bit for bit; the plain
 // PyTorch versions in ops/kernels/poa_linear.py compute the same outputs.
 //
-// K1: one block per (window b, sequence d), one thread per lane j. Bound by
-// the serial row chain (in-edge loads, then a block-wide max-scan): three
-// barriers per row. The int16 H ring sits in shared memory when it fits,
-// else in a global scratch ring; direction rows go out as coalesced int16
-// stores.
+// K1: one warp per (window b, sequence d), thread t of it owning the W/32
+// contiguous lanes [t*W/32, (t+1)*W/32) in registers. It replaced one block
+// per (b, d) with a thread per lane, whose rows each waited at three block
+// barriers (two in a block-wide scan) behind dependent loads of the graph
+// row. Now a row is: the in-edge maxes (two DPX add-then-max a lane and
+// in-edge, the H ring read with vector loads, the left neighbour's value by
+// shuffle); the in-row gap as a serial max-plus scan over the thread's lanes
+// and a 5-step shuffle scan of the 32 totals; the direction row staged in
+// shared memory and written in 16-byte pieces. One __syncwarp a row and no
+// block barrier. The graph rows come 32 at a time, fetched a batch ahead in
+// registers and taken by shuffle. The int16 H ring is in shared memory when
+// a block's warps' slices fit, else in a global scratch ring; a block holds
+// up to 4 warps of one window, which share its graph rows in L1. What bounds
+// it now is the latency of each row's chain of dependent steps (ring load,
+// the two scans, ring store): the main path's launches give about one warp
+// to each of the card's 528 schedulers, and twice the warps take only
+// 1.1-1.2x the time (k1_probe.py). About 31 instructions a lane (cell) and
+// 5 an in-edge, 24 and 4 of them on the INT32 pipe.
 // K2: one thread per walk; bound by one dependent dirs load per step.
 // The dense walk (poa_walk_dense_kernel, the sharded route's walk) replaces
 // _traceback_walk: see the note above the kernel.
 
 #include <cuda_runtime.h>
 
-#include "block_scan.cuh"
+#include <climits>
 
 namespace {
 
@@ -30,105 +43,346 @@ constexpr int kRunRBits = 9;
 constexpr int kRunPnShift = 19;
 enum { kNW = 0, kSW = 1, kOV = 2 };
 
-__global__ void poa_dp_kernel(
-    const int* __restrict__ codes,    // [B, N] node codes, rank order
-    const int* __restrict__ aux,      // [B, P, N] hslot << 16 | prio << 9 | delta
-    const int* __restrict__ deg,      // [B, N] true in-degree (>= 1)
-    const int* __restrict__ sink,     // [B, N] 1 = no out-edges
-    const int* __restrict__ n_nodes,  // [B]
-    const int* __restrict__ seqp,     // [B, D, W] lane j = code of position j-1
-    const int* __restrict__ slen,     // [B, D]
-    short* __restrict__ dirs,         // [B, N+1, D, W] out
-    int* __restrict__ maxi, int* __restrict__ maxj, int* __restrict__ score,  // [B, D]
-    short* __restrict__ hring,        // [B*D, R+1, W] scratch when !use_smem
-    int N, int P, int D, int W, int R, int mode, int m, int x, int g,
-    int use_smem, int SH) {
-  extern __shared__ int smem[];
-  int* warp_buf = smem;      // 32
-  int* rld_s = smem + 32;    // [2, W] run lengths of the last two rows
-  const int bd = blockIdx.x;
-  const int b = bd / D, d = bd % D;
-  const int j = threadIdx.x;
-  short* H = use_smem ? reinterpret_cast<short*>(smem + 32 + 2 * W)
-                      : hring + (size_t)bd * (R + 1) * W;
+// ------------------------------------------------------------------- K1
+// One warp per (window b, sequence d). Thread t of the warp owns the DP
+// lanes [t*LPT, (t+1)*LPT) with LPT = W/32 and keeps their values in
+// registers. The W buckets 128, 320, 576 and 768 (LPT 4, 10, 18, 24) have
+// instantiations of their own (EXACT); any other W, a multiple of 32 up to
+// 1024, runs the LPT-32 instantiation with a run-time lane count. PMAX is
+// the number of in-edge slots fetched ahead in registers (8 or 16); slots
+// past it, for P > 16, are read from global memory in the row loop. SMEM:
+// the H ring in shared memory; SW: local mode (its clamp at 0 and stop
+// code compiled in, nw and ov told apart at run time).
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kK1MaxWarps = 4;  // warps of a block: sequences of one window
+// H value standing in for the missing left neighbour of lane 0: adding a
+// profile and a delta pack to it stays below kNegV, without overflow
+constexpr int kLowH = -(3 << 29);
+
+template <int LPT, bool EXACT>
+__device__ __forceinline__ bool live(int i, int lpt) {
+  return EXACT || i < lpt;
+}
+
+// The thread's LPT int16 lanes at p, each times 2^SH (SH <= 15). Exact
+// widths read whole words, 16 bytes at a time when LPT is a multiple of 8:
+// at LPT 4, 10, 18 and 24 no two threads of a warp hit one bank.
+template <int LPT, bool EXACT>
+__device__ __forceinline__ void load_lanes(const short* p, int lpt, int SH, int (&h)[LPT]) {
+  if constexpr (EXACT && LPT % 2 == 0) {
+    int w[LPT / 2];
+    if constexpr (LPT % 8 == 0) {
+      const int4* q = reinterpret_cast<const int4*>(p);
+#pragma unroll
+      for (int k = 0; k < LPT / 8; ++k) {
+        const int4 v = q[k];
+        w[4 * k] = v.x;
+        w[4 * k + 1] = v.y;
+        w[4 * k + 2] = v.z;
+        w[4 * k + 3] = v.w;
+      }
+    } else if constexpr (LPT % 4 == 0) {
+      const int2* q = reinterpret_cast<const int2*>(p);
+#pragma unroll
+      for (int k = 0; k < LPT / 4; ++k) {
+        const int2 v = q[k];
+        w[2 * k] = v.x;
+        w[2 * k + 1] = v.y;
+      }
+    } else {
+      const int* q = reinterpret_cast<const int*>(p);
+#pragma unroll
+      for (int k = 0; k < LPT / 2; ++k) w[k] = q[k];
+    }
+    const int sr = 16 - SH;
+#pragma unroll
+    for (int k = 0; k < LPT / 2; ++k) {
+      h[2 * k] = (int)((unsigned)w[k] << 16) >> sr;
+      h[2 * k + 1] = (int)((unsigned)w[k] & 0xffff0000u) >> sr;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < LPT; ++i)
+      if (live<LPT, EXACT>(i, lpt)) h[i] = (int)p[i] * (1 << SH);
+  }
+}
+
+// The low halves of the thread's LPT values to its int16 lanes at p, with
+// the access widths of load_lanes.
+template <int LPT, bool EXACT>
+__device__ __forceinline__ void store_lanes(short* p, int lpt, const int (&v)[LPT]) {
+  if constexpr (EXACT && LPT % 2 == 0) {
+    int w[LPT / 2];
+#pragma unroll
+    for (int k = 0; k < LPT / 2; ++k) w[k] = (int)__byte_perm(v[2 * k], v[2 * k + 1], 0x5410);
+    if constexpr (LPT % 8 == 0) {
+      int4* q = reinterpret_cast<int4*>(p);
+#pragma unroll
+      for (int k = 0; k < LPT / 8; ++k)
+        q[k] = make_int4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+    } else if constexpr (LPT % 4 == 0) {
+      int2* q = reinterpret_cast<int2*>(p);
+#pragma unroll
+      for (int k = 0; k < LPT / 4; ++k) q[k] = make_int2(w[2 * k], w[2 * k + 1]);
+    } else {
+      int* q = reinterpret_cast<int*>(p);
+#pragma unroll
+      for (int k = 0; k < LPT / 2; ++k) q[k] = w[k];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < LPT; ++i)
+      if (live<LPT, EXACT>(i, lpt)) p[i] = (short)v[i];
+  }
+}
+
+// the value of the thread's last lane
+template <int LPT, bool EXACT>
+__device__ __forceinline__ int last_lane(const int (&v)[LPT], int lpt) {
+  if constexpr (EXACT) {
+    return v[LPT - 1];
+  } else {
+    int r = v[0];
+#pragma unroll
+    for (int i = 1; i < LPT; ++i)
+      if (i < lpt) r = v[i];
+    return r;
+  }
+}
+
+struct K1Args {
+  const int* codes;    // [B, N] node codes, rank order
+  const int* aux;      // [B, P, N] hslot << 16 | prio << 9 | delta
+  const int* deg;      // [B, N] true in-degree (>= 1)
+  const int* sink;     // [B, N] 1 = no out-edges
+  const int* n_nodes;  // [B]
+  const int* seqp;     // [B, D, W] lane j = code of position j-1
+  const int* slen;     // [B, D]
+  short* dirs;         // [B, N+1, D, W] out
+  int* maxi;           // [B, D] out
+  int* maxj;
+  int* score;
+  short* hring;        // [B*D, R+1, W] scratch when the ring is not in shared memory
+  int N, P, D, W, R, mode, m, x, g, SH;
+};
+
+template <int LPT, int PMAX, bool SMEM, bool EXACT, bool SW>
+__global__ void __launch_bounds__(32 * kK1MaxWarps) poa_dp_kernel(const K1Args a) {
+  // per warp: [2, W] staged direction rows, then (SMEM) the [R+1, W] H ring
+  extern __shared__ __align__(16) short k1_smem[];
+  const int N = a.N, P = a.P, D = a.D, W = a.W, R = a.R, mode = a.mode, g = a.g, SH = a.SH;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x;
+  const int d = blockIdx.y * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (d >= D) return;  // the kernel has no block barrier: a spare warp just leaves
+  const int bd = b * D + d;
+  const int lpt = EXACT ? LPT : W >> 5;
+  const int j0 = lane * lpt;
+  short* stage = k1_smem + (size_t)(threadIdx.x >> 5) *
+                               (2 * W + (SMEM ? (size_t)(R + 1) * W : 0));
+  // each thread reads and writes only its own lanes of the ring (the left
+  // neighbour's value comes by shuffle), so the ring needs no barrier
+  short* Hl = (SMEM ? stage + 2 * W : a.hring + (size_t)bd * (R + 1) * W) + j0;
   const int MASKC = (1 << SH) - 1;
   const int HORIZ = 1 << kDeltaBits;
-  const int MARKER_D = (1 << (SH - kDeltaBits)) - 1;
-  const int MARKER_V = MARKER_D - 1;
+  const int MARK_D = ((1 << (SH - kDeltaBits)) - 1) << kDeltaBits;  // run-marker codes
+  const int MARK_V = MARK_D - (1 << kDeltaBits);
   const int VADJ = g * (1 << SH) - (P << kDeltaBits);
-  const int sl = slen[bd];
-  const int qc = seqp[(size_t)bd * W + j];
-  const int nn = n_nodes[b];
-  const int jg = j * g;
-  const bool cell = mode == kNW ? (j == sl) : (j != 0 && j <= sl);
+  const int MS = a.m * (1 << SH), XS = a.x * (1 << SH);
+  const int CODE_D = (P + 2) << kDeltaBits, CODE_V = 2 << kDeltaBits;
+  const int sl = a.slen[bd];
+  const int nn = a.n_nodes[b];
+  const int jg0 = j0 * g;
+  const int chunks = W >> 3;  // 16-byte pieces of a direction row
+  short* drow = a.dirs + ((size_t)b * (N + 1) * D + d) * W;
   const size_t row_stride = (size_t)D * W;
-  short* drow = dirs + ((size_t)b * (N + 1) * D + d) * W + j;
-  const int* aux_b = aux + (size_t)b * P * N;
+  const int* aux_b = a.aux + (size_t)b * P * N;
+  const int* codes_b = a.codes + (size_t)b * N;
+  const int* deg_b = a.deg + (size_t)b * N;
+  const int* sink_b = a.sink + (size_t)b * N;
 
-  // slot R pins the row-0 boundary: start nodes at any rank read row 0
-  H[R * W + j] = mode == kSW ? 0 : (short)jg;
-  drow[0] = mode == kSW ? 0 : HORIZ;
-  int bestc = mode == kSW ? 0 : kNeg16 * kTie + (kTie - 1);
-  rld_s[j] = 0;
-  rld_s[W + j] = 0;
-  int rlv = 0;
-  __syncthreads();
-
-  for (int hr = 1; hr <= nn; ++hr) {
-    const int r = hr - 1;
-    const int code = codes[(size_t)b * N + r];
-    const int dg = deg[(size_t)b * N + r];
-    const int prof = (qc == code ? m : x) * (1 << SH);
-    // padding slots repeat slot 0 at a lower priority: skipping them
-    // leaves the max unchanged
-    int acc = kNegV;
-    for (int p = 0; p < dg; ++p) {
-      const int a = aux_b[(size_t)p * N + r];
-      const int dpack = a & 0xFFFF;
-      const short* hs = H + (size_t)(a >> 16) * W;
-      const int diag = j == 0 ? kNegV : (int)hs[j - 1] * (1 << SH) + (prof + dpack);
-      const int vert = (int)hs[j] * (1 << SH) + (VADJ + dpack);
-      acc = max(acc, max(diag, vert));
+  int qc[LPT], rl[LPT];  // query codes; run length (> 0 diagonal, < 0 vertical)
+  unsigned cmask = 0;    // lanes that may hold the best cell
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    qc[i] = 0;
+    rl[i] = 0;
+    if (live<LPT, EXACT>(i, lpt)) {
+      const int j = j0 + i;
+      qc[i] = a.seqp[(size_t)bd * W + j];
+      const bool cell = mode == kNW ? j == sl : (j != 0 && j <= sl);
+      cmask |= (unsigned)cell << i;
     }
-    if (mode != kNW && j == 0) acc = 0;
-    const int lv = acc >> SH;
-    const int lc = acc & MASKC;
-    // in-row gap: run[j] = max_{k<=j} val[k] + (j-k)*g
-    int run = vk::block_prefix_max(lv - jg, warp_buf) + jg;
-    if (mode == kSW) run = max(run, 0);
-    // horizontal loses every tie (last in reference priority order)
-    int dcode = run == lv ? lc : HORIZ;
-    if (mode == kSW && run == 0) dcode = 0;
-    // run markers: a diagonal unit-delta chain continues the previous
-    // row's chain one lane to the left, a vertical one the same lane
-    const int pr = dcode >> kDeltaBits, dl = dcode & kDmask;
-    const bool isd1 = pr >= P + 2 && dl == 1;
-    const bool isv1 = pr >= 2 && pr <= P + 1 && dl == 1;
-    const int* rld_prev = rld_s + ((hr - 1) & 1) * W;
-    const int rld = isd1 ? min(rld_prev[j == 0 ? W - 1 : j - 1] + 1, kDmask) : 0;
-    rlv = isv1 ? min(rlv + 1, kDmask) : 0;
-    if (isd1) dcode = (MARKER_D << kDeltaBits) | rld;
-    if (isv1) dcode = (MARKER_V << kDeltaBits) | rlv;
-    // every read of the ring slot overwritten here happened before the
-    // scan's barriers
-    H[(size_t)((hr - 1) % R) * W + j] = (short)run;
-    rld_s[(hr & 1) * W + j] = rld;
-    drow[(size_t)hr * row_stride] = (short)dcode;
-    if (cell && (mode == kSW || sink[(size_t)b * N + r] != 0))
-      bestc = max(bestc, run * kTie + (kTie - 1 - hr));
-    __syncthreads();
+  }
+  {
+    // slot R pins the row-0 boundary: start nodes at any rank read row 0
+    int h0[LPT];
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) h0[i] = SW ? 0 : jg0 + i * g;
+    store_lanes<LPT, EXACT>(Hl + (size_t)R * W, lpt, h0);
+    const int v0 = SW ? 0 : HORIZ * 0x10001;
+    for (int c = lane; c < chunks; c += 32)
+      reinterpret_cast<int4*>(drow)[c] = make_int4(v0, v0, v0, v0);
+  }
+  int best = SW ? 0 : kNeg16 * kTie + (kTie - 1);
+  int bestj = j0;
+
+  // graph rows come 32 at a time, fetched one batch ahead: lane k holds row
+  // r0+k's code, in-degree | sink << 8 and first PMAX aux words, and the row
+  // loop takes them by shuffle
+  int nc = 0, nm = 0, na[PMAX];
+  auto fetch = [&](int r0) {
+    const int r = r0 + lane;
+    const bool ok = r < nn;
+    nc = ok ? codes_b[r] : 0;
+    nm = ok ? deg_b[r] | (sink_b[r] != 0 ? 1 << 8 : 0) : 0;
+#pragma unroll
+    for (int p = 0; p < PMAX; ++p) na[p] = ok && p < P ? aux_b[(size_t)p * N + r] : 0;
+  };
+  fetch(0);
+  int wslot = 0;  // ring slot of row hr: (hr - 1) % R
+  for (int r0 = 0; r0 < nn; r0 += 32) {
+    const int cc = nc, cm = nm;
+    int ca[PMAX];
+#pragma unroll
+    for (int p = 0; p < PMAX; ++p) ca[p] = na[p];
+    if (r0 + 32 < nn) fetch(r0 + 32);
+    const int rows = min(32, nn - r0);
+    for (int k = 0; k < rows; ++k) {
+      const int hr = r0 + k + 1;
+      const int code = __shfl_sync(kFull, cc, k);
+      const int meta = __shfl_sync(kFull, cm, k);
+      const int dg = meta & 0xff;
+      // in-edges: every lane's best diagonal and vertical candidates, the
+      // match/mismatch profile left out: it is the same for every in-edge
+      // and is added once below (max(a + c, b + c) = max(a, b) + c)
+      int dmax[LPT], vmax[LPT];
+      auto edge = [&](int av, bool first) {
+        const int dp = av & 0xffff;
+        int h[LPT];
+        load_lanes<LPT, EXACT>(Hl + (size_t)(av >> 16) * W, lpt, SH, h);
+        int hl = __shfl_up_sync(kFull, last_lane<LPT, EXACT>(h, lpt), 1);
+        if (lane == 0) hl = kLowH;
+#pragma unroll
+        for (int i = 0; i < LPT; ++i) {
+          if (!live<LPT, EXACT>(i, lpt)) continue;
+          const int hd = i == 0 ? hl : h[i - 1];
+          if (first) {
+            dmax[i] = hd + dp;
+            vmax[i] = h[i] + dp;
+          } else {
+            dmax[i] = __viaddmax_s32(hd, dp, dmax[i]);
+            vmax[i] = __viaddmax_s32(h[i], dp, vmax[i]);
+          }
+        }
+      };
+      // padding slots repeat slot 0 at a lower priority: skipping them
+      // leaves the max unchanged
+#pragma unroll
+      for (int p = 0; p < PMAX; ++p)
+        if (p < dg) edge(__shfl_sync(kFull, ca[p], k), p == 0);
+      for (int p = PMAX; p < dg; ++p) edge(aux_b[(size_t)p * N + hr - 1], false);
+
+      // packed cell values, and the in-row gap as a max-plus scan in the
+      // lv - j*g domain: serial over the thread's lanes, then across the
+      // warp's 32 totals
+      int acc[LPT], s[LPT];
+#pragma unroll
+      for (int i = 0; i < LPT; ++i) {
+        if (i > 0 && !live<LPT, EXACT>(i, lpt)) {
+          s[i] = s[i - 1];
+          continue;
+        }
+        int v = __viaddmax_s32(vmax[i], VADJ, dmax[i] + (qc[i] == code ? MS : XS));
+        if (i == 0 && lane == 0) v = mode == kNW ? max(v, kNegV) : 0;
+        acc[i] = v;
+        const int xi = (v >> SH) - (jg0 + i * g);
+        s[i] = i == 0 ? xi : max(s[i - 1], xi);
+      }
+      int tot = s[LPT - 1];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(kFull, tot, o);
+        if (lane >= o) tot = max(tot, u);
+      }
+      int carry = __shfl_up_sync(kFull, tot, 1);
+      if (lane == 0) carry = kNegV;
+      // the diagonal run of lane 0 continues lane W-1's of the previous row
+      // (the reference's roll): thread 0 takes thread 31's last lane
+      const int rl_wrap = __shfl_sync(kFull, last_lane<LPT, EXACT>(rl, lpt), (lane + 31) & 31);
+      int run[LPT], dc[LPT];
+#pragma unroll
+      for (int i = LPT - 1; i >= 0; --i) {  // descending: rl[i-1] is still the previous row's
+        run[i] = 0;
+        dc[i] = 0;
+        if (!live<LPT, EXACT>(i, lpt)) continue;
+        const int jg = jg0 + i * g;
+        const int rv = SW ? __vimax3_s32(s[i] + jg, carry + jg, 0)
+                          : __viaddmax_s32(s[i], jg, carry + jg);
+        // horizontal loses every tie (last in reference priority order)
+        int dcode = rv == (acc[i] >> SH) ? acc[i] & MASKC : HORIZ;
+        if (SW && rv == 0) dcode = 0;
+        // run markers: a diagonal unit-delta chain continues the previous
+        // row's chain one lane to the left, a vertical one the same lane.
+        // Both lengths are computed and one is kept:
+        // min(max(r, 0) + 1, 511) = max(min(r + 1, 511), 1)
+        const bool unit = (dcode & kDmask) == 1;
+        const bool isd1 = unit && dcode >= CODE_D;
+        const bool isv1 = unit && !isd1 && dcode >= CODE_V;
+        const int cd = max(min((i == 0 ? rl_wrap : rl[i - 1]) + 1, kDmask), 1);
+        const int cv = max(min(1 - rl[i], kDmask), 1);
+        rl[i] = isd1 ? cd : (isv1 ? -cv : 0);
+        dcode = isd1 ? (MARK_D | cd) : (isv1 ? (MARK_V | cv) : dcode);
+        run[i] = rv;
+        dc[i] = dcode;
+      }
+      store_lanes<LPT, EXACT>(Hl + (size_t)wslot * W, lpt, run);
+      wslot = wslot + 1 == R ? 0 : wslot + 1;
+      // the direction row: staged (two buffers, so one __syncwarp a row
+      // orders both the writes before the reads and the reads before the
+      // buffer's next writes), then written in 16-byte pieces
+      short* st = stage + (hr & 1) * W;
+      store_lanes<LPT, EXACT>(st + j0, lpt, dc);
+      __syncwarp();
+      int4* dr = reinterpret_cast<int4*>(drow + (size_t)hr * row_stride);
+      for (int c = lane; c < chunks; c += 32) dr[c] = reinterpret_cast<const int4*>(st)[c];
+      // best cell: the row's best cell lane, packed with the row
+      if (cmask != 0 && (SW || (meta >> 8) != 0)) {
+        int rm = INT_MIN;
+        if (EXACT && cmask == (unsigned)((1ull << LPT) - 1)) {  // every lane a cell (sw, ov)
+#pragma unroll
+          for (int i = 0; i < LPT; ++i) rm = max(rm, run[i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < LPT; ++i)
+            if ((cmask >> i) & 1u) rm = max(rm, run[i]);
+        }
+        const int pack = rm * kTie + (kTie - 1 - hr);
+        if (pack > best) {
+          best = pack;
+#pragma unroll
+          for (int i = LPT - 1; i >= 0; --i)
+            if (((cmask >> i) & 1u) && run[i] == rm) bestj = j0 + i;
+        }
+      }
+    }
   }
 
   // best cell: highest score, then lowest row (packed), then lowest lane
-  const int best = vk::block_reduce(bestc, warp_buf, false);
-  const int jpick = vk::block_reduce(bestc == best ? j : INT_MAX, warp_buf, true);
-  if (j == 0) {
-    const int s = best >> 12;
-    const int ipick = (kTie - 1) - (best & (kTie - 1));
-    const bool empty = mode == kSW ? s <= 0 : ipick == 0;
-    maxi[bd] = empty ? 0 : ipick;
-    maxj[bd] = empty ? 0 : jpick;
-    score[bd] = s;
+  int wbest = best;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) wbest = max(wbest, __shfl_xor_sync(kFull, wbest, o));
+  int jpick = best == wbest ? bestj : INT_MAX;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) jpick = min(jpick, __shfl_xor_sync(kFull, jpick, o));
+  if (lane == 0) {
+    const int sc = wbest >> 12;
+    const int ipick = (kTie - 1) - (wbest & (kTie - 1));
+    const bool empty = SW ? sc <= 0 : ipick == 0;
+    a.maxi[bd] = empty ? 0 : ipick;
+    a.maxj[bd] = empty ? 0 : jpick;
+    a.score[bd] = sc;
   }
 }
 
@@ -250,6 +504,29 @@ __global__ void poa_walk_dense_kernel(
   }
 }
 
+template <int LPT, int PMAX, bool SMEM, bool EXACT, bool SW>
+int k1_launch(const K1Args& a, int B, int warps, int smem_bytes, cudaStream_t stream) {
+  auto kern = poa_dp_kernel<LPT, PMAX, SMEM, EXACT, SW>;
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // one block per (window, group of `warps` sequences), one warp a sequence
+  kern<<<dim3(B, (a.D + warps - 1) / warps), 32 * warps, smem_bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int LPT, int PMAX, bool EXACT>
+int k1_variant(const K1Args& a, int B, int warps, int smem_bytes, int use_smem,
+               cudaStream_t stream) {
+  if (a.mode == kSW)
+    return use_smem ? k1_launch<LPT, PMAX, true, EXACT, true>(a, B, warps, smem_bytes, stream)
+                    : k1_launch<LPT, PMAX, false, EXACT, true>(a, B, warps, smem_bytes, stream);
+  return use_smem ? k1_launch<LPT, PMAX, true, EXACT, false>(a, B, warps, smem_bytes, stream)
+                  : k1_launch<LPT, PMAX, false, EXACT, false>(a, B, warps, smem_bytes, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -259,19 +536,31 @@ const char* cuda_error_string(int e) { return cudaGetErrorString((cudaError_t)e)
 int poa_dp_launch(const int* codes, const int* aux, const int* deg, const int* sink,
                   const int* n_nodes, const int* seqp, const int* slen, short* dirs,
                   int* maxi, int* maxj, int* score, short* hring, int B, int N, int P,
-                  int D, int W, int R, int mode, int m, int x, int g, int use_smem, int SH,
-                  void* stream) {
-  const size_t smem = (32 + 2 * (size_t)W) * sizeof(int) +
-                      (use_smem ? (size_t)(R + 1) * W * sizeof(short) : 0);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        poa_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+                  int D, int W, int R, int mode, int m, int x, int g, int SH,
+                  int edge_slots, int warps, int use_smem, int smem_bytes, void* stream) {
+  // the launch plan (poa_linear.dp_launch_plan) must agree with the kernel's
+  // shared-memory layout
+  const long slice = 2L * W + (use_smem ? (long)(R + 1) * W : 0);
+  if (W % 32 != 0 || W < 32 || W > 1024 || warps < 1 || warps > kK1MaxWarps ||
+      (long)smem_bytes != warps * slice * (long)sizeof(short) ||
+      (edge_slots != 8 && edge_slots != 16) || edge_slots < (P < 16 ? P : 16))
+    return (int)cudaErrorInvalidValue;
+  const K1Args a{codes, aux, deg, sink, n_nodes, seqp, slen, dirs, maxi, maxj, score,
+                 hring, N, P, D, W, R, mode, m, x, g, SH};
+  const bool p16 = edge_slots == 16;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (W / 32) {
+    case 4: return p16 ? k1_variant<4, 16, true>(a, B, warps, smem_bytes, use_smem, st)
+                       : k1_variant<4, 8, true>(a, B, warps, smem_bytes, use_smem, st);
+    case 10: return p16 ? k1_variant<10, 16, true>(a, B, warps, smem_bytes, use_smem, st)
+                        : k1_variant<10, 8, true>(a, B, warps, smem_bytes, use_smem, st);
+    case 18: return p16 ? k1_variant<18, 16, true>(a, B, warps, smem_bytes, use_smem, st)
+                        : k1_variant<18, 8, true>(a, B, warps, smem_bytes, use_smem, st);
+    case 24: return p16 ? k1_variant<24, 16, true>(a, B, warps, smem_bytes, use_smem, st)
+                        : k1_variant<24, 8, true>(a, B, warps, smem_bytes, use_smem, st);
+    default: return p16 ? k1_variant<32, 16, false>(a, B, warps, smem_bytes, use_smem, st)
+                        : k1_variant<32, 8, false>(a, B, warps, smem_bytes, use_smem, st);
   }
-  poa_dp_kernel<<<B * D, W, smem, (cudaStream_t)stream>>>(
-      codes, aux, deg, sink, n_nodes, seqp, slen, dirs, maxi, maxj, score, hring, N, P, D,
-      W, R, mode, m, x, g, use_smem, SH);
-  return (int)cudaGetLastError();
 }
 
 int poa_walk_launch(const short* dirs, const int* maxi, const int* maxj, int* runs,

@@ -7,7 +7,8 @@ loaded with ctypes. A library is rebuilt when its source (or a header in
 build raises with nvcc's stderr; there is no fallback.
 
 The launch counters live here too: every wrapper adds one to its kernel's
-count where it launches the kernel, and nowhere else.
+count where it launches the kernel, and nowhere else; K1's wrapper also
+tallies its launch shapes.
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ LAUNCHES: Dict[str, int] = {
     "poa_walk_dense": 0,
     "mix_peak": 0,
 }
+# K1's launch shapes since the last reset_launches(): (B, D, N, W, P, ring
+# in "shared" or "global" memory) -> launches
+K1_SHAPES: Dict[tuple, int] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -50,6 +54,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    K1_SHAPES.clear()
 
 
 def resolve_device(device) -> "torch.device":

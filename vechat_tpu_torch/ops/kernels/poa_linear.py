@@ -8,18 +8,25 @@ The direction codes, the run-marker scheme, the best-cell pack and the
 run-header layout are the reference's, bit for bit, so `runs_to_pairs_np`
 decodes both.
 
-K1 (`poa_dp`). One thread block per (window graph b, sequence d), one
-thread per lane j (W <= 1024), looping over DP rows 1..n_nodes. Each row
-takes one packed max over the row's in-edge candidates
+K1 (`poa_dp`). One warp per (window graph b, sequence d), looping over DP
+rows 1..n_nodes; thread t of the warp owns the W/32 contiguous lanes
+[t*W/32, (t+1)*W/32) and keeps them in registers (W a multiple of 32, at
+most 1024). Each row takes one packed max over the row's in-edge candidates
 (``value << SH | prio << 9 | delta``, so the max also picks the move and
-the predecessor row), then an inclusive max-scan across the block for the
-in-row gap. On this card the kernel is bound by the serial row chain: per
-row, a few dependent loads from the H ring and three block barriers (two
-in the scan). The design keeps the H ring (int16) in shared memory whenever
-``(R+1)*W*2`` bytes fit, else in a global scratch ring that stays in L2,
-and writes each direction row with one coalesced int16 store per lane.
-Memory traffic (the dirs tensor, ``(N+1)*D*W*2`` bytes) is far below what
-the chain takes.
+the predecessor row), then the in-row gap as a max-plus scan: serial over a
+thread's lanes, then five shuffle steps across the warp. This replaced one
+block per (b, d) with a thread per lane, whose every row waited at three
+block barriers behind dependent loads of the graph row: the warp needs one
+`__syncwarp` a row, fetches the graph rows 32 at a time a batch ahead, and
+does the in-edge maxes with Hopper's add-then-max (DPX) instructions. What
+bounds it now is the latency of each row's chain of dependent steps (ring
+load, the two scans, ring store): the main path's launches give about one
+warp to each scheduler of the card, and twice the warps take only 1.1-1.2x
+the time (`k1_probe.py` at the repository root). A block holds up to
+`K1_WARPS_MAX` warps (sequences) of one window. The int16 H ring takes one
+slice per warp in shared memory when a block's slices fit, else a global
+scratch ring; direction rows are staged per warp and written in 16-byte
+pieces (`dp_launch_plan` holds this arithmetic).
 
 K2 (`traceback_walk_rle`). One thread per walk (B*D threads). Each step
 reads one direction code and writes one packed header into
@@ -63,9 +70,36 @@ RUN_R_BITS = 9
 RUN_PP_BITS = 10
 RUN_PN_SHIFT = RUN_R_BITS + RUN_PP_BITS
 
-# largest shared-memory H ring a K1 block takes (bytes); larger rings live
-# in a global scratch ring
+# largest shared-memory H ring a block of the affine and convex DPs (K5, K6)
+# takes (bytes); larger rings live in a global scratch ring
 SMEM_RING_MAX = 200 * 1024
+
+# K1's launch: warps (sequences of one window) per block, and the shared
+# memory a block may take (227 KB on Hopper)
+K1_WARPS_MAX = 4
+SMEM_MAX = 227 * 1024
+
+
+def dp_launch_plan(B: int, D: int, W: int, R: int, P: int) -> dict:
+    """K1's launch for B windows of D sequences, width W, an H ring of R
+    rows and P in-edge slots: lanes per thread, in-edge slots fetched ahead
+    in registers (8 or 16; slots past 16 are read in the row loop), warps
+    (sequences) per block, grid (B, groups of D), threads, shared-memory
+    bytes of a block, and whether the ring lies in shared memory. Each warp
+    takes a [2, W] int16 stage for its direction rows and, in shared memory,
+    its [R+1, W] int16 ring; the ring goes to global memory when the slices
+    of a block of min(D, K1_WARPS_MAX) warps do not fit, so that a block
+    keeps its warps (fewer would leave most of each SM's schedulers idle).
+    Raises on a W that is not a multiple of 32 in [32, 1024]."""
+    if W % 32 or not 32 <= W <= 1024:
+        raise ValueError(f"W={W} must be a multiple of 32 in [32, 1024]")
+    warps = max(1, min(D, K1_WARPS_MAX))
+    stage, ring = 2 * W * 2, (R + 1) * W * 2
+    use_smem = warps * (stage + ring) <= SMEM_MAX
+    slice_bytes = stage + (ring if use_smem else 0)
+    return dict(lanes_per_thread=W // 32, edge_slots=8 if P <= 8 else 16, warps=warps,
+                grid=(B, -(-D // warps)), threads=32 * warps,
+                smem_bytes=warps * slice_bytes, use_smem=use_smem)
 
 
 def fits_int16(n_cap: int, w_cap: int, m: int, x: int, g: int) -> bool:
@@ -285,7 +319,7 @@ def _dp_plain(codes, aux, deg, sink, n_nodes, seqp, slen, mode, m, x, g, R):
     return (dirs, *best_cell(bestc, jlane, mode))
 
 
-_DP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_DP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 _WALK_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _WALK_DENSE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
@@ -319,11 +353,11 @@ def poa_dp(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, R):
     maxi = torch.empty((B, D), dtype=torch.int32, device=dev)
     maxj = torch.empty_like(maxi)
     score = torch.empty_like(maxi)
-    ring_bytes = (R + 1) * W * 2
-    use_smem = ring_bytes <= SMEM_RING_MAX
-    hring = None if use_smem else torch.empty((B * D, R + 1, W), dtype=torch.int16, device=dev)
     if B * D == 0:
         return dirs, maxi, maxj, score
+    plan = dp_launch_plan(B, D, W, R, P)
+    use_smem = plan["use_smem"]
+    hring = None if use_smem else torch.empty((B * D, R + 1, W), dtype=torch.int16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _lib().poa_dp_launch(
@@ -331,11 +365,14 @@ def poa_dp(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, R):
             n_nodes.data_ptr(), seqp.data_ptr(), slen.data_ptr(),
             dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(), score.data_ptr(),
             0 if hring is None else hring.data_ptr(),
-            B, N, P, D, W, R, mode, m, x, g, int(use_smem), sh_bits(P),
+            B, N, P, D, W, R, mode, m, x, g, sh_bits(P),
+            plan["edge_slots"], plan["warps"], int(use_smem), plan["smem_bytes"],
             stream,
         )
     _build.check(_lib(), rc, "poa_dp")
     _build.LAUNCHES["poa_dp"] += 1
+    shape = (B, D, N, W, P, "shared" if use_smem else "global")
+    _build.K1_SHAPES[shape] = _build.K1_SHAPES.get(shape, 0) + 1
     return dirs, maxi, maxj, score
 
 
