@@ -2,6 +2,7 @@
 """Smoke test of vechat_tpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
+    python3 chip_smoke.py --save-k3 PATH   # also save phase 3c's K3 inputs
 
 Phases (each raises on failure; the script exits non-zero on any):
   0. the card's name and power limit; build the CUDA kernels with nvcc
@@ -18,11 +19,15 @@ Phases (each raises on failure; the script exits non-zero on any):
   3. the main path: a seeded two-strain community (2 x 12.5 kb strains,
      1% apart; 200 reads x 2.5 kb at 8% ONT-profile error) corrected by
      `vechat --backend cuda`; wall time, reads/s, error before and after,
-     strain preservation, each kernel's launches in this run, and the tally
+     strain preservation, each kernel's launches in this run, the tallies
      of K1's launch shapes (B, D, N, W, P, ring in shared or global memory)
+     and K3's (T, BW, NP), K1's and K3's device seconds
  3b. K1 at the main path's own launches: inputs made at the two heaviest
      shapes of that tally (launches x B*D*N*W), held to K1's plain version
      and both timed
+ 3c. K3 on exactly the inputs of phase 3's heaviest launch (largest
+     NP*T*BW), kept as phase 3 made it, held to its plain version and both
+     timed (`--save-k3 PATH` also saves them, for `k1_probe.py time-k3`)
   4. the spoa path: 32 reads of one 480-base template (8% ONT-profile
      error) through `vechat-spoa-torch --backend cuda` with linear, affine
      and convex scores, in nw/sw/ov and strand-ambiguous runs (the first 12
@@ -51,9 +56,11 @@ on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; K7:
 the measurement; counts set to 0 just before each), the largest difference
 from its plain version (0: the tolerance is exact), its time, the plain
 version's time and the bound (the least time the card could take for
-the same work); K1's are at phase 3b's heaviest shape, which its entry
-names. The last line is {"ok": true, "device": {...}}. Without a
-CUDA device, or outside a checkout, it exits non-zero and prints no result.
+the same work); K1's are at phase 3b's heaviest shape and K3's at 3c's
+launch, which their entries name (K3 at phase 1's 256 pairs stays a line
+of its own, with its accepted pairs). The last line is {"ok": true,
+"device": {...}}. Without a CUDA device, or outside a checkout, it exits
+non-zero and prints no result.
 """
 
 import contextlib
@@ -551,6 +558,7 @@ def _walk_err(kr, ks, kc, pr, ps, pc):
 
 
 NW_OUTPUTS = ("pt", "pq", "count", "dist")
+K3_ARGS = ("t", "ext", "tlen", "qlen", "lo")  # banded_nw's tensors, in order
 
 
 def nw_pairs(rng, n, lo, hi, rate):
@@ -564,23 +572,38 @@ def nw_pairs(rng, n, lo, hi, rate):
     return pairs
 
 
-def k3_phase(device, rng, T=2560, BW=896, NP=256):
+def k3_inputs(rng, device, T=2560, BW=896, NP=256):
+    """Phase 1's K3 inputs as `banded_nw`'s arguments on `device`: NP - 1
+    pairs of 70-100% of T at 8% ONT-profile error and one pair far beyond
+    the band (rejected, but its clipped walk must end)."""
     from vechat_tpu_torch.ops.encode import encode
     from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
 
     pairs = nw_pairs(rng, NP - 1, T * 7 // 10, T - 10, 0.08)
-    # one pair far beyond the band: rejected, but its walk must end
     pairs.append((encode(rand_seq(rng, T * 3 // 4)), encode(rand_seq(rng, T * 3 // 4 + BW // 8))))
-    t, ext, tl, ql, lo_ = pw.banded_inputs(*pw.pack_banded(pairs, T, BW), BW, device)
+    return pw.banded_inputs(*pw.pack_banded(pairs, T, BW), BW, device)
+
+
+def k3_work(tl, T, BW):
+    """(bytes, counted operations) of one K3 launch on this run's data: the
+    real rows' target codes, the query windows, the lengths and band
+    offsets, pt/pq and count/dist; 15 operations a cell of the real rows."""
+    NP = tl.shape[0]
+    rows = int(tl.sum())
+    nbytes = rows * 4 + int((tl + BW).sum()) * 4 + NP * 12 + NP * (T + BW) * 2 * 2 + NP * 8
+    return nbytes, rows * BW * NW_OPS_CELL
+
+
+def k3_phase(device, rng, T=2560, BW=896, NP=256):
+    from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
+
+    t, ext, tl, ql, lo_ = k3_inputs(rng, device, T, BW, NP)
     NP = t.shape[0]
     k_out = pw.banded_nw(t, ext, tl, ql, lo_, BW)
     err = _max_err("K3", NW_OUTPUTS, k_out, pw._banded_plain(t, ext, tl, ql, lo_, BW))
     ms = time_ms(lambda: pw.banded_nw(t, ext, tl, ql, lo_, BW))
     pms = time_ms(lambda: pw._banded_plain(t, ext, tl, ql, lo_, BW), reps=2)
-    rows = int(tl.sum())
-    L = T + BW
-    nbytes = rows * 4 + int((tl + BW).sum()) * 4 + NP * 12 + NP * L * 2 * 2 + NP * 8
-    b_ms, b_by = bound_ms(nbytes, rows * BW * NW_OPS_CELL)
+    b_ms, b_by = bound_ms(*k3_work(tl, T, BW))
     accepted = int((k_out[3] <= (BW - 1 - (ql - tl).abs()) // 2 - 2).sum())
     row = dict(kernel="pairwise_banded", shape=f"{NP} pairs T={T} BW={BW}",
                ms=ms, plain_ms=pms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
@@ -702,6 +725,7 @@ def main_path_phase(tmp, made, backend_name="cuda"):
     from vechat_tpu_torch.io.fastx import write_fasta
     from vechat_tpu_torch.ops.encode import encode
     from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
     from vechat_tpu_torch.ops.pairwise import edit_distance, edit_distance_infix
     from vechat_tpu_torch.utils.logger import Logger
 
@@ -710,14 +734,30 @@ def main_path_phase(tmp, made, backend_name="cuda"):
     args = build_parser().parse_args(
         [path, "-o", out_path, "--platform", "ont", "--backend", backend_name]
     )
+    # K3's heaviest launch of the run (largest NP*T*BW, the first of equals):
+    # its inputs, kept for phase 3c
+    heaviest = {}
+    banded_nw = pw.banded_nw
+
+    def keep_heaviest(t, ext, tlen, qlen, lo, BW):
+        size = t.shape[0] * t.shape[1] * BW
+        if size > heaviest.get("size", 0):
+            heaviest.update(size=size, args=(t, ext, tlen, qlen, lo), BW=BW)
+        return banded_nw(t, ext, tlen, qlen, lo, BW)
+
     _build.reset_launches()
-    # device activity only: CUPTI records every kernel and copy on the card
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        corrected, backend = run(args, Logger())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    pw.banded_nw = keep_heaviest
+    try:
+        # device activity only: CUPTI records every kernel and copy on the card
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            corrected, backend = run(args, Logger())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        pw.banded_nw = banded_nw
     launches = dict(_build.LAUNCHES)
+    heaviest["k3_shapes"] = dict(_build.K3_SHAPES)
     # K1's launch shapes in this run, the heaviest (launches x B*D*N*W) first
     k1_shapes = sorted(({"B": B, "D": D, "N": N, "W": W, "P": P, "ring": ring, "launches": n}
                         for (B, D, N, W, P, ring), n in _build.K1_SHAPES.items()),
@@ -730,6 +770,7 @@ def main_path_phase(tmp, made, backend_name="cuda"):
     # K1 has an instantiation a lane count, in-edge slots, ring and mode:
     # its device time summed over them
     k1_device_s = sum(v for k, v in device_ms.items() if "poa_dp_kernel<" in k) / 1e3
+    k3_device_s = sum(v for k, v in device_ms.items() if "banded_kernel" in k) / 1e3
     stages = {}
     if hasattr(backend, "t_pack"):
         stages = dict(poa_pack_s=backend.t_pack, poa_device_s=backend.t_device,
@@ -760,10 +801,12 @@ def main_path_phase(tmp, made, backend_name="cuda"):
              strain_preservation=f"{own_strain}/{len(corrected)}",
              launches=launches, counters=counters, stages_s=stages,
              device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
-             poa_dp_kernel_device_s=k1_device_s,
-             device_ms_top={k: v for k, v in top}, k1_shapes=k1_shapes))
+             poa_dp_kernel_device_s=k1_device_s, banded_kernel_device_s=k3_device_s,
+             device_ms_top={k: v for k, v in top}, k1_shapes=k1_shapes,
+             k3_shapes=[{"T": T, "BW": BW, "NP": NP, "launches": n}
+                        for (T, BW, NP), n in sorted(_build.K3_SHAPES.items())]))
     if backend_name != "cuda":  # a rehearsal on the CPU
-        return launches, out_path, k1_shapes
+        return launches, out_path, k1_shapes, heaviest
     for k in MAIN_PATH_KERNELS:
         if launches[k] == 0:
             raise RuntimeError(f"kernel {k} was not launched on the main path")
@@ -771,7 +814,7 @@ def main_path_phase(tmp, made, backend_name="cuda"):
         raise RuntimeError(f"host routes dominate: {counters}")
     if not corrected or reduction < 4:
         raise RuntimeError(f"error fell only {reduction:.2f}x (floor 4x)")
-    return launches, out_path, k1_shapes
+    return launches, out_path, k1_shapes, heaviest
 
 
 def k1_path_phase(device, k1_shapes, n_shapes=2):
@@ -813,6 +856,33 @@ def k1_path_phase(device, k1_shapes, n_shapes=2):
         log_row(row)
         rows.append(row)
     return rows
+
+
+def k3_path_phase(heaviest, save_path=None):
+    """Phase 3c: K3 on exactly the inputs of the main path's heaviest launch
+    (`main_path_phase` kept them), held to its plain version and both
+    timed; with `save_path`, the inputs are also saved there (npz) for
+    `k1_probe.py time-k3 --inputs`. Returns the row."""
+    from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
+
+    args, BW = heaviest["args"], heaviest["BW"]
+    NP, T = args[0].shape
+    if save_path:
+        np.savez(save_path, BW=BW, **{k: a.cpu().numpy() for k, a in zip(K3_ARGS, args)})
+    k_out = pw.banded_nw(*args, BW)
+    err = _max_err(f"K3 at the main path's {NP} pairs T={T} BW={BW}", NW_OUTPUTS, k_out,
+                   pw._banded_plain(*args, BW))
+    ms = time_ms(lambda: pw.banded_nw(*args, BW))
+    pms = time_ms(lambda: pw._banded_plain(*args, BW), reps=2)
+    b_ms, b_by = bound_ms(*k3_work(args[2], T, BW))
+    tl, ql = args[2], args[3]
+    row = dict(kernel="pairwise_banded", phase="3c",
+               launches_in_phase_3=heaviest["k3_shapes"][(T, BW, NP)],
+               shape=f"{NP} pairs T={T} BW={BW} (the main path's heaviest launch)",
+               ms=ms, plain_ms=pms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               accepted=int((k_out[3] <= (BW - 1 - (ql - tl).abs()) // 2 - 2).sum()))
+    log_row(row)
+    return row
 
 
 # ------------------------------------------------ phase 4: the spoa path
@@ -1210,7 +1280,12 @@ REPLACES = {
 }
 
 
-def main():
+def main(argv=()):
+    # --save-k3 PATH: also save the inputs of phase 3c (npz)
+    save_k3 = argv[1] if len(argv) == 2 and argv[0] == "--save-k3" else None
+    if argv and not save_k3:
+        print("usage: python3 chip_smoke.py [--save-k3 PATH]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1265,12 +1340,14 @@ def main():
         goldens_phase(tmp)
         lap("phase 2")
         made = community(rng, tmp)
-        launches, corrected_path, k1_shapes = main_path_phase(tmp, made)
+        launches, corrected_path, k1_shapes, k3_heaviest = main_path_phase(tmp, made)
         lap("phase 3")
-        # K1's row in the kernels line is the one at the main path's heaviest
-        # launch shape; phase 1's rows stay as lines of their own
+        # K1's and K3's rows in the kernels line are the ones at the main
+        # path's heaviest launches; phase 1's rows stay as lines of their own
         rows["poa_dp"] = k1_path_phase(device, k1_shapes)[0]
         lap("phase 3b")
+        rows["pairwise_banded"] = k3_path_phase(k3_heaviest, save_k3)
+        lap("phase 3c")
         stream_host = start_stream_host(tmp, made[0])
         try:
             spoa_launches = spoa_phase(tmp, reads)
@@ -1299,7 +1376,7 @@ def main():
                             launches=launches[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
-        if name == "poa_dp":
+        if name in ("poa_dp", "pairwise_banded"):
             kernels[-1]["shape"] = r["shape"]
     log(f"gpu: {gpu}  total {time.perf_counter() - t_start:.1f} s")
     log({"kernels": kernels})
@@ -1309,4 +1386,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Probes of K1, the linear POA DP kernel of vechat_tpu_torch, on one
-NVIDIA GPU (the timing) or on the output of `cuobjdump -sass` (the count).
+"""Probes of K1, the linear POA DP kernel of vechat_tpu_torch, and of K3,
+the banded NW kernel, on one NVIDIA GPU (the timing) or on the output of
+`cuobjdump -sass` (K1's count).
 
     python3 k1_probe.py time DIR [DIR ...]   # DIR: the root of a checkout
+    python3 k1_probe.py time-k3 [--inputs NPZ] DIR [DIR ...]
     python3 k1_probe.py sass FILE            # cuobjdump -sass output or a .so
 
 `time` runs K1 of each DIR's package in a process of its own, in the order
@@ -23,6 +25,15 @@ the straight-line code from the in-edges' end to the ring and stage stores
 and one guarded in-edge block after the first ("per in-edge"), each split
 into the INT32 pipe's instructions (integer ALU, DPX min/max), IMAD (FMA
 pipe), shared-memory and shuffle instructions (MIO) and the rest.
+
+`time-k3` runs K3 of each DIR's package in a process of its own, in the
+order given, on chip_smoke.py's phase 1 pairs (256 pairs at T=2560 BW=896,
+drawn as that script draws them) and, with --inputs, on the launch that
+`chip_smoke.py --save-k3 NPZ` kept (the main path's heaviest). Each case is
+timed twice: the kernel as built, and a build of the same source whose
+kernel stops after the DP rows (-DK3_ROWS_ONLY; for a source without that
+switch, the earlier kernel with a thread per band lane, its walk cut by a
+patch of the text), so the walk's share is the difference.
 """
 
 import json
@@ -87,6 +98,68 @@ def _time_one(pkg_dir):
                         ms=ms, bound_ms=b_ms, bound_by=b_by,
                         share_of_measured_mix_rate=ops / (ms * 1e-3) / mix_ops_per_s,
                         mix_tops=mix_ops_per_s / 1e12)), flush=True)
+
+
+def _rows_only_lib(_build):
+    """DIR's pairwise_nw.cu built with its K3 kernel stopping after the DP
+    rows, loaded with ctypes."""
+    import ctypes
+    import tempfile
+
+    with open(os.path.join(_build.CSRC, "pairwise_nw.cu")) as f:
+        text = f.read()
+    if "K3_ROWS_ONLY" not in text:
+        # the earlier kernel, a thread per lane: thread 0 walks after `if (l != 0) return;`
+        cut = "  if (l != 0) return;\n  const int ls = lq - lt - lod;"
+        assert text.count(cut) == 1, "unknown K3 source"
+        text = text.replace(cut, "  return;\n" + cut)
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    src = os.path.join(tmp, "pairwise_nw_rows.cu")
+    with open(src, "w") as f:
+        f.write(text)
+    lib = os.path.join(tmp, "libpairwise_nw_rows.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DK3_ROWS_ONLY", "-I", _build.CSRC,
+                    "-o", lib, src], check=True, capture_output=True)
+    return ctypes.CDLL(lib)
+
+
+def _time_k3(pkg_dir, inputs_path):
+    """Time K3 of the package under pkg_dir, whole and rows only; prints one
+    JSON line a (case, build) with its bound."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, pkg_dir)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
+
+    assert pw.__file__.startswith(os.path.abspath(pkg_dir)), pw.__file__
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(cs.SEED)
+    cs.window_inputs(rng, B=16, N=640, P=8, W=576, D=32)  # phase 1's draws before K3's
+    cases = [("phase 1", cs.k3_inputs(rng, dev), 896)]
+    if inputs_path:
+        z = np.load(inputs_path)
+        t = lambda k: torch.from_numpy(z[k]).to(dev)  # noqa: E731
+        cases.append(("main path's heaviest", tuple(t(k) for k in cs.K3_ARGS), int(z["BW"])))
+    whole = pw._lib()
+    rows_only = _rows_only_lib(_build)
+    for label, args, BW in cases:
+        NP, T = args[0].shape
+        for build, lib in (("whole", whole), ("rows only", rows_only)):
+            _build._libs["pairwise_nw"] = lib
+            pw._lib()  # sets the argument types of a fresh library
+            ms = cs.time_ms(lambda: pw.banded_nw(*args, BW), warmup=2, reps=20)
+            b_ms, b_by = cs.bound_ms(*cs.k3_work(args[2], T, BW))
+            print(json.dumps(dict(pkg=pkg_dir, shape=f"{label}: NP={NP} T={T} BW={BW}",
+                                  build=build, ms=ms, bound_ms=b_ms, bound_by=b_by)),
+                  flush=True)
+        _build._libs["pairwise_nw"] = whole
 
 
 INT32 = re.compile(r"^(IADD3|LOP3|SHF|ISETP|SEL|VIMNMX|VIADDMNMX|VIMNMX3|VIADD|PRMT|LEA|IABS|"
@@ -165,6 +238,25 @@ def main(argv):
         return 0
     if len(argv) == 2 and argv[0] == "_time":
         _time_one(argv[1])
+        return 0
+    if len(argv) >= 2 and argv[0] == "time-k3":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        inputs = ""
+        dirs = argv[1:]
+        if dirs[0] == "--inputs":
+            inputs, dirs = os.path.abspath(dirs[1]), dirs[2:]
+        for d in dirs:
+            rc = subprocess.run([sys.executable, __file__, "_time_k3", os.path.abspath(d),
+                                 inputs]).returncode
+            if rc:
+                return rc
+        return 0
+    if len(argv) == 3 and argv[0] == "_time_k3":
+        _time_k3(argv[1], argv[2])
         return 0
     if len(argv) == 2 and argv[0] == "sass":
         path = argv[1]

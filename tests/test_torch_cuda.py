@@ -473,6 +473,109 @@ def test_banded_matches_plain(cuda):
         assert torch.equal(g.cpu(), c)
 
 
+def _codes(rng, n):
+    return rng.integers(0, 4, size=n).astype(np.uint8)
+
+
+def _noisy_pairs(rng, n, lo, hi, rate=0.08):
+    return [(encode(mutate(rng, t, rate))[:hi], encode(t))
+            for t in (rand_seq(rng, int(rng.integers(lo, hi + 1))) for _ in range(n))]
+
+
+def _shifted(rng, T, BW, sign, k):
+    """|lq - lt| = BW - 1 - 2k, so that the band keeps k lanes beside the
+    path's first and last diagonals: a block of random bases inserted into
+    one side. k = 16 is the edge of the aligner's margin; at k <= 1 the
+    path runs along both band edges, the block's row joining them."""
+    d = BW - 1 - 2 * k
+    lt = T - d
+    t = _codes(rng, lt)
+    a = int(rng.integers(0, lt + 1))
+    q = np.concatenate([t[:a], _codes(rng, d), t[a:]])
+    return (q, t) if sign > 0 else (t, q)
+
+
+def _far(rng, T, BW):
+    """Far beyond the band: unrelated sequences, and a length difference
+    past the band (the clipped walk)."""
+    n = T * 3 // 4
+    return [(_codes(rng, n), _codes(rng, min(T, n + BW // 8))), (_codes(rng, T), _codes(rng, T // 3))]
+
+
+def k3_case(name):
+    """(pairs, T, BW) of one K3 case."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "bucket 640x384":
+        return _noisy_pairs(rng, 6, 300, 640) + _far(rng, 640, 384), 640, 384
+    if name == "bucket 2560x896":
+        return _noisy_pairs(rng, 4, 1800, 2560) + _far(rng, 2560, 896), 2560, 896
+    if name in ("BW 32", "BW 64", "BW 480", "BW 832", "BW 1024"):
+        BW = int(name.split()[1])
+        T = {32: 100, 64: 150, 480: 200, 832: 200, 1024: 300}[BW]
+        return _noisy_pairs(rng, 3, T // 2, T, 0.05) + _far(rng, T, BW)[:1], T, BW
+    if name in ("NP 1", "NP 3"):
+        return _noisy_pairs(rng, int(name[-1]), 150, 200), 200, 128
+    if name == "NP 257":
+        return _noisy_pairs(rng, 257, 100, 640), 640, 384
+    if name == "empty sequences":
+        e = np.zeros(0, np.uint8)
+        return [(e, _codes(rng, 40)), (_codes(rng, 40), e), (e, e), (_codes(rng, 50), _codes(rng, 60))], 96, 64
+    if name == "identical":
+        t = _codes(rng, 637)
+        return [(t, t), (t[:100], t[:100]), (t[:1], t[:1])], 640, 384
+    if name.startswith(("length difference at the margin", "path hugs a band edge")):
+        T, BW = (2560, 896) if name.endswith("2560x896") else (640, 384)
+        ks = (16,) if name.startswith("length") else (0, 1)
+        return [_shifted(rng, T, BW, s, k) for k in ks for s in (1, -1)], T, BW
+    if name == "far beyond the band":
+        return _far(rng, 640, 384) * 2, 640, 384
+    if name == "ragged target lengths":
+        # rows not a multiple of a 16-row chunk, a 64-row walk stage or a
+        # 32-row fetch batch, and T itself none of them
+        lens = (1, 15, 16, 17, 31, 33, 63, 64, 65, 127, 129, 200, 333)
+        return [(encode(mutate(rng, t, 0.1))[:333], encode(t))
+                for t in (rand_seq(rng, n) for n in lens)], 333, 128
+    raise ValueError(name)
+
+
+K3_CASES = ("bucket 640x384", "bucket 2560x896", "BW 32", "BW 64", "BW 480", "BW 832", "BW 1024",
+            "NP 1", "NP 3", "NP 257", "empty sequences", "identical", "length difference at the margin",
+            "length difference at the margin, 2560x896", "path hugs a band edge",
+            "path hugs a band edge, 2560x896", "far beyond the band", "ragged target lengths")
+
+
+def pack_banded_any(pairs, T, BW):
+    """`pack_banded`'s layout, also for an empty query (every code 0xFF),
+    which `pack_banded` itself does not take."""
+    arrs = pw.pack_banded([(q if len(q) else np.zeros(1, np.uint8), t) for q, t in pairs], T, BW)
+    _, _, qwin0, qent, qlen, lo = arrs
+    for n, (q, t) in enumerate(pairs):
+        if len(q) == 0:
+            b, d = divmod(n, pw.BSUB)
+            qwin0[b, d] = 0xFF
+            qent[b, :, 0, d] = 0xFF
+            qlen[b, 0, d] = 0
+            lo[b, 0, d] = -len(t) - (BW - 1 - len(t)) // 2
+    return arrs
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_banded_kernel_cases_match_plain(cuda, case):
+    """K3 against its plain version, all four outputs whole: both buckets,
+    other band widths (480 and 832 need over 48 KB of shared memory) and
+    pair counts, empty and identical sequences,
+    length differences at the aligner's margin, paths along a band edge,
+    clipped walks and ragged target lengths."""
+    pairs, T, BW = k3_case(case)
+    args = pw.banded_inputs(*pack_banded_any(pairs, T, BW), BW, cuda)
+    want = pw._banded_plain(*args, BW)
+    before = _build.LAUNCHES["pairwise_banded"]
+    got = pw.banded_nw(*args, BW)
+    assert _build.LAUNCHES["pairwise_banded"] == before + 1
+    for name, g, w in zip(("pt", "pq", "count", "dist"), got, want):
+        assert torch.equal(g, w), name
+
+
 def test_tiled_matches_plain(cuda):
     tiles = _pairs(6, 11, 5, 28, rate=0.15)
     arrs = pw.pack_tiles(tiles, 32, 32)

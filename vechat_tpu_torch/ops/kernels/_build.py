@@ -7,8 +7,8 @@ loaded with ctypes. A library is rebuilt when its source (or a header in
 build raises with nvcc's stderr; there is no fallback.
 
 The launch counters live here too: every wrapper adds one to its kernel's
-count where it launches the kernel, and nowhere else; K1's wrapper also
-tallies its launch shapes.
+count where it launches the kernel, and nowhere else; K1's and K3's
+wrappers also tally their launch shapes.
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ LAUNCHES: Dict[str, int] = {
 # K1's launch shapes since the last reset_launches(): (B, D, N, W, P, ring
 # in "shared" or "global" memory) -> launches
 K1_SHAPES: Dict[tuple, int] = {}
+# K3's launch shapes since the last reset_launches(): (T, BW, NP) -> launches
+K3_SHAPES: Dict[tuple, int] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -55,6 +57,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     K1_SHAPES.clear()
+    K3_SHAPES.clear()
 
 
 def resolve_device(device) -> "torch.device":

@@ -8,14 +8,15 @@ Replaces `vechat_tpu/ops/kernels/pairwise_pallas.py`: `_kernel_banded`
 `_pairwise_nw_pallas_impl`). Ties break M > D > I as in the host oracle
 (ops/pairwise.py), so accepted banded CIGARs equal `edit_align`'s.
 
-Both kernels run one thread block per pair with one thread per lane (BW
-or W <= 1024 threads) and a Python-free row loop: per row one block-wide
-max-scan for the horizontal (insertion) chain. The two rolling H rows sit
-in shared memory; the direction matrix (one int8 per cell, 2.3 MB per pair
-at 2560x896) goes to global scratch, and one thread walks it back. On this
-card both kernels are bound by the serial chain of row barriers and by the
-walk's dependent loads, not by bytes or operations; the grid fills the card
-with one block per pair.
+Both kernels run one thread block per pair. K3 gives a pair 4 warps (BW a
+multiple of 128; BW / 128 band lanes a thread, in registers) and one block
+barrier a row, and writes 2-bit direction codes (about 0.66 MB a pair at
+2560x896) to a scratch buffer in its own layout; the block then stages
+those rows in shared memory, 64 at a time, for one thread's walk. K4 runs
+one thread per lane, a block-wide max-scan a row, an int8 direction matrix
+in global scratch and a walk over it. Both are bound by the latency of a
+row's chain and of the walk's steps, not by bytes or operations; the grid
+fills the card with one block per pair.
 
 The public functions keep the JAX package's layouts ([B, T, 1, S] target
 codes, [B, 1, S] lengths, S pairs per program); the wrappers reshape to one
@@ -48,6 +49,8 @@ def _lib():
     if lib.banded_launch.argtypes is None:
         lib.banded_launch.argtypes = _BANDED_ARGS
         lib.banded_launch.restype = ctypes.c_int
+        lib.banded_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.banded_scratch_bytes.restype = ctypes.c_longlong
         lib.tiled_launch.argtypes = _TILED_ARGS
         lib.tiled_launch.restype = ctypes.c_int
     return lib
@@ -159,13 +162,15 @@ def banded_nw(t, ext, tlen, qlen, lo, BW):
     if BW % 32 or BW > 1024:
         raise ValueError(f"BW={BW} must be a multiple of 32 and <= 1024")
     L = T + BW
-    pt = torch.full((NP, L), -2, dtype=torch.int16, device=dev)
-    pq = torch.full((NP, L), -2, dtype=torch.int16, device=dev)
+    # the kernel writes every element: the walk's pairs and the -2 before them
+    pt = torch.empty((NP, L), dtype=torch.int16, device=dev)
+    pq = torch.empty((NP, L), dtype=torch.int16, device=dev)
     count = torch.empty(NP, dtype=torch.int32, device=dev)
     dist = torch.empty(NP, dtype=torch.int32, device=dev)
     if NP == 0:
         return pt, pq, count, dist
-    scratch = torch.empty((NP, T + 1, BW), dtype=torch.int8, device=dev)
+    # the 2-bit direction codes, in the kernel's own layout
+    scratch = torch.empty(NP * _lib().banded_scratch_bytes(T, BW), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().banded_launch(
             t.data_ptr(), ext.data_ptr(), tlen.data_ptr(), qlen.data_ptr(), lo.data_ptr(),
@@ -174,6 +179,7 @@ def banded_nw(t, ext, tlen, qlen, lo, BW):
         )
     _build.check(_lib(), rc, "pairwise_banded")
     _build.LAUNCHES["pairwise_banded"] += 1
+    _build.K3_SHAPES[(T, BW, NP)] = _build.K3_SHAPES.get((T, BW, NP), 0) + 1
     return pt, pq, count, dist
 
 
@@ -499,10 +505,10 @@ class DevicePairwiseAligner:
 
     TILE_T = 511  # target rows per tile bucket (T = 512 with +1)
     TILE_W = 512  # query lanes (W)
-    # (T, BW) banded buckets: one block of BW threads per pair, DIR scratch
-    # (T+1)*BW int8 per pair in device memory
+    # (T, BW) banded buckets: one block per pair, its 2-bit direction codes
+    # in a device scratch buffer
     EXACT_BUCKETS = ((640, 384), (2560, 896))
-    PAIRS_PER_LAUNCH = 256  # bounds the DIR scratch (587 MB at 2560x896)
+    PAIRS_PER_LAUNCH = 256  # bounds the scratch (168 MB at 2560x896)
     TILES_PER_LAUNCH = 512
 
     def __init__(self, device="cuda"):
