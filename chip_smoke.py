@@ -6,11 +6,12 @@
 
 Phases (each raises on failure; the script exits non-zero on any):
   0. the card's name and power limit; build the CUDA kernels with nvcc
-  1. each kernel (K1 POA DP, K2 POA walk, the dense POA walk, K3 banded NW,
-     K4 tiled NW, K5/K5w affine POA DP and walk, K6/K6w convex POA DP and
-     walk, K7 the int32 mix peak) at its path's shapes against its plain
-     PyTorch version on the same inputs, exact equality; CUDA-event times of
-     both. K1-K4 and the dense walk at the main path's batched shapes (the
+  1. each kernel (K1 POA DP, K2 POA walk and the expansion of its headers
+     to node-id pairs, the dense POA walk, K3 banded NW, K4 tiled NW, K5/K5w
+     affine POA DP and walk, K6/K6w convex POA DP and walk, K7 the int32 mix
+     peak) at its path's shapes against its plain PyTorch version on the
+     same inputs, exact equality; CUDA-event times of both. K1-K4, the
+     expansion and the dense walk at the main path's batched shapes (the
      dense walk's pairs also against K2's, expanded); K5-K6w at the spoa
      path's (one block: B=1, D=1, the graph of phase 4 as it grows) and, as
      extra lines, at K1's batched shape; K7 on one [64, 512] tile for each
@@ -21,10 +22,15 @@ Phases (each raises on failure; the script exits non-zero on any):
      `vechat --backend cuda`; wall time, reads/s, error before and after,
      strain preservation, each kernel's launches in this run, the tallies
      of K1's launch shapes (B, D, N, W, P, ring in shared or global memory)
-     and K3's (T, BW, NP), K1's and K3's device seconds
+     and K3's (T, BW, NP), the device seconds of K1, K2, the expansion and
+     K3, the batched backend's stages (its decode split into the pairs'
+     fetch and the lists)
  3b. K1 at the main path's own launches: inputs made at the two heaviest
      shapes of that tally (launches x B*D*N*W), held to K1's plain version
-     and both timed
+     and both timed; then K2 and the expansion on those direction words;
+     at the heaviest, the backend's list building from the expansion's
+     pairs beside the other ways to build the same lists, in turns on the
+     host's CPU (`decode_lists_row`)
  3c. K3 on exactly the inputs of phase 3's heaviest launch (largest
      NP*T*BW), kept as phase 3 made it, held to its plain version and both
      timed (`--save-k3 PATH` also saves them, for `k1_probe.py time-k3`)
@@ -56,9 +62,12 @@ on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; K7:
 the measurement; counts set to 0 just before each), the largest difference
 from its plain version (0: the tolerance is exact), its time, the plain
 version's time and the bound (the least time the card could take for
-the same work); K1's are at phase 3b's heaviest shape and K3's at 3c's
-launch, which their entries name (K3 at phase 1's 256 pairs stays a line
-of its own, with its accepted pairs). The last line is {"ok": true,
+the same work), each time the wrapper's by CUDA events (K2 and the
+expansion also give `kernel_ms`, the kernel alone, `walk_expand_rows`);
+K1's, K2's and the expansion's are at phase 3b's heaviest
+shape and K3's at 3c's launch, which their entries name (phase 1's rows,
+K3's 256 pairs with its accepted pairs among them, stay lines of their
+own). The last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
@@ -87,6 +96,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 K1_OPS_CELL, K1_OPS_EDGE = 18, 5
 NW_OPS_CELL = 15
 WALK_OPS_STEP = 20
+# the expansion, a pair: its header's three fields, two steps back, a select,
+# the node id and the pack (10)
+EXPAND_OPS_PAIR = 10
 # K5: 2 packed maxes per in-edge over 2 rings (20); per cell the unpacks,
 # E/EB, clamps, pack and best cell (24) and the E prefix max (2: a subtract
 # and a max). K6: 5 packed maxes per in-edge over 3 rings (34); per cell the
@@ -130,6 +142,39 @@ def log_row(row):
         row["share_of_measured_mix_rate"] = (
             row["bound_ms"] / row["ms"] * INT32_OPS_PER_S / rate)
     log(row)
+
+
+def kernel_ms(fn, copies=1, reps=24):
+    """Device time (ms) of one call of fn(r), which launches kernels on the
+    r-th of `copies` copies of their inputs and allocates nothing: `reps`
+    calls, r taking each copy in turn, captured in a CUDA graph and replayed
+    between two CUDA events (median of 3 replays), so that the host's
+    launches, which take longer than a kernel of a few microseconds, stay
+    out of the time. With copies whose bytes together are many times the
+    card's 50 MB L2, every call reads its inputs from device memory, as on
+    the main path; with one copy, a replay reads what the one before left
+    in the L2."""
+    import torch
+
+    for r in range(copies):
+        fn(r)  # outside the capture: loads the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(reps):
+            fn(k % copies)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 def time_ms(fn, warmup=1, reps=5):
@@ -265,6 +310,7 @@ def k1_k2_phase(device, inputs):
         f"max predecessor distance {dist}, D={D}, W={W}")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     codes_t, sink_t = t(codes).reshape(B, N), t(sink).reshape(B, N)
+    nid_t = t(nid).reshape(B, N)
     nn_t, seqp_t, slen_t = t(nn).reshape(B), t(seqp), t(slen).reshape(B, D)
     preds_t = t(preds)
     rows = torch.arange(N + 1, device=device)[None, :]
@@ -289,11 +335,9 @@ def k1_k2_phase(device, inputs):
             err = max(err, bad)
         dirs, maxi, maxj, _ = k_out
         L = N + W
+        shape = f"B={B} N={N} D={D} W={W} P={P} ring={ring} {mode}"
+        walk_rows = walk_expand_rows(dirs, maxi, maxj, nid_t, mode, P, shape)
         kr, ks, kc = pl.traceback_walk_rle(dirs, maxi, maxj, mode, L, P)
-        pr, ps, pc = pl._walk_plain(dirs, maxi, maxj, mode, L, P)
-        err2 = _walk_err(kr, ks, kc, pr, ps, pc)
-        if err2:
-            raise RuntimeError(f"K2 {mode} ring {ring}: walk differs from plain by {err2}")
         # the dense walk (the sharded route's): against its plain version,
         # whole buffers, and its pairs against K2's expanded
         kd = pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P)
@@ -302,31 +346,107 @@ def k1_k2_phase(device, inputs):
         _dense_equals_rle(kd, kr[:ks], kc, f"{mode} ring {ring}")
         ms1 = time_ms(lambda: pl.poa_dp(*args))
         pms1 = time_ms(lambda: pl._dp_plain(*args), reps=2)
-        ms2 = time_ms(lambda: pl.traceback_walk_rle(dirs, maxi, maxj, mode, L, P))
-        pms2 = time_ms(lambda: pl._walk_plain(dirs, maxi, maxj, mode, L, P), reps=2)
         ms3 = time_ms(lambda: pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P))
         pms3 = time_ms(lambda: pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P), reps=2)
         # bound inputs from this run's data
         k1_bytes, k1_ops = k1_work(nn_t, deg, real_rows, P, D, W, seqp, slen)
-        steps = int((kr != 0).sum())
-        k2_bytes = steps * (2 + 4) + B * D * 12
-        k2_ops = steps * WALK_OPS_STEP
         # the dense walk reads one int16 word a step (one step a pair) and
         # writes both [B, D, L] int16 buffers whole: the -2 fill is output
         pairs = int(kd[2].sum())
         kd_bytes = pairs * 2 + 2 * B * D * L * 2 + B * D * 12
         kd_ops = pairs * WALK_OPS_STEP
-        shape = f"B={B} N={N} D={D} W={W} P={P} ring={ring} {mode}"
+        rows = {}
         for name, ms, pms, nb, ops, e in (("poa_dp", ms1, pms1, k1_bytes, k1_ops, err),
-                                          ("poa_walk", ms2, pms2, k2_bytes, k2_ops, err2),
                                           ("poa_walk_dense", ms3, pms3, kd_bytes, kd_ops, err3)):
             b_ms, b_by = bound_ms(nb, ops)
-            row = dict(kernel=name, shape=shape, ms=ms, plain_ms=pms, max_abs_err=e,
-                       bound_ms=b_ms, bound_by=b_by)
-            log_row(row)
-            if (mode, ring) == ("nw", dist):  # the ring the backend picks
-                results[name] = row
+            rows[name] = dict(kernel=name, shape=shape, ms=ms, plain_ms=pms, max_abs_err=e,
+                              bound_ms=b_ms, bound_by=b_by)
+            log_row(rows[name])
+        rows.update(walk_rows)
+        if (mode, ring) == ("nw", dist):  # the ring the backend picks
+            results.update(rows)
     return results
+
+
+# K2's inputs are rotated over this many copies of `dirs` when its kernel
+# alone is timed: each copy's walks read tens of MB of it, so that together
+# they are many times the L2 and every launch reads from device memory
+K2_COPIES = 8
+
+
+def walk_expand_rows(dirs, maxi, maxj, nid_t, mode, P, shape, label=""):
+    """K2 and the expansion on K1's `dirs`, each held to its plain version
+    (exact: every header, steps, count, pairs, offsets) and timed beside it.
+    `ms` is the whole call by CUDA events, as for every other kernel (K2:
+    the zeroed header buffer, the kernel and the read of `steps`; the
+    expansion: the scan of the counts, the read of the total, the kernel and
+    the read of its error word). `kernel_ms` is the kernel alone a launch on
+    the buffers its wrapper made (`kernel_ms()`: CUDA events around one
+    launch would also hold the host's launch of a kernel this short): K2's
+    on `K2_COPIES` copies of `dirs` in turn, so with a cold L2; the
+    expansion's on one copy of its inputs, so with the headers in the L2,
+    as on the main path, where K2 has just written them. Returns {name:
+    row}."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import poa_linear as pl
+
+    B, N1, D, W = dirs.shape
+    L = N1 - 1 + W
+    kr, ks, kc = pl.traceback_walk_rle(dirs, maxi, maxj, mode, L, P)
+    pr, ps, pc = pl._walk_plain(dirs, maxi, maxj, mode, L, P)
+    err2 = _walk_err(kr, ks, kc, pr, ps, pc)
+    if err2:
+        raise RuntimeError(f"K2 {shape}: walk differs from plain by {err2}")
+    kp, ko = pl.expand_walk_pairs(kr, ks, kc, nid_t)
+    err4 = _max_err(f"expansion {shape}", ("pairs", "offsets"), (kp, ko),
+                    pl._expand_plain(pr, ps, pc, nid_t))
+    ms2 = time_ms(lambda: pl.traceback_walk_rle(dirs, maxi, maxj, mode, L, P))
+    k_runs, k_count = torch.zeros_like(kr), torch.empty_like(kc)
+    k_steps = torch.zeros(1, dtype=torch.int32, device=dirs.device)
+    dirs_c = [dirs] + [dirs.clone() for _ in range(K2_COPIES - 1)]
+    kms2 = kernel_ms(lambda r: pl.launch_walk(dirs_c[r], maxi, maxj, k_runs, k_count, k_steps,
+                                              mode, L, P), copies=K2_COPIES)
+    del dirs_c
+    if not (torch.equal(k_runs, kr) and torch.equal(k_count, kc)):
+        raise RuntimeError(f"K2 {shape}: the timed launches differ from the wrapper's")
+    pms2 = time_ms(lambda: pl._walk_plain(dirs, maxi, maxj, mode, L, P), reps=2)
+    cnt = kc.reshape(-1)
+    err = torch.zeros(1, dtype=torch.int32, device=dirs.device)
+    kms4 = kernel_ms(lambda r: pl.launch_expand(kr, ks, cnt, ko, nid_t, kp, err))
+    if int(err.item()):
+        raise RuntimeError(f"expansion {shape}: the timed launches flagged a count mismatch")
+    ms4 = time_ms(lambda: pl.expand_walk_pairs(kr, ks, kc, nid_t))
+    pms4 = time_ms(lambda: pl._expand_plain(kr, ks, kc, nid_t), reps=2)
+    headers = int((kr != 0).sum())
+    longest = int((kr != 0).sum(dim=0).max()) if kr.numel() else 0
+    total = kp.shape[0]
+    rows = {}
+    for name, ms, kms, pms, (nb, ops), e in (
+            ("poa_walk", ms2, kms2, pms2, k2_work(headers, B * D), err2),
+            ("poa_expand", ms4, kms4, pms4, expand_work(headers, B * D, nid_t.numel(), total),
+             err4)):
+        b_ms, b_by = bound_ms(nb, ops)
+        rows[name] = dict(kernel=name, shape=shape + label, ms=ms, kernel_ms=kms, plain_ms=pms,
+                          max_abs_err=e, bound_ms=b_ms, bound_by=b_by, headers=headers,
+                          longest_walk_headers=longest, pairs=total)
+    for row in rows.values():
+        log_row(row)
+    return rows
+
+
+def k2_work(headers, BD):
+    """(bytes, counted operations) of one K2 launch on this run's data: a
+    step reads one int16 code and writes one int32 header, a walk reads its
+    start cell and writes its count; 20 operations a step."""
+    return headers * (2 + 4) + BD * 12, headers * WALK_OPS_STEP
+
+
+def expand_work(headers, BD, n_node_ids, pairs):
+    """(bytes, counted operations) of one expansion on this run's data: the
+    headers, counts and offsets read, the node ids read once, the int16
+    pairs written; 10 operations a pair."""
+    return headers * 4 + BD * (4 + 8) + n_node_ids * 4 + pairs * 4, pairs * EXPAND_OPS_PAIR
 
 
 def _dense_equals_rle(dense, runs, count, label):
@@ -640,6 +760,11 @@ def _max_err(label, names, k_out, p_out):
     torch.cuda.synchronize()
     err = 0
     for name, a, b in zip(names, k_out, p_out):
+        if a.shape != b.shape:
+            raise RuntimeError(f"{label}: {name} has shape {tuple(a.shape)}, plain "
+                               f"{tuple(b.shape)}")
+        if a.numel() == 0:
+            continue
         bad = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
         if bad:
             raise RuntimeError(f"{label}: {name} differs from plain by {bad}")
@@ -771,10 +896,16 @@ def main_path_phase(tmp, made, backend_name="cuda"):
     # its device time summed over them
     k1_device_s = sum(v for k, v in device_ms.items() if "poa_dp_kernel<" in k) / 1e3
     k3_device_s = sum(v for k, v in device_ms.items() if "banded_kernel" in k) / 1e3
+    walk_device_s = {k: sum(v for name, v in device_ms.items() if k in name) / 1e3
+                     for k in ("poa_walk_kernel", "poa_expand_kernel")}
     stages = {}
     if hasattr(backend, "t_pack"):
+        # decode: the pairs' fetch, then the Alignment lists
         stages = dict(poa_pack_s=backend.t_pack, poa_device_s=backend.t_device,
-                      poa_decode_s=backend.t_decode, poa_host_route_s=backend.t_host_fb)
+                      poa_decode_s=backend.t_decode,
+                      poa_decode_fetch_s=backend.t_decode_fetch,
+                      poa_decode_lists_s=backend.t_decode - backend.t_decode_fetch,
+                      poa_host_route_s=backend.t_host_fb)
         pw = backend._pairwise
         if pw is not None:
             stages.update(pair_pack_s=pw.t_tile, pair_device_s=pw.t_device,
@@ -802,6 +933,8 @@ def main_path_phase(tmp, made, backend_name="cuda"):
              launches=launches, counters=counters, stages_s=stages,
              device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
              poa_dp_kernel_device_s=k1_device_s, banded_kernel_device_s=k3_device_s,
+             poa_walk_kernel_device_s=walk_device_s["poa_walk_kernel"],
+             poa_expand_kernel_device_s=walk_device_s["poa_expand_kernel"],
              device_ms_top={k: v for k, v in top}, k1_shapes=k1_shapes,
              k3_shapes=[{"T": T, "BW": BW, "NP": NP, "launches": n}
                         for (T, BW, NP), n in sorted(_build.K3_SHAPES.items())]))
@@ -821,8 +954,9 @@ def k1_path_phase(device, k1_shapes, n_shapes=2):
     """Phase 3b: K1 at the main path's own launches, the `n_shapes` heaviest
     of phase 3's tally: window inputs made at each shape, nw at the ring the
     backend would pick (511 where the tally's ring was in global memory and
-    that one is not), held to the plain version and both timed. Returns the
-    rows, the heaviest first."""
+    that one is not), held to the plain version and both timed; then K2 and
+    the expansion on those direction words (`walk_expand_rows`). Returns
+    {kernel: row} for each shape, the heaviest first."""
     import torch
 
     from vechat_tpu_torch.ops.kernels import poa_linear as pl
@@ -849,13 +983,69 @@ def k1_path_phase(device, k1_shapes, n_shapes=2):
         ms = time_ms(lambda: pl.poa_dp(*args))
         pms = time_ms(lambda: pl._dp_plain(*args), reps=2)
         b_ms, b_by = bound_ms(*k1_work(nn_t, deg, real_rows, P, D, W, seqp, slen))
+        shape = (f"B={B} N={N} D={D} W={W} P={P} ring={ring} "
+                 f"({'shared' if plan['use_smem'] else 'global'}) nw")
         row = dict(kernel="poa_dp", phase="3b", launches_in_phase_3=shp["launches"],
-                   shape=(f"B={B} N={N} D={D} W={W} P={P} ring={ring} "
-                          f"({'shared' if plan['use_smem'] else 'global'}) nw"),
-                   ms=ms, plain_ms=pms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+                   shape=shape, ms=ms, plain_ms=pms, max_abs_err=err, bound_ms=b_ms,
+                   bound_by=b_by)
         log_row(row)
-        rows.append(row)
+        walk_rows = walk_expand_rows(*k_out[:3], t(nid).reshape(B, N), "nw", P, shape,
+                                     label=" (3b: K1's direction words)")
+        rows.append({"poa_dp": row, **walk_rows})
+        if len(rows) == 1:
+            runs, steps, count = pl.traceback_walk_rle(*k_out[:3], "nw", N + W, P)
+            pairs, offsets = pl.expand_walk_pairs(runs, steps, count, t(nid).reshape(B, N))
+            decode_lists_row(pairs, offsets, count, shape)
     return rows
+
+
+def _lists_records(p, off, cnt):
+    """One tolist() of the pairs viewed as (int16, int16) records: numpy
+    makes the tuples."""
+    pair = np.dtype([("node", np.int16), ("pos", np.int16)])
+    flat = p.view(pair).reshape(-1).tolist()
+    return [flat[o : o + c] for o, c in zip(off, cnt)]
+
+
+def _lists_zip_whole(p, off, cnt):
+    """Two tolist()s zipped once into one list of tuples, sliced a walk."""
+    flat = list(zip(*p.T.tolist()))
+    return [flat[o : o + c] for o, c in zip(off, cnt)]
+
+
+def decode_lists_row(pairs, offsets, count, shape, rounds=6):
+    """The batched backend's list building (its `pair_lists`) beside the
+    other ways to build the same lists, on one launch's expansion fetched
+    to the host, on this machine's CPU: each builder `rounds` times, the
+    order reversed every round, the garbage collector run before each call.
+    Logs the median seconds of each and of a pair."""
+    import gc
+
+    from vechat_tpu_torch.ops.kernels.backend import pair_lists
+
+    p, off, cnt = pairs.cpu().numpy(), offsets.tolist(), count.reshape(-1).tolist()
+    # the backend's zips two lists' slices a walk; a run that times it
+    # slower than another says which to take
+    builders = dict(backend=pair_lists, records=_lists_records, zip_whole=_lists_zip_whole)
+    want = pair_lists(p, off, cnt)
+    for name, fn in builders.items():
+        if fn(p, off, cnt) != want:
+            raise RuntimeError(f"decode lists: {name} differs from the backend's pair_lists")
+    del want
+    times = {name: [] for name in builders}
+    order = list(builders)
+    for _ in range(rounds):
+        for name in order:
+            gc.collect()
+            t0 = time.perf_counter()
+            out = builders[name](p, off, cnt)
+            times[name].append(time.perf_counter() - t0)
+            del out
+        order.reverse()
+    med = {name: statistics.median(v) for name, v in times.items()}
+    log(dict(phase="3b", decode_lists=shape, pairs=len(p), walks=len(cnt), median_s=med,
+             us_a_pair={name: v / max(1, len(p)) * 1e6 for name, v in med.items()},
+             times_s=times))
 
 
 def k3_path_phase(heaviest, save_path=None):
@@ -887,7 +1077,7 @@ def k3_path_phase(heaviest, save_path=None):
 
 # ------------------------------------------------ phase 4: the spoa path
 
-MAIN_PATH_KERNELS = ("poa_dp", "poa_walk", "pairwise_banded", "pairwise_tiled")
+MAIN_PATH_KERNELS = ("poa_dp", "poa_walk", "poa_expand", "pairwise_banded", "pairwise_tiled")
 GAP_KERNELS = ("poa_dp_affine", "poa_walk_affine", "poa_dp_convex", "poa_walk_convex")
 
 
@@ -1262,6 +1452,9 @@ def scale_out_phase(tmp, community_path, corrected_path, stream_host, n_reads=20
 REPLACES = {
     "poa_dp": ("vechat_tpu_torch/csrc/poa_linear.cu", "vechat_tpu/ops/kernels/poa_pallas.py:693"),
     "poa_walk": ("vechat_tpu_torch/csrc/poa_linear.cu", "vechat_tpu/ops/kernels/poa_pallas.py:459"),
+    # the host decode of K2's headers (runs_to_pairs_np, ranks_to_node_ids_np :616)
+    "poa_expand": ("vechat_tpu_torch/csrc/poa_linear.cu",
+                   "vechat_tpu/ops/kernels/poa_pallas.py:557"),
     "pairwise_banded": ("vechat_tpu_torch/csrc/pairwise_nw.cu",
                         "vechat_tpu/ops/kernels/pairwise_pallas.py:397"),
     "pairwise_tiled": ("vechat_tpu_torch/csrc/pairwise_nw.cu",
@@ -1344,7 +1537,7 @@ def main(argv=()):
         lap("phase 3")
         # K1's and K3's rows in the kernels line are the ones at the main
         # path's heaviest launches; phase 1's rows stay as lines of their own
-        rows["poa_dp"] = k1_path_phase(device, k1_shapes)[0]
+        rows.update(k1_path_phase(device, k1_shapes)[0])
         lap("phase 3b")
         rows["pairwise_banded"] = k3_path_phase(k3_heaviest, save_k3)
         lap("phase 3c")
@@ -1376,8 +1569,10 @@ def main(argv=()):
                             launches=launches[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
-        if name in ("poa_dp", "pairwise_banded"):
+        if name in ("poa_dp", "poa_walk", "poa_expand", "pairwise_banded"):
             kernels[-1]["shape"] = r["shape"]
+        if "kernel_ms" in r:
+            kernels[-1]["kernel_ms"] = r["kernel_ms"]
     log(f"gpu: {gpu}  total {time.perf_counter() - t_start:.1f} s")
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Probes of K1, the linear POA DP kernel of vechat_tpu_torch, and of K3,
-the banded NW kernel, on one NVIDIA GPU (the timing) or on the output of
-`cuobjdump -sass` (K1's count).
+"""Probes of K1, the linear POA DP kernel of vechat_tpu_torch, of K2, its
+run-length walk, and of K3, the banded NW kernel, on one NVIDIA GPU (the
+timing) or on the output of `cuobjdump -sass` (K1's count).
 
     python3 k1_probe.py time DIR [DIR ...]   # DIR: the root of a checkout
     python3 k1_probe.py time-k3 [--inputs NPZ] DIR [DIR ...]
+    python3 k1_probe.py time-k2 DIR [DIR ...]
     python3 k1_probe.py sass FILE            # cuobjdump -sass output or a .so
 
 `time` runs K1 of each DIR's package in a process of its own, in the order
@@ -34,6 +35,22 @@ timed twice: the kernel as built, and a build of the same source whose
 kernel stops after the DP rows (-DK3_ROWS_ONLY; for a source without that
 switch, the earlier kernel with a thread per band lane, its walk cut by a
 patch of the text), so the walk's share is the difference.
+
+`time-k2` runs K2, the run-length walk, of each DIR's package in a process
+of its own, in the order given, on the direction words of K1 at `time`'s
+phase 1 and phase 3b inputs (the same draws; K1 of each DIR makes them),
+and, where the package has it, the expansion of the walk's headers to
+node-id pairs (the kernel alone, on the buffers its wrapper made). K2 is
+timed through its wrapper (`walk_ms`: the zeroed header buffer, the kernel,
+the read of `steps`; the CUDA-event median of 20 calls) and alone through
+its C launcher, which both versions share, on buffers made once:
+`walk_kernel_ms` on chip_smoke.py's K2_COPIES copies of the direction
+words in turn, so that every launch reads them from device memory, and
+`walk_kernel_warm_l2_ms` on one copy, so that a launch reads what the one
+before left in the L2 (both, like `expand_ms`, launches in a CUDA graph
+replayed between CUDA events, chip_smoke.py's `kernel_ms`; the expansion's
+inputs stay in the L2, as on the main path). Each line is one (DIR, shape)
+with chip_smoke.py's bounds, the headers of the longest walk and the pairs.
 """
 
 import json
@@ -98,6 +115,75 @@ def _time_one(pkg_dir):
                         ms=ms, bound_ms=b_ms, bound_by=b_by,
                         share_of_measured_mix_rate=ops / (ms * 1e-3) / mix_ops_per_s,
                         mix_tops=mix_ops_per_s / 1e12)), flush=True)
+
+
+def _time_k2(pkg_dir):
+    """Time K2 (and the expansion, where there is one) of the package under
+    pkg_dir; prints one JSON line a case."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, pkg_dir)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vechat_tpu_torch.ops.kernels import poa_linear as pl
+
+    assert pl.__file__.startswith(os.path.abspath(pkg_dir)), pl.__file__
+    dev = torch.device("cuda")
+    for label, seed, shapes, modes, rings in SHAPES[:2]:
+        rng = np.random.default_rng(cs.SEED + seed)
+        for B, N, P, W, D in shapes:
+            codes, preds, sink, nid, nn, seqp, slen = cs.window_inputs(rng, B, N, P, W, D)
+            dist = max(pl.max_pred_distance(preds[b].T, nn[b, 0, 0]) for b in range(B))
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+            nid_t = t(nid).reshape(B, N)
+            for mode in modes:
+                for ring in rings:
+                    R = ring or max(1, dist)
+                    aux, deg = pl.pack_aux(t(preds), R)
+                    dirs, maxi, maxj, _ = pl.poa_dp(
+                        t(codes).reshape(B, N), aux, deg, t(sink).reshape(B, N),
+                        t(nn).reshape(B), t(seqp), t(slen).reshape(B, D), mode, 3, -5, -4, R)
+                    L = N + W
+                    runs, steps, count = pl.traceback_walk_rle(dirs, maxi, maxj, mode, L, P)
+                    ms = cs.time_ms(lambda: pl.traceback_walk_rle(dirs, maxi, maxj, mode, L, P),
+                                    warmup=2, reps=20)
+                    # the kernel alone, through the launcher both versions share,
+                    # on buffers made once (a walk rewrites only its own headers):
+                    # on copies of dirs in turn (a cold L2), and on dirs alone
+                    k_runs, k_count = torch.zeros_like(runs), torch.empty_like(count)
+                    k_steps = torch.zeros(1, dtype=torch.int32, device=dev)
+                    dirs_c = [dirs] + [dirs.clone() for _ in range(cs.K2_COPIES - 1)]
+                    launch = lambda r: pl._lib().poa_walk_launch(  # noqa: E731
+                        dirs_c[r].data_ptr(), maxi.data_ptr(), maxj.data_ptr(),
+                        k_runs.data_ptr(), k_count.data_ptr(), k_steps.data_ptr(), B, N + 1, D,
+                        W, L, P, pl.MODES[mode], torch.cuda.current_stream().cuda_stream)
+                    kms = cs.kernel_ms(launch, copies=cs.K2_COPIES)
+                    warm_ms = cs.kernel_ms(launch)
+                    del dirs_c
+                    assert torch.equal(k_runs, runs) and torch.equal(k_count, count)
+                    used = runs != 0
+                    headers = int(used.sum())
+                    row = dict(pkg=pkg_dir, shape=f"{label}: B={B} N={N} D={D} W={W} P={P} "
+                               f"ring={R} {mode}", walk_ms=ms, walk_kernel_ms=kms,
+                               walk_kernel_warm_l2_ms=warm_ms, headers=headers,
+                               longest_walk_headers=int(used.sum(dim=0).max()),
+                               pairs=int(count.sum()))
+                    row["walk_bound_ms"], _ = cs.bound_ms(*cs.k2_work(headers, B * D))
+                    if hasattr(pl, "expand_walk_pairs"):
+                        pairs, offsets = pl.expand_walk_pairs(runs, steps, count, nid_t)
+                        cnt = count.reshape(-1)
+                        err = torch.zeros(1, dtype=torch.int32, device=dev)
+                        row["expand_ms"] = cs.kernel_ms(
+                            lambda r: pl.launch_expand(runs, steps, cnt, offsets, nid_t, pairs,
+                                                       err))
+                        assert not int(err.item())
+                        row["expand_bound_ms"], _ = cs.bound_ms(
+                            *cs.expand_work(headers, B * D, nid_t.numel(), pairs.shape[0]))
+                    print(json.dumps(row), flush=True)
 
 
 def _rows_only_lib(_build):
@@ -257,6 +343,20 @@ def main(argv):
         return 0
     if len(argv) == 3 and argv[0] == "_time_k3":
         _time_k3(argv[1], argv[2])
+        return 0
+    if len(argv) >= 2 and argv[0] == "time-k2":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        for d in argv[1:]:
+            rc = subprocess.run([sys.executable, __file__, "_time_k2", os.path.abspath(d)]).returncode
+            if rc:
+                return rc
+        return 0
+    if len(argv) == 2 and argv[0] == "_time_k2":
+        _time_k2(argv[1])
         return 0
     if len(argv) == 2 and argv[0] == "sass":
         path = argv[1]

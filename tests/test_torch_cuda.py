@@ -208,6 +208,192 @@ def test_dense_walk_empty_and_wrong_inputs(cuda):
         pl.traceback_walk_dense(dirs.to(torch.int32), mx, mx, "sw", 40, 4)
 
 
+def synthetic_walk_inputs(seed, B, N1, D, W, P, kind, mode):
+    """Direction codes [B, N1, D, W] int16 whose walks move as `kind` says,
+    and start cells maxi, maxj [B, D] int32 (numpy, from `seed`): vertical
+    (up the column: out of a tile through its top edge), horizontal (along
+    the row: its left edge), diagonal (its corner), runs511 (diagonal runs of
+    511 where they fit), random (every move and run, predecessors up to 511
+    rows back). Every move lowers i + j; column 0 moves up; row 0 is the
+    boundary (nw: horizontal, sw: stop); sw cells stop at random. One walk
+    starts at (0, 0) and, in ov, one on row 0 and one on column 0."""
+    rng = np.random.default_rng(seed)
+    marker_d, marker_v = pl.markers(P)
+    shape = (B, N1, D, W)
+    i = np.broadcast_to(np.arange(N1)[None, :, None, None], shape)
+    j = np.broadcast_to(np.arange(W)[None, None, None, :], shape)
+    reach = np.minimum(i, 511)  # the longest row step from row i
+    dprio = P + 2 + rng.integers(0, P, shape)
+    vprio = 2 + rng.integers(0, P, shape)
+    delta = np.where(rng.random(shape) < 0.7, 1, (rng.random(shape) * (reach + 1)).astype(np.int64))
+    if kind == "vertical":
+        code = (vprio << 9) | 1
+    elif kind == "horizontal":
+        code = np.full(shape, 1 << 9)
+    elif kind == "diagonal":
+        code = (dprio << 9) | 1
+    elif kind == "runs511":
+        code = np.where(np.minimum(i, j) >= 511, (marker_d << 9) | 511, (dprio << 9) | 1)
+    else:
+        run_d = 1 + (rng.random(shape) * np.minimum(reach, j)).astype(np.int64)
+        run_v = 1 + (rng.random(shape) * reach).astype(np.int64)
+        pick = rng.integers(0, 5, shape)
+        code = np.select(
+            [pick == 0, pick == 1, pick == 2, pick == 3],
+            [(dprio << 9) | delta, (vprio << 9) | delta, np.full(shape, 1 << 9),
+             (marker_d << 9) | np.minimum(run_d, 511)],
+            (marker_v << 9) | np.minimum(run_v, 511))
+    code = np.where(j == 0, (vprio << 9) | delta, code)
+    if mode == "sw":
+        code = np.where(rng.random(shape) < 0.01, 0, code)
+    code = np.where(i == 0, 0 if mode == "sw" else 1 << 9, code)
+    maxi = rng.integers(0, N1, (B, D))
+    maxj = rng.integers(0, W, (B, D))
+    maxi.flat[0] = maxj.flat[0] = 0
+    if mode == "ov":
+        maxi.flat[1] = 0
+        maxj.flat[2] = 0
+    return code.astype(np.int16), maxi.astype(np.int32), maxj.astype(np.int32)
+
+
+def max_row_jump(runs, steps):
+    """The longest row step between two consecutive single-pair headers of
+    any walk whose pairs both name a row (runs [L, B*D] numpy)."""
+    h = runs[:steps].astype(np.int64)
+    pn0 = (h >> pl.RUN_PN_SHIFT) - 2
+    single = (h & ((1 << pl.RUN_R_BITS) - 1)) == 1
+    both = single[:-1] & (pn0[:-1] >= 0) & (pn0[1:] >= 0)
+    return int(np.where(both, pn0[:-1] - pn0[1:], 0).max(initial=0))
+
+
+def _walk_and_expand_equal_plain(dirs, maxi, maxj, nid, mode, P):
+    """K2 and the expansion against their plain versions, exact: all of
+    runs, steps, count, pairs and offsets. Returns the plain walk."""
+    B, N1, D, W = dirs.shape
+    L = N1 - 1 + W
+    before = dict(_build.LAUNCHES)
+    kr, ks, kc = pl.traceback_walk_rle(dirs, maxi, maxj, mode, L, P)
+    assert _build.LAUNCHES["poa_walk"] == before["poa_walk"] + (B * D > 0)
+    pr, ps, pc = pl._walk_plain(dirs, maxi, maxj, mode, L, P)
+    assert ks == ps and torch.equal(kr, pr) and torch.equal(kc, pc)
+    kp, ko = pl.expand_walk_pairs(kr, ks, kc, nid)
+    pp, po = pl._expand_plain(pr, ps, pc, nid)
+    assert _build.LAUNCHES["poa_expand"] == before["poa_expand"] + (pp.shape[0] > 0)
+    assert kp.dtype == pp.dtype and torch.equal(kp, pp) and torch.equal(ko, po)
+    return pr, ps, pc
+
+
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+@pytest.mark.parametrize("kind", ["vertical", "horizontal", "diagonal", "random", "runs511"])
+def test_walk_tiles_and_expansion_match_plain(cuda, mode, kind):
+    """Walks that leave the staged tile through its top edge, its left edge
+    and its corner, take runs of 511 and jump to predecessors up to 511
+    rows back, on synthetic direction codes; B*D = 15 and 6 are no multiple
+    of a block's 4 walks; sw walks that stop at random cells, ov walks that
+    start on row 0 or column 0."""
+    B, N1, D, W, P = (2, 600, 3, 576, 8) if kind == "runs511" else (3, 300, 5, 200, 4)
+    dirs, maxi, maxj = synthetic_walk_inputs(
+        ["vertical", "horizontal", "diagonal", "random", "runs511"].index(kind), B, N1, D, W,
+        P, kind, mode)
+    if kind == "runs511":
+        maxi[1:], maxj[1:] = N1 - 1, W - 1
+    nid = np.random.default_rng(1).permutation(4095)[: N1 - 1].astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    pr, ps, pc = _walk_and_expand_equal_plain(t(dirs), t(maxi), t(maxj), t(np.tile(nid, (B, 1))),
+                                              mode, P)
+    runs = pr.cpu().numpy()
+    if kind == "random" and mode == "nw":
+        assert max_row_jump(runs, ps) > 64  # past a tile's 64 rows
+    if kind == "runs511" and mode != "sw":
+        assert ((runs & 511) == 511).any()
+
+
+@pytest.mark.parametrize("W", [8, 40, 96])
+def test_walk_rows_narrower_than_a_tile_match_plain(cuda, W):
+    """Rows of fewer than a tile's 64 columns, and of a width no multiple of
+    64: the tile's pieces past the row's end are not copied."""
+    for mode in ("nw", "sw", "ov"):
+        dirs, maxi, maxj = synthetic_walk_inputs(W, 2, 150, 3, W, 4, "random", mode)
+        nid = torch.arange(2 * 149, dtype=torch.int32, device=cuda).reshape(2, 149)
+        t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+        _walk_and_expand_equal_plain(t(dirs), t(maxi), t(maxj), nid, mode, 4)
+
+
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+def test_walk_predecessor_jumps_of_ring_511_graphs_match_plain(cuda, mode):
+    """K1 on random DAGs whose in-edges reach 200 rows back (ring 511, in
+    global memory), then K2 and the expansion against their plain versions;
+    in nw some walk steps more than a tile's 64 rows at once."""
+    arrays = dag_windows(40 + len(mode), 3, 300, 8, 128, 5, 200)
+    codes, preds, sink, nn, seqp, slen = (torch.from_numpy(a).to(cuda) for a in arrays)
+    aux, deg = pl.pack_aux(preds, 511)
+    dirs, maxi, maxj, _ = pl.poa_dp(codes, aux, deg, sink, nn, seqp, slen, mode, 3, -5, -4, 511)
+    nid = torch.from_numpy(np.random.default_rng(2).integers(0, 4000, (3, 300), dtype=np.int32))
+    pr, ps, _ = _walk_and_expand_equal_plain(dirs, maxi, maxj, nid.to(cuda), mode, 8)
+    if mode == "nw":
+        assert max_row_jump(pr.cpu().numpy(), ps) > 64
+
+
+def test_walk_first_cell_stops_and_empty_batches(cuda):
+    """sw walks that stop at their first cell and ov walks that start on row
+    0 or column 0 hold no pair; B*D = 0 launches nothing."""
+    B, N1, D, W, P = 2, 40, 3, 64, 4
+    dirs = torch.zeros((B, N1, D, W), dtype=torch.int16, device=cuda)
+    start = torch.tensor([[5, 9, 39], [1, 2, 3]], dtype=torch.int32, device=cuda)
+    nid = torch.zeros((B, N1 - 1), dtype=torch.int32, device=cuda)
+    _, ps, pc = _walk_and_expand_equal_plain(dirs, start, start + 7, nid, "sw", P)
+    assert ps == 0 and int(pc.sum()) == 0
+    zero = torch.zeros_like(start)
+    for mi, mj in ((zero, start), (start, zero)):
+        dirs.fill_((P + 2) << 9 | 1)  # diagonal
+        _, ps, pc = _walk_and_expand_equal_plain(dirs, mi, mj, nid, "ov", P)
+        assert ps == 0 and int(pc.sum()) == 0
+    empty = torch.zeros((0, N1, D, W), dtype=torch.int16, device=cuda)
+    mx = torch.zeros((0, D), dtype=torch.int32, device=cuda)
+    _walk_and_expand_equal_plain(empty, mx, mx, nid[:0], "nw", P)
+    with pytest.raises(ValueError, match="16-byte"):
+        pl.traceback_walk_rle(dirs[..., :60].contiguous(), start, start, "nw", N1 + 60, P)
+
+
+@pytest.mark.parametrize("case", ["agree", "over_in_chunk", "over_after_chunk", "over_count_0",
+                                  "under"])
+def test_expansion_raises_where_headers_and_count_disagree(cuda, case):
+    """Headers that hold more pairs than `count` (past it within a chunk of
+    32 headers, in a later chunk, in a walk of count 0) or fewer raise on
+    the card as in the plain version; headers that agree expand alike."""
+    runs = torch.zeros((80, 3), dtype=torch.int32)
+    runs[:40, 1] = ((3 + 2) << pl.RUN_PN_SHIFT) | ((5 + 2) << pl.RUN_R_BITS) | 1
+    c = {"agree": 40, "over_in_chunk": 30, "over_after_chunk": 32, "under": 45}.get(case, 40)
+    if case == "over_count_0":
+        runs[0, 0] = runs[0, 1]
+    count = torch.tensor([[0, c, 0]], dtype=torch.int32)
+    nid = torch.arange(10, dtype=torch.int32)[None]
+    args = [(runs, 40, count, nid), (runs.to(cuda), 40, count.to(cuda), nid.to(cuda))]
+    if case == "agree":
+        (pp, po), (kp, ko) = (pl.expand_walk_pairs(*a) for a in args)
+        assert torch.equal(kp.cpu(), pp) and torch.equal(ko.cpu(), po)
+        return
+    for a in args:
+        with pytest.raises(RuntimeError, match="count"):
+            pl.expand_walk_pairs(*a)
+
+
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+def test_walk_and_expansion_at_phase_1_shape_match_plain(cuda, mode):
+    """chip_smoke.py's phase 1 shape: 16 window graphs, N=640, W=576, D=32,
+    P=8, the backend's ring (the largest predecessor distance) and 511."""
+    B, N, P, W, D = 16, 640, 8, 576, 32
+    arrs, _, _ = windows(21, B, N, P, W, D, depth=6, base_len=400)
+    codes, preds, sink, nn, seqp, slen = _tensors(arrs, cuda, B, N, D)
+    nid = torch.from_numpy(arrs[3]).to(cuda).reshape(B, N)
+    dist = max(pl.max_pred_distance(arrs[1][b].T, arrs[4][b, 0, 0]) for b in range(B))
+    for ring in (max(1, dist), 511):
+        aux, deg = pl.pack_aux(preds, ring)
+        dirs, maxi, maxj, _ = pl.poa_dp(codes, aux, deg, sink, nn, seqp, slen, mode, 3, -5, -4,
+                                        ring)
+        _walk_and_expand_equal_plain(dirs, maxi, maxj, nid, mode, P)
+
+
 @pytest.mark.parametrize("n_shards", [2, 3])
 def test_sharded_callable_on_one_card(cuda, n_shards):
     """Shards of one batch on streams of one card: what the unsharded call

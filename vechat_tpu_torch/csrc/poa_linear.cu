@@ -24,10 +24,13 @@
 // to each of the card's 528 schedulers, and twice the warps take only
 // 1.1-1.2x the time (k1_probe.py). About 31 instructions a lane (cell) and
 // 5 an in-edge, 24 and 4 of them on the INT32 pipe.
-// K2: one thread per walk; bound by one dependent dirs load per step.
+// K2: one warp per walk, stepping over tiles of its direction codes staged
+// in shared memory; then the expansion of its headers to node-id pairs on the
+// card (poa_expand_kernel). See the notes above the kernels.
 // The dense walk (poa_walk_dense_kernel, the sharded route's walk) replaces
 // _traceback_walk: see the note above the kernel.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -40,6 +43,7 @@ constexpr int kTie = 4096;
 constexpr int kNegV = -(1 << 30);
 constexpr int kNeg16 = -16000;
 constexpr int kRunRBits = 9;
+constexpr int kRunPpBits = 10;
 constexpr int kRunPnShift = 19;
 enum { kNW = 0, kSW = 1, kOV = 2 };
 
@@ -386,29 +390,76 @@ __global__ void __launch_bounds__(32 * kK1MaxWarps) poa_dp_kernel(const K1Args a
   }
 }
 
-__global__ void poa_walk_kernel(
-    const short* __restrict__ dirs,  // [B, N1, D, W]
+// ------------------------------------------------------------------- K2
+// One warp per walk, kWalkWarps walks a block. It replaced one thread per
+// walk, each of whose steps was a dependent load of one int16 code from
+// device memory (dirs is hundreds of MB; a walk's consecutive rows lie D*W*2
+// bytes apart), so a step cost a device-memory round trip. Now the warp
+// stages a tile of its walk's codes in shared memory: rows [i-63, i] of
+// dirs[b, :, d, :] by the 64 columns that end with the 16-byte piece holding
+// j, both clamped at 0, copied with cp.async by 8 lanes a row, every piece in
+// flight at once, so a tile costs about one device-memory latency. A walk
+// never moves to a higher row or column, so it steps from shared memory until
+// it leaves the tile through its top or left edge or jumps to a predecessor
+// above it, and the warp restages at that cell. Every lane runs the step (the
+// code is one broadcast load) and stores the same header word, so the step
+// has no branch; the mode is a template parameter. What bounds it now is the
+// chain of dependent steps, each a shared-memory load and the decode, plus
+// one device-memory latency a tile (about 9 tiles a walk on the main path's
+// windows). 4 warps take 32 KB of static shared memory, below the 48 KB that
+// needs no opt-in.
+constexpr int kWalkWarps = 4;
+constexpr int kTileRows = 64;
+constexpr int kTileCols = 64;  // 8 16-byte pieces a row: a warp copies 4 rows at a time
+
+template <int MODE>
+__global__ void __launch_bounds__(32 * kWalkWarps) poa_walk_kernel(
+    const short* __restrict__ dirs,  // [B, N1, D, W], W % 8 == 0, 16-byte aligned
     const int* __restrict__ maxi, const int* __restrict__ maxj,  // [B, D]
     int* __restrict__ runs,          // [L, B*D] zero-filled
     int* __restrict__ count,         // [B, D]
     int* __restrict__ steps,         // [1] zero-filled: max headers per walk
-    int B, int N1, int D, int W, int L, int P, int mode) {
+    int B, int N1, int D, int W, int L, int P) {
+  __shared__ __align__(16) short tiles[kWalkWarps][kTileRows * kTileCols];
   const int BD = B * D;
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= BD) return;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
+  if (w >= BD) return;  // no block barrier: a spare warp just leaves
+  short* tile = tiles[threadIdx.x >> 5];
   const int b = w / D, d = w % D;
   const int pb = 32 - __clz(2 * P + 3);  // ceil(log2(2P + 4))
   const int MARKER_D = (1 << pb) - 1, MARKER_V = MARKER_D - 1;
-  const short* base = dirs + (size_t)b * N1 * D * W + (size_t)d * W;
   const size_t row_stride = (size_t)D * W;
+  // this lane's piece of a tile: column piece lane % 8 of rows lane / 8, +4, ...
+  const short* base = dirs + (size_t)b * N1 * D * W + (size_t)d * W + (lane & 7) * 8 +
+                      (size_t)(lane >> 3) * row_stride;
+  short* mine = tile + (lane >> 3) * kTileCols + (lane & 7) * 8;
   int i = maxi[w], j = maxj[w];
   const bool started = !(i == 0 && j == 0);
-  bool active = mode == kOV ? (started && i != 0 && j != 0) : started;
+  bool active = MODE == kOV ? (started && i != 0 && j != 0) : started;
+  int r0 = i + 1, c0 = 0;  // the tile's first row and column: none staged yet
   int cnt = 0, step = 0;
   while (active && step < L) {
-    const int code = base[(size_t)i * row_stride + j];
+    if (i < r0 || j < c0) {
+      r0 = max(i - kTileRows + 1, 0);
+      c0 = max(((j + 8) & ~7) - kTileCols, 0);
+      __syncwarp();  // every lane has read its last code of the previous tile
+      if ((lane & 7) * 8 < W - c0) {
+        const short* src = base + (size_t)r0 * row_stride + c0;
+        short* dst = mine;
+        for (int rr = lane >> 3; rr <= i - r0; rr += 4) {
+          __pipeline_memcpy_async(dst, src, 16);
+          src += 4 * row_stride;
+          dst += 4 * kTileCols;
+        }
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncwarp();  // every lane's pieces are in
+    }
+    const int code = tile[(i - r0) * kTileCols + (j - c0)];
     const int pr = code >> kDeltaBits, dl = code & kDmask;
-    if (mode == kSW && pr == 0) break;
+    if (MODE == kSW && pr == 0) break;
     const bool mrkd = pr == MARKER_D, mrkv = pr == MARKER_V;
     const bool is_run = mrkd || mrkv;
     const bool is_diag = (pr >= P + 2 && pr < MARKER_V) || mrkd;
@@ -421,16 +472,108 @@ __global__ void poa_walk_kernel(
     const int pj1 = (is_diag || !is_vert) ? j - 1 : j;
     const int pn0 = pi1 == i ? -1 : i - 1;
     const int pp0 = pj1 == j ? -1 : j - 1;
+    // every lane stores the same word: one store, no branch
     runs[(size_t)step * BD + w] = ((pn0 + 2) << kRunPnShift) | ((pp0 + 2) << kRunRBits) | rl;
     i = is_run ? i - rl : pi1;
     j = (is_run && is_diag) ? j - rl : pj1;
     cnt += rl;
     ++step;
-    if (mode == kNW) active = !(i == 0 && j == 0);
-    else if (mode == kOV) active = !(i == 0 || j == 0);
+    if (MODE == kNW) active = !(i == 0 && j == 0);
+    else if (MODE == kOV) active = !(i == 0 || j == 0);
   }
-  count[w] = started ? cnt : 0;
-  if (step) atomicMax(steps, step);
+  if (lane == 0) {
+    count[w] = started ? cnt : 0;
+    if (step) atomicMax(steps, step);
+  }
+}
+
+// The expansion: walk w's headers to its count[w] pairs, front to back, at
+// pairs[offsets[w], offsets[w] + count[w]), each pair one word of two int16
+// halves: the node id (node_id of the rank) or -1, then the position or -1.
+// Replaces the host decode of the JAX backend (poa_pallas.py runs_to_pairs_np,
+// ranks_to_node_ids_np). One warp a walk: 32 headers at a time (the next 32
+// loaded while these expand), a shuffle scan of their run lengths, then the
+// lanes take the pairs those headers hold in turn, each finding its header by
+// a 5-step search of the scan, so that a run of 511 pairs spreads over the
+// warp and consecutive lanes write consecutive words. The warp reads every
+// header row below S, so that headers holding more pairs than count[w] (a
+// chunk's runs past the count, or a run after it) are caught as well as
+// fewer: either sets *err, on which the wrapper raises, as the plain version
+// does. Bound by the latency of its few dependent loads a walk (headers, node
+// ids), not by its bytes.
+constexpr int kExpandWarps = 4;
+constexpr int kExpandUnroll = 4;  // pairs a lane takes before it stores them
+
+__global__ void __launch_bounds__(32 * kExpandWarps) poa_expand_kernel(
+    const int* __restrict__ runs,            // [L, B*D] headers from poa_walk_kernel
+    const int* __restrict__ count,           // [B*D]
+    const long long* __restrict__ offsets,   // [B*D] exclusive scan of count
+    const int* __restrict__ node_id,         // [B, N]
+    unsigned* __restrict__ pairs,            // [total] pn | pp << 16
+    int* __restrict__ err,                   // [1] set to 1 where headers and count disagree
+    int BD, int D, int N, int S) {           // S: header rows to read (steps)
+  __shared__ int hdr[kExpandWarps][32], ends[kExpandWarps][32];
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const int w = blockIdx.x * kExpandWarps + wi;
+  if (w >= BD) return;
+  const int c = count[w];
+  unsigned* out = pairs + offsets[w];
+  const int* nid = node_id + (size_t)(w / D) * N;
+  int* hs = hdr[wi];
+  int* es = ends[wi];
+  int h = lane < S ? runs[(size_t)lane * BD + w] : 0;
+  int done = 0;
+  bool bad = false;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + 32 + lane;
+    const int h_next = s < S ? runs[(size_t)s * BD + w] : 0;
+    int e = h & ((1 << kRunRBits) - 1);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, e, o);
+      if (lane >= o) e += u;
+    }
+    hs[lane] = h;
+    es[lane] = e;
+    __syncwarp();
+    const int sum = __shfl_sync(kFull, e, 31);
+    if (sum > c - done) {  // more pairs than count: uniform over the warp
+      bad = true;
+      break;
+    }
+    const int tot = sum;
+    for (int p0 = 0; p0 < tot; p0 += 32 * kExpandUnroll) {
+      unsigned word[kExpandUnroll] = {};
+      int dst[kExpandUnroll];
+#pragma unroll
+      for (int u = 0; u < kExpandUnroll; ++u) {
+        const int p = p0 + u * 32 + lane;
+        dst[u] = -1;
+        if (p >= tot) continue;
+        int k = 0;  // the first header whose run ends past pair p
+#pragma unroll
+        for (int half = 16; half > 0; half >>= 1)
+          if (es[k + half - 1] <= p) k += half;
+        const int hk = hs[k];
+        const int rk = hk & ((1 << kRunRBits) - 1);
+        const int q = p - (es[k] - rk);  // pair q of the header's run
+        const int pn0 = (hk >> kRunPnShift) - 2;
+        const int pp0 = ((hk >> kRunRBits) & ((1 << kRunPpBits) - 1)) - 2;
+        const int pn = rk > 1 ? pn0 - q : pn0;
+        const int pp = rk > 1 && pp0 >= 0 ? pp0 - q : pp0;
+        const int node = pn >= 0 ? nid[pn] : -1;
+        word[u] = ((unsigned)node & 0xffffu) | ((unsigned)pp << 16);
+        dst[u] = c - 1 - (done + p);  // walk order is back to front
+      }
+#pragma unroll
+      for (int u = 0; u < kExpandUnroll; ++u)
+        if (dst[u] >= 0) out[dst[u]] = word[u];
+    }
+    done += tot;
+    h = h_next;
+    __syncwarp();  // every lane has read hs, es before the next chunk's stores
+  }
+  if ((bad || done != c) && lane == 0) atomicExch(err, 1);
 }
 
 // The dense walk: one (rank, position) pair a step, written back to front
@@ -566,10 +709,22 @@ int poa_dp_launch(const int* codes, const int* aux, const int* deg, const int* s
 int poa_walk_launch(const short* dirs, const int* maxi, const int* maxj, int* runs,
                     int* count, int* steps, int B, int N1, int D, int W, int L, int P,
                     int mode, void* stream) {
-  const int threads = 128;
-  const int blocks = (B * D + threads - 1) / threads;
-  poa_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      dirs, maxi, maxj, runs, count, steps, B, N1, D, W, L, P, mode);
+  // the tiles are copied in 16-byte pieces: every row must start on one
+  if (W % 8 != 0 || reinterpret_cast<size_t>(dirs) % 16 != 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (B * D + kWalkWarps - 1) / kWalkWarps;
+  auto kern = mode == kSW ? poa_walk_kernel<kSW>
+                          : (mode == kOV ? poa_walk_kernel<kOV> : poa_walk_kernel<kNW>);
+  kern<<<blocks, 32 * kWalkWarps, 0, (cudaStream_t)stream>>>(dirs, maxi, maxj, runs, count,
+                                                              steps, B, N1, D, W, L, P);
+  return (int)cudaGetLastError();
+}
+
+int poa_expand_launch(const int* runs, const int* count, const long long* offsets,
+                      const int* node_id, unsigned* pairs, int* err, int BD, int D, int N,
+                      int S, void* stream) {
+  const int blocks = (BD + kExpandWarps - 1) / kExpandWarps;
+  poa_expand_kernel<<<blocks, 32 * kExpandWarps, 0, (cudaStream_t)stream>>>(
+      runs, count, offsets, node_id, pairs, err, BD, D, N, S);
   return (int)cudaGetLastError();
 }
 

@@ -34,6 +34,7 @@ NVCC_FLAGS = [
 LAUNCHES: Dict[str, int] = {
     "poa_dp": 0,
     "poa_walk": 0,
+    "poa_expand": 0,
     "pairwise_banded": 0,
     "pairwise_tiled": 0,
     "poa_dp_affine": 0,

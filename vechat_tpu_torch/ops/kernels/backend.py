@@ -15,9 +15,11 @@ CPU runs their plain PyTorch versions (the tests and `--backend torch`).
 With more than one entry in `devices` (by default every visible card) a
 chunk's window batch is cut into one shard per entry (`parallel/mesh.py`),
 each shard runs K1 and the dense walk on its own device and stream, and the
-pairs come back as int16 [B, D, L] buffers: the counterpart of the JAX
-backend's multi-device route. With one entry a chunk is one launch of K1 and
-the run-length walk K2.
+pairs come back as int16 [B, D, L] buffers of node ids: the counterpart of
+the JAX backend's multi-device route. With one entry a chunk is one launch
+of K1, the run-length walk K2 and the expansion of its headers to node-id
+pairs on the device; the host fetches the counts and the flat pairs and
+zips every item's tuples from one `tolist()` a field a launch (`pair_lists`).
 """
 
 from __future__ import annotations
@@ -32,21 +34,25 @@ from ..graph_align import LinearAligner
 from ..poagraph import Alignment, PoaGraph
 from . import _build, dense
 from .dense import bucket, graph_to_dense
-from .poa_linear import (
-    DELTA_BITS,
-    fits_int16,
-    max_pred_distance,
-    poa_align,
-    ranks_to_node_ids_np,
-    runs_to_pairs_np,
-)
+from .poa_linear import DELTA_BITS, fits_int16, max_pred_distance, poa_align
 
 D_MAX = 64  # sequences per graph slot in one launch
 MAX_RING = (1 << DELTA_BITS) - 1  # largest predecessor distance a code holds
+
 # device bytes of one launch (of one shard's, on the sharded route): the
 # int16 dirs tensor, for rings that do not fit in shared memory the int16 H
 # ring, and on the sharded route the two int16 [B, D, L] pair buffers
 LAUNCH_BYTES = 1 << 30
+
+
+def pair_lists(pairs: np.ndarray, offsets, counts) -> list:
+    """Every walk's alignment, a list of (node id, position) tuples, from
+    the expansion's int16 [total, 2] pairs: one tolist() a field, and walk
+    w's tuples zipped from their slices at offsets[w] of counts[w].
+    `chip_smoke.py` times this beside other ways to build the same lists
+    (`decode_lists_row`): on an H100 machine's host it was the fastest."""
+    pn, pp = pairs[:, 0].tolist(), pairs[:, 1].tolist()
+    return [list(zip(pn[o : o + c], pp[o : o + c])) for o, c in zip(offsets, counts)]
 
 
 def pack_windows(dense_seqs, nb: int, pb: int, wb: int, B: int = 0):
@@ -104,8 +110,9 @@ class TorchAlignerBackend:
         self.cell_updates = 0
         # stage timers (where does align_batch wall go?)
         self.t_pack = 0.0  # dense conversion + batch array fill
-        self.t_device = 0.0  # upload + kernels + fetch
-        self.t_decode = 0.0  # run headers -> Alignment decode
+        self.t_device = 0.0  # upload + kernels + the counts' fetch
+        self.t_decode = 0.0  # pairs' fetch + Alignment lists
+        self.t_decode_fetch = 0.0  # of t_decode: the pairs' fetch
         self.t_host_fb = 0.0  # host-fallback alignments
         self.n_dispatches = 0
         self.n_calls = 0
@@ -144,7 +151,7 @@ class TorchAlignerBackend:
         fn = self._sharded_fns.get(key)
         if fn is None:
             fn = sharded_poa_align_cuda(
-                self.devices, mode, *self._scores(mode), ring=ring, emit_node_ids=False
+                self.devices, mode, *self._scores(mode), ring=ring, emit_node_ids=True
             )
             self._sharded_fns[key] = fn
         return fn
@@ -252,31 +259,39 @@ class TorchAlignerBackend:
             dpn, dpp, count, _ = self._sharded_fn(mode, ring)(
                 codes, preds, sink, nid, nn, seqp, slen
             )
-            dpn, dpp = dpn.numpy(), dpp.numpy()
-            L = dpn.shape[2]
             self.n_sharded_dispatches += 1
         else:
-            runs, steps, count, _ = poa_align(
+            pairs, offsets, count, _ = poa_align(
                 codes, preds, sink, nn, seqp, slen, mode, m, x, g,
-                ring=ring, device=self.device,
+                ring=ring, device=self.device, emit_pairs=True, node_id=nid,
             )
-            runs = runs[:steps].cpu().numpy()
         count = count.cpu().numpy()
         self.t_device += time.perf_counter() - _t0
         self.n_dispatches += 1
 
         _t0 = time.perf_counter()
+        if n_shards > 1:
+            dpn, dpp = dpn.numpy(), dpp.numpy()
+            L = dpn.shape[2]
+        else:
+            offsets = offsets.tolist()
+            pairs = pairs.cpu().numpy()
+        self.t_decode_fetch += time.perf_counter() - _t0
+        if n_shards == 1:
+            alns = pair_lists(pairs, offsets, count.reshape(-1).tolist())
         for b, (graph, idxs) in enumerate(entries):
             for di, i in enumerate(idxs):
                 c = int(count[b, 0, di])
                 if n_shards > 1:
-                    # the pairs are the columns that do not hold -2: the last c
-                    k = int(np.count_nonzero(dpp[b, di] != -2))
-                    pn, pp = dpn[b, di, L - k :], dpp[b, di, L - k :]
+                    # walk (b, di)'s pairs are the last c columns of its row,
+                    # every column before them -2
+                    row = dpp[b, di]
+                    n = c
+                    if c > L or (c and row[L - c] == -2) or (c < L and row[L - c - 1] != -2):
+                        n = int(np.count_nonzero(row != -2))
+                    aln = list(zip(dpn[b, di, L - n :].tolist(), row[L - n :].tolist()))
                 else:
-                    pn, pp = runs_to_pairs_np(runs[:, b * D + di])
-                pn = ranks_to_node_ids_np(pn, nid[b, 0])
-                aln = list(zip(pn.tolist(), pp.tolist()))
+                    aln = alns[b * D + di]
                 if len(aln) != c:
                     # a kernel bug: never fall back, never pass silently
                     raise RuntimeError(

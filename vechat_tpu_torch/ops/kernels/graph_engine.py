@@ -2,7 +2,8 @@
 
 `TorchGraphEngine` has the `align(codes, graph, return_score)` API of
 `ops/graph_align.py`'s Linear/Affine/ConvexAligner but runs the matching
-kernel (`poa_linear` K1+K2 / `poa_affine` K5 / `poa_convex` K6), with the
+kernel (`poa_linear` K1, K2 and the expansion / `poa_affine` K5 / `poa_convex`
+K6), with the
 subtype selection of spoa::AlignmentEngine::Create
 (vendor/spoa/src/alignment_engine.cpp:57-66). A graph beyond the kernels'
 capacity goes to the host oracle and is counted in `fallbacks`: node,
@@ -31,17 +32,11 @@ import numpy as np
 from ..graph_align import make_engine
 from ..poagraph import PoaGraph
 from . import _build
-from .backend import MAX_RING, pack_windows
+from .backend import MAX_RING, pack_windows, pair_lists
 from .dense import N_BUCKETS, P_BUCKETS, W_BUCKETS, bucket, graph_to_dense
 from .poa_affine import fits_int16_affine, poa_align_affine
 from .poa_convex import P_CAP, fits_int16_convex, poa_align_convex
-from .poa_linear import (
-    fits_int16,
-    max_pred_distance,
-    poa_align,
-    ranks_to_node_ids_np,
-    runs_to_pairs_np,
-)
+from .poa_linear import fits_int16, max_pred_distance, poa_align, ranks_to_node_ids_np
 
 
 class TorchGraphEngine:
@@ -116,10 +111,13 @@ class TorchGraphEngine:
         (cb, preds, sink, nid, nnb, seqp, slen), ring = packed
         common = dict(ring=ring, device=self.device)
         if self.subtype == "linear":
-            runs, steps, _, score = poa_align(
-                cb, preds, sink, nnb, seqp, slen, self.type, self.m, self.n, self.g, **common
+            # K2's headers expanded to node-id pairs on the device, as in the
+            # batched backend
+            pairs, _, _, score = poa_align(
+                cb, preds, sink, nnb, seqp, slen, self.type, self.m, self.n, self.g,
+                emit_pairs=True, node_id=nid, **common,
             )
-            pn, pp = runs_to_pairs_np(runs[:steps, 0].cpu().numpy())
+            aln = pair_lists(pairs.cpu().numpy(), [0], [pairs.shape[0]])[0]
         else:
             if self.subtype == "affine":
                 pn, pp, count, score = poa_align_affine(
@@ -135,9 +133,8 @@ class TorchGraphEngine:
             L = pn.shape[2]
             pn = pn[0, 0, L - cnt :].cpu().numpy().astype(np.int64)
             pp = pp[0, 0, L - cnt :].cpu().numpy().astype(np.int64)
+            aln = list(zip(ranks_to_node_ids_np(pn, nid[0, 0]).tolist(), pp.tolist()))
         self.device_alignments += 1
-        seg = ranks_to_node_ids_np(pn, nid[0, 0])
-        aln = list(zip(seg.tolist(), pp.tolist()))
         if return_score:
             return aln, int(score[0, 0, 0])
         return aln

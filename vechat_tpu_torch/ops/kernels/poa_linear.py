@@ -28,11 +28,22 @@ slice per warp in shared memory when a block's slices fit, else a global
 scratch ring; direction rows are staged per warp and written in 16-byte
 pieces (`dp_launch_plan` holds this arithmetic).
 
-K2 (`traceback_walk_rle`). One thread per walk (B*D threads). Each step
-reads one direction code and writes one packed header into
-``runs[step, walk]``, so a warp's stores coalesce. A marked diagonal or
-vertical run is jumped in one step. Bound by dependent-load latency: one
-dirs read per step, steps serial per walk.
+K2 (`traceback_walk_rle`). One warp per walk. It replaced one thread per
+walk whose every step was a dependent device-memory load of one direction
+code. The warp stages a tile of its walk's codes in shared memory (64 rows
+by 64 columns ending at the walk's cell, copied with cp.async, every piece
+in flight at once), steps from there, and restages only when the walk
+leaves the tile through its top or left edge or jumps to a predecessor
+above it. A marked diagonal or vertical run is jumped in one step; each
+step writes one packed header into ``runs[step, walk]``. Bound by the
+chain of dependent steps and one device-memory latency a tile.
+
+The expansion (`expand_walk_pairs`). The headers of every walk expanded to
+(node id, position) pairs, front to back, in one flat int16 buffer: the
+card's counterpart of the host decode of the JAX backend
+(`runs_to_pairs_np` then `ranks_to_node_ids_np`, kept below for the tests).
+One warp a walk: a shuffle scan of 32 headers' run lengths, then the lanes
+take the pairs in turn, so a long run spreads over the warp.
 
 The dense walk (`traceback_walk_dense`), which the sharded route of
 `parallel/mesh.py` uses. One thread per walk again, one pair a step written
@@ -322,6 +333,7 @@ def _dp_plain(codes, aux, deg, sink, n_nodes, seqp, slen, mode, m, x, g, R):
 _DP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 _WALK_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _WALK_DENSE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_EXPAND_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _lib():
@@ -333,6 +345,8 @@ def _lib():
         lib.poa_walk_launch.restype = ctypes.c_int
         lib.poa_walk_dense_launch.argtypes = _WALK_DENSE_ARGS
         lib.poa_walk_dense_launch.restype = ctypes.c_int
+        lib.poa_expand_launch.argtypes = _EXPAND_ARGS
+        lib.poa_expand_launch.restype = ctypes.c_int
     return lib
 
 
@@ -446,7 +460,7 @@ def traceback_walk_rle(dirs, maxi, maxj, align_type, L, P):
     Returns (runs [L, B*D] int32 walk-order headers, zero past each walk's
     end; steps, the number of leading rows that hold a header; count
     [B, D] pairs per walk). CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise (and need W % 8 == 0)."""
     B, N1, D, W = dirs.shape
     if N1 + 1 >= (1 << 12) or W + 1 >= (1 << RUN_PP_BITS):
         raise ValueError(f"shape N1={N1}, W={W} exceeds rle header fields")
@@ -461,23 +475,128 @@ def traceback_walk_rle(dirs, maxi, maxj, align_type, L, P):
         return _walk_plain(dirs, maxi, maxj, align_type, L, P)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if W % 8 or dirs.data_ptr() % 16:
+        raise ValueError("dirs rows must start on 16-byte boundaries (W % 8 == 0)")
     BD = B * D
     runs = torch.zeros((L, BD), dtype=torch.int32, device=dev)
     count = torch.empty((B, D), dtype=torch.int32, device=dev)
     steps = torch.zeros(1, dtype=torch.int32, device=dev)
     if BD == 0:
         return runs, 0, count
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    launch_walk(dirs, maxi, maxj, runs, count, steps, align_type, L, P)
+    return runs, int(steps.item()), count
+
+
+def launch_walk(dirs, maxi, maxj, runs, count, steps, align_type, L, P):
+    """K2's kernel alone, on the buffers `traceback_walk_rle` makes (runs
+    zeroed, steps [1] zeroed, all on the card); `chip_smoke.py` times it
+    apart from that glue. A walk writes only its own headers, so a second
+    launch on the same buffers gives the same outputs."""
+    B, N1, D, W = dirs.shape
+    stream = torch.cuda.current_stream(dirs.device).cuda_stream
+    with torch.cuda.device(dirs.device):
         rc = _lib().poa_walk_launch(
             dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(), runs.data_ptr(),
-            count.data_ptr(), steps.data_ptr(),
-            B, N1, D, W, L, P, MODES[align_type],
-            stream,
+            count.data_ptr(), steps.data_ptr(), B, N1, D, W, L, P, MODES[align_type], stream,
         )
     _build.check(_lib(), rc, "poa_walk")
     _build.LAUNCHES["poa_walk"] += 1
-    return runs, int(steps.item()), count
+
+
+# ------------------------------------------------------- the expansion
+
+
+def _expand_plain(runs, steps, count, node_id):
+    """Plain PyTorch version of the expansion, vectorised over every header
+    (repeat_interleave stretches the runs, a gather maps ranks to node ids
+    and reverses each walk). Same outputs as the kernel."""
+    B, D = count.shape
+    BD, N = B * D, node_id.shape[1]
+    dev = runs.device
+    cnt = count.reshape(BD).to(torch.int64)
+    ends = torch.cumsum(cnt, 0)
+    offsets = ends - cnt
+    # walk-major: each walk's headers in walk order, zeros past its end
+    h = runs[:steps].T.reshape(-1).to(torch.int64)
+    r = h & ((1 << RUN_R_BITS) - 1)
+    keep = r > 0
+    h, r = h[keep], r[keep]
+    walk = torch.arange(BD, device=dev).repeat_interleave(steps)[keep]
+    got = torch.zeros(BD, dtype=torch.int64, device=dev).index_add_(0, walk, r)
+    if not torch.equal(got, cnt):
+        raise RuntimeError("the walks' headers hold other pair counts than `count`")
+    total = int(ends[-1]) if BD else 0
+    pn0 = (h >> RUN_PN_SHIFT) - 2
+    pp0 = ((h >> RUN_R_BITS) & ((1 << RUN_PP_BITS) - 1)) - 2
+    # pair k of a run of r > 1 steps back k rows, and k positions unless a
+    # deletion run (pp0 = -1)
+    k = torch.arange(total, device=dev) - (torch.cumsum(r, 0) - r).repeat_interleave(r)
+    stretch = (r > 1).repeat_interleave(r)
+    pn = pn0.repeat_interleave(r) - k * stretch
+    pp = pp0.repeat_interleave(r) - k * (stretch & (pp0 >= 0).repeat_interleave(r))
+    wk = walk.repeat_interleave(r)
+    node = node_id.reshape(-1).to(torch.int64)[(wk // D) * N + pn.clamp_min(0)]
+    pairs = torch.stack([torch.where(pn >= 0, node, -1), pp], dim=1).to(torch.int16)
+    # walk order is back to front: pair t of walk w goes to
+    # offsets[w] + count[w] - 1 - (t - offsets[w]), a map that is its own inverse
+    return pairs[2 * offsets[wk] + cnt[wk] - 1 - torch.arange(total, device=dev)], offsets
+
+
+def expand_walk_pairs(runs, steps, count, node_id):
+    """The expansion. runs [L, B*D] int32 and steps from `traceback_walk_rle`,
+    count [B, D] int32, node_id [B, N] int32 (the node id of each DP rank).
+
+    Returns (pairs [total, 2] int16, offsets [B*D] int64): walk w's pairs,
+    front to back, are pairs[offsets[w] : offsets[w] + count[w]], each (node
+    id, or -1 for an insertion; position, or -1 for a deletion); offsets is
+    the exclusive scan of count and total its sum. Headers that hold other
+    pair counts than `count`, more or fewer, raise on both devices. int16
+    holds both fields
+    (node ids of the window graphs below 4096, positions below 1024) in half
+    the bytes of int32, as the dense walk's buffers do. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    if runs.dim() != 2 or count.dim() != 2 or node_id.dim() != 2:
+        raise ValueError("runs must be [L, B*D], count [B, D] and node_id [B, N]")
+    B, D = count.shape
+    L, BD = runs.shape
+    if BD != B * D or node_id.shape[0] != B or not 0 <= steps <= L:
+        raise ValueError(f"runs {tuple(runs.shape)}, count {tuple(count.shape)}, node_id "
+                         f"{tuple(node_id.shape)} and steps {steps} do not agree")
+    dev = runs.device
+    _check_inputs(dict(runs=runs, count=count, node_id=node_id), torch.int32, dev)
+    if dev.type == "cpu":
+        return _expand_plain(runs, steps, count, node_id)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    cnt = count.reshape(BD)
+    ends = torch.cumsum(cnt, 0)
+    offsets = ends - cnt
+    total = int(ends[-1]) if BD else 0
+    pairs = torch.empty((total, 2), dtype=torch.int16, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    if BD and steps:
+        launch_expand(runs, steps, cnt, offsets, node_id, pairs, err)
+    if (total and not steps) or int(err.item()):
+        raise RuntimeError("the walks' headers hold other pair counts than `count`")
+    return pairs, offsets
+
+
+def launch_expand(runs, steps, cnt, offsets, node_id, pairs, err):
+    """The expansion kernel alone, on the buffers `expand_walk_pairs` makes
+    (cnt [B*D] int32, offsets [B*D] int64, pairs [total, 2] int16, err [1]
+    int32 zeroed, which the kernel sets where a walk's headers and its count
+    disagree, all on the card); `chip_smoke.py` times it apart from that
+    glue."""
+    BD = cnt.shape[0]
+    stream = torch.cuda.current_stream(runs.device).cuda_stream
+    with torch.cuda.device(runs.device):
+        rc = _lib().poa_expand_launch(
+            runs.data_ptr(), cnt.data_ptr(), offsets.data_ptr(), node_id.data_ptr(),
+            pairs.data_ptr(), err.data_ptr(), BD, BD // node_id.shape[0], node_id.shape[1],
+            steps, stream,
+        )
+    _build.check(_lib(), rc, "poa_expand")
+    _build.LAUNCHES["poa_expand"] += 1
 
 
 # ------------------------------------------------------- the dense walk
@@ -583,22 +702,27 @@ def traceback_walk_dense(dirs, maxi, maxj, align_type, L, P, node_id=None):
 
 def poa_align(codes, preds, sink, n_nodes, seqp, seq_len, align_type, m, x, g,
               ring: int = 0, device="cuda", emit_rle: bool = True,
-              emit_node_ids: bool = False, node_id=None):
+              emit_node_ids: bool = False, node_id=None, emit_pairs: bool = False):
     """K1 then a walk on the JAX package's layouts (`poa_align_pallas`):
     codes/sink [B, 1, N], preds [B, P, N] (DP rows), n_nodes [B, 1, 1], seqp
     [B, D, W], seq_len [B, 1, D]; numpy arrays or tensors of any integer
     dtype. ring: H-ring rows (0 = full history). L = N + W.
 
     With emit_rle (K2) returns (runs [L, B*D] int32, steps, count [B, 1, D],
-    score [B, 1, D]). Without it (the dense walk) returns (pn, pp [B, D, L]
-    int16, count, score) as `traceback_walk_dense` lays them out; pn holds
-    DP ranks, or with emit_node_ids the ids of `node_id` [B, 1, N].
+    score [B, 1, D]); with emit_pairs as well, K2's headers expanded on the
+    device (`expand_walk_pairs`), (pairs [total, 2] int16, offsets [B*D]
+    int64, count, score), pairs holding the ids of `node_id` [B, 1, N].
+    Without emit_rle (the dense walk) returns (pn, pp [B, D, L] int16, count,
+    score) as `traceback_walk_dense` lays them out; pn holds DP ranks, or
+    with emit_node_ids the ids of `node_id`.
 
     Tensors on `device`, which is the card unless the caller asks for "cpu"
     (the plain versions); without a GPU, "cuda" raises."""
     device = _build.resolve_device(device)
     if emit_node_ids and (emit_rle or node_id is None):
         raise ValueError("emit_node_ids needs emit_rle=False and node_id")
+    if emit_pairs and (not emit_rle or node_id is None):
+        raise ValueError("emit_pairs needs emit_rle and node_id")
 
     def t(a):
         return to_i32(a, device)
@@ -616,6 +740,9 @@ def poa_align(codes, preds, sink, n_nodes, seqp, seq_len, align_type, m, x, g,
     )
     if emit_rle:
         runs, steps, count = traceback_walk_rle(dirs, maxi, maxj, align_type, N + W, P)
+        if emit_pairs:
+            pairs, offsets = expand_walk_pairs(runs, steps, count, t(node_id).reshape(B, N))
+            return pairs, offsets, count[:, None, :], score[:, None, :]
         return runs, steps, count[:, None, :], score[:, None, :]
     nid = t(node_id).reshape(B, N) if emit_node_ids else None
     pn, pp, count = traceback_walk_dense(dirs, maxi, maxj, align_type, N + W, P, nid)
