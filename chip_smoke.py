@@ -42,9 +42,9 @@ Phases (each raises on failure; the script exits non-zero on any):
      alignments, host routes and each kernel's launches per run
   5. the scale-out path, on phase 3's community and against its output:
      (a) both goldens through a backend that shards every window batch over
-     two streams of the card (K1 + the dense walk a shard), and the dense
-     walk once more against its plain version on the largest shard this run
-     launched; (b) two
+     two streams of the card (K1 + the dense walk a shard; the device
+     seconds of both kernels), and the dense walk once more against its
+     plain version on the largest shard this run launched; (b) two
      processes of the command line on the card, the records all-gathered
      between the rounds over gloo: rank 0's file is phase 3's, byte for
      byte; (c) `--stream --resume-dir` in four chunks of 50 reads, byte for
@@ -62,8 +62,9 @@ on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; K7:
 the measurement; counts set to 0 just before each), the largest difference
 from its plain version (0: the tolerance is exact), its time, the plain
 version's time and the bound (the least time the card could take for
-the same work), each time the wrapper's by CUDA events (K2 and the
-expansion also give `kernel_ms`, the kernel alone, `walk_expand_rows`);
+the same work), each time the wrapper's by CUDA events (K2, the
+expansion and the dense walk also give `kernel_ms`, the kernel alone,
+`walk_expand_rows` and `dense_kernel_ms`);
 K1's, K2's and the expansion's are at phase 3b's heaviest
 shape and K3's at 3c's launch, which their entries name (phase 1's rows,
 K3's 256 pairs with its accepted pairs among them, stay lines of their
@@ -339,14 +340,19 @@ def k1_k2_phase(device, inputs):
         walk_rows = walk_expand_rows(dirs, maxi, maxj, nid_t, mode, P, shape)
         kr, ks, kc = pl.traceback_walk_rle(dirs, maxi, maxj, mode, L, P)
         # the dense walk (the sharded route's): against its plain version,
-        # whole buffers, and its pairs against K2's expanded
+        # whole buffers, with ranks and with node ids, and its pairs against
+        # K2's expanded
         kd = pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P)
         pd = pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P)
         err3 = _max_err(f"dense walk {mode} ring {ring}", ("pn", "pp", "count"), kd, pd)
+        err3 = max(err3, _max_err(f"dense walk {mode} ring {ring} node ids", ("pn", "pp", "count"),
+                                  pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P, nid_t),
+                                  pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P, nid_t)))
         _dense_equals_rle(kd, kr[:ks], kc, f"{mode} ring {ring}")
         ms1 = time_ms(lambda: pl.poa_dp(*args))
         pms1 = time_ms(lambda: pl._dp_plain(*args), reps=2)
         ms3 = time_ms(lambda: pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P))
+        kms3 = dense_kernel_ms(dirs, maxi, maxj, mode, L, P, kd, shape)
         pms3 = time_ms(lambda: pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P), reps=2)
         # bound inputs from this run's data
         k1_bytes, k1_ops = k1_work(nn_t, deg, real_rows, P, D, W, seqp, slen)
@@ -361,6 +367,8 @@ def k1_k2_phase(device, inputs):
             b_ms, b_by = bound_ms(nb, ops)
             rows[name] = dict(kernel=name, shape=shape, ms=ms, plain_ms=pms, max_abs_err=e,
                               bound_ms=b_ms, bound_by=b_by)
+            if name == "poa_walk_dense":
+                rows[name]["kernel_ms"] = kms3
             log_row(rows[name])
         rows.update(walk_rows)
         if (mode, ring) == ("nw", dist):  # the ring the backend picks
@@ -433,6 +441,25 @@ def walk_expand_rows(dirs, maxi, maxj, nid_t, mode, P, shape, label=""):
     for row in rows.values():
         log_row(row)
     return rows
+
+
+def dense_kernel_ms(dirs, maxi, maxj, mode, L, P, out, shape):
+    """The dense walk's kernel alone (`kernel_ms()`), ranks in pn, on the
+    buffers of a wrapper's output `out` = (pn, pp, count) and `K2_COPIES`
+    copies of `dirs` in turn, so with a cold L2 as K2's; raises unless the
+    timed launches wrote what the wrapper did."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import poa_linear as pl
+
+    pn, pp, count = (torch.empty_like(t) for t in out)
+    dirs_c = [dirs] + [dirs.clone() for _ in range(K2_COPIES - 1)]
+    kms = kernel_ms(lambda r: pl.launch_walk_dense(dirs_c[r], maxi, maxj, None, pn, pp, count,
+                                                   mode, L, P), copies=K2_COPIES)
+    del dirs_c
+    if not all(torch.equal(a, b) for a, b in zip((pn, pp, count), out)):
+        raise RuntimeError(f"dense walk {shape}: the timed launches differ from the wrapper's")
+    return kms
 
 
 def k2_work(headers, BD):
@@ -1235,9 +1262,10 @@ def _same_bytes(a, b):
         return fa.read() == fb.read()
 
 
-def _profiled(fn, on_card=True):
-    """fn() under a device-activity profile: (result, wall s, device busy s).
-    A rehearsal on the CPU has no device activity to record."""
+def _profiled(fn, on_card=True, device_ms=None):
+    """fn() under a device-activity profile: (result, wall s, device busy s);
+    `device_ms`, a dict, also gets `device_times` of the run. A rehearsal on
+    the CPU has no device activity to record."""
     import torch
 
     if not on_card:
@@ -1248,7 +1276,16 @@ def _profiled(fn, on_card=True):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return out, wall, sum(device_times(prof).values()) / 1e3
+    times = device_times(prof)
+    if device_ms is not None:
+        device_ms.update(times)
+    return out, wall, sum(times.values()) / 1e3
+
+
+def kernel_device_s(device_ms, kernel):
+    """Seconds on the card of the kernel named `kernel` (every instantiation)
+    in a `device_times` dict."""
+    return sum(v for k, v in device_ms.items() if kernel in k) / 1e3
 
 
 def stream_argv(tmp, community_path, n_reads, backend):
@@ -1277,7 +1314,8 @@ def dense_walk_at(device, arrays, mode, scores, ring):
     """The dense walk against its plain version on one shard of the sharded
     route, as `parallel/mesh.py` launches it: K1 on `arrays` (the JAX layout
     of `pack_windows`), then both walks on its direction words; whole buffers,
-    exact. Returns the kernel's row (times, bound)."""
+    exact, with ranks and with the route's node ids. Returns the kernel's
+    row (times, the kernel alone with a cold L2, bound)."""
     import torch
 
     from vechat_tpu_torch.ops.kernels import poa_linear as pl
@@ -1296,12 +1334,18 @@ def dense_walk_at(device, arrays, mode, scores, ring):
     kd = pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P)
     err = _max_err(f"dense walk {shape}", ("pn", "pp", "count"), kd,
                    pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P))
+    # with the node ids the route asks for
+    nid = t(nid).reshape(B, N)
+    err = max(err, _max_err(f"dense walk {shape} node ids", ("pn", "pp", "count"),
+                            pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P, nid),
+                            pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P, nid)))
     ms = time_ms(lambda: pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P))
+    kms = dense_kernel_ms(dirs, maxi, maxj, mode, L, P, kd, shape)
     pms = time_ms(lambda: pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P), warmup=0, reps=2)
     pairs = int(kd[2].sum())
     b_ms, b_by = bound_ms(pairs * 2 + 2 * B * D * L * 2 + B * D * 12, pairs * WALK_OPS_STEP)
-    row = dict(kernel="poa_walk_dense", shape=shape, ms=ms, plain_ms=pms, max_abs_err=err,
-               bound_ms=b_ms, bound_by=b_by, pairs=pairs)
+    row = dict(kernel="poa_walk_dense", shape=shape, ms=ms, kernel_ms=kms, plain_ms=pms,
+               max_abs_err=err, bound_ms=b_ms, bound_by=b_by, pairs=pairs)
     log_row(row)
     return row
 
@@ -1323,7 +1367,7 @@ def scale_out_phase(tmp, community_path, corrected_path, stream_host, n_reads=20
     on_card = backend_name == "cuda"
     devices = SHARD_DEVICES if on_card else ["cpu", "cpu"]
     t_phase = time.perf_counter()
-    walls, busy = 0.0, 0.0
+    walls, busy, dense_s = 0.0, 0.0, 0.0
 
     # 5a: both goldens through the sharded route
     launches_5a = {k: 0 for k in _build.LAUNCHES}
@@ -1348,8 +1392,9 @@ def scale_out_phase(tmp, community_path, corrected_path, stream_host, n_reads=20
 
         backend._sharded_fn = keep_largest
         _build.reset_launches()
+        dev_ms = {}
         (corrected, _), wall, busy_s = _profiled(
-            lambda: run(args, Logger(), backend=backend), on_card)
+            lambda: run(args, Logger(), backend=backend), on_card, dev_ms)
         launches = dict(_build.LAUNCHES)
         write_fasta(corrected, out)
         same = _same_bytes(out, expected)
@@ -1357,6 +1402,8 @@ def scale_out_phase(tmp, community_path, corrected_path, stream_host, n_reads=20
         log(dict(phase="scale_out", run=f"5a sharded backend, {os.path.basename(reads)}",
                  devices=devices, byte_identical=same, wall_s=wall,
                  reads_per_s=len(corrected) / wall, device_busy_s=busy_s,
+                 poa_walk_dense_kernel_device_s=kernel_device_s(dev_ms, "poa_walk_dense_kernel"),
+                 poa_dp_kernel_device_s=kernel_device_s(dev_ms, "poa_dp_kernel"),
                  device_alignments=c["device_alignments"], fallbacks=c["fallbacks"],
                  sharded_dispatches=c["sharded_dispatches"],
                  launches={k: v for k, v in launches.items() if v}))
@@ -1369,6 +1416,7 @@ def scale_out_phase(tmp, community_path, corrected_path, stream_host, n_reads=20
         for k, v in launches.items():
             launches_5a[k] += v
         walls, busy = walls + wall, busy + busy_s
+        dense_s += kernel_device_s(dev_ms, "poa_walk_dense_kernel")
     # the dense walk at its own path's shape: the first shard of that launch
     per = largest["arrays"][0].shape[0] // len(devices)
     dense_row = dense_walk_at(torch.device("cuda" if on_card else "cpu"),
@@ -1442,7 +1490,7 @@ def scale_out_phase(tmp, community_path, corrected_path, stream_host, n_reads=20
     # 5b's processes are not under this process's profiler
     log(dict(phase="scale_out_total", wall_s=time.perf_counter() - t_phase, wall_s_5a_5c=walls,
              device_busy_s_5a_5c=busy, device_idle_share_5a_5c=1 - busy / walls,
-             launches_5a=launches_5a))
+             poa_walk_dense_kernel_device_s_5a=dense_s, launches_5a=launches_5a))
     return launches_5a, dense_row
 
 

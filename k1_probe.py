@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Probes of K1, the linear POA DP kernel of vechat_tpu_torch, of K2, its
-run-length walk, and of K3, the banded NW kernel, on one NVIDIA GPU (the
-timing) or on the output of `cuobjdump -sass` (K1's count).
+run-length walk, of the dense walk and of K3, the banded NW kernel, on one
+NVIDIA GPU (the timing) or on the output of `cuobjdump -sass` (K1's count).
 
     python3 k1_probe.py time DIR [DIR ...]   # DIR: the root of a checkout
     python3 k1_probe.py time-k3 [--inputs NPZ] DIR [DIR ...]
     python3 k1_probe.py time-k2 DIR [DIR ...]
+    python3 k1_probe.py time-dense DIR [DIR ...]
     python3 k1_probe.py sass FILE            # cuobjdump -sass output or a .so
 
 `time` runs K1 of each DIR's package in a process of its own, in the order
@@ -51,6 +52,19 @@ before left in the L2 (both, like `expand_ms`, launches in a CUDA graph
 replayed between CUDA events, chip_smoke.py's `kernel_ms`; the expansion's
 inputs stay in the L2, as on the main path). Each line is one (DIR, shape)
 with chip_smoke.py's bounds, the headers of the longest walk and the pairs.
+
+`time-dense` runs the dense walk (the sharded route's) of each DIR's package
+in a process of its own, in the order given, on K1's direction words at
+`time`'s phase 1 inputs (nw and sw, the backend's ring and 511) and at a
+shard like phase 5a's largest (B=28 N=640 D=38 W=576 P=4, ring 221, nw;
+window inputs of chip_smoke.py from their own seed): the wrapper (`ms`, the
+CUDA-event median of 20 calls) and the kernel alone through the C launcher
+both versions share (`kernel_ms`: chip_smoke.py's `kernel_ms` over
+K2_COPIES copies of the direction words in turn, a cold L2), ranks in pn,
+with chip_smoke.py's bound; then both goldens through the backend sharded
+over two streams of the card, as phase 5a runs them, under the profiler:
+`poa_walk_dense_kernel`'s and `poa_dp_kernel`'s seconds on the card, the
+device's busy seconds and the wall, and whether the output is the golden.
 """
 
 import json
@@ -184,6 +198,83 @@ def _time_k2(pkg_dir):
                         row["expand_bound_ms"], _ = cs.bound_ms(
                             *cs.expand_work(headers, B * D, nid_t.numel(), pairs.shape[0]))
                     print(json.dumps(row), flush=True)
+
+
+def _time_dense(pkg_dir):
+    """Time the dense walk of the package under pkg_dir, then profile phase
+    5a's golden runs with it; prints one JSON line a case."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, pkg_dir)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vechat_tpu_torch.ops.kernels import poa_linear as pl
+
+    assert pl.__file__.startswith(os.path.abspath(pkg_dir)), pl.__file__
+    dev = torch.device("cuda")
+    cases = [("phase 1", 0, (16, 640, 8, 576, 32), ("nw", "sw"), (None, 511)),
+             ("5a-like shard", 11, (28, 640, 4, 576, 38), ("nw",), (221,))]
+    for label, seed, (B, N, P, W, D), modes, rings in cases:
+        rng = np.random.default_rng(cs.SEED + seed)
+        codes, preds, sink, nid, nn, seqp, slen = cs.window_inputs(rng, B, N, P, W, D)
+        dist = max(pl.max_pred_distance(preds[b].T, nn[b, 0, 0]) for b in range(B))
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        for mode in modes:
+            for ring in rings:
+                R = ring or max(1, dist)
+                aux, deg = pl.pack_aux(t(preds), R)
+                dirs, maxi, maxj, _ = pl.poa_dp(
+                    t(codes).reshape(B, N), aux, deg, t(sink).reshape(B, N), t(nn).reshape(B),
+                    t(seqp), t(slen).reshape(B, D), mode, 3, -5, -4, R)
+                L = N + W
+                out = pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P)
+                ms = cs.time_ms(lambda: pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P),
+                                warmup=2, reps=20)
+                pn, pp, count = (torch.empty_like(o) for o in out)
+                dirs_c = [dirs] + [dirs.clone() for _ in range(cs.K2_COPIES - 1)]
+                launch = lambda r: pl._lib().poa_walk_dense_launch(  # noqa: E731
+                    dirs_c[r].data_ptr(), maxi.data_ptr(), maxj.data_ptr(), 0, pn.data_ptr(),
+                    pp.data_ptr(), count.data_ptr(), B, N + 1, D, W, L, P, pl.MODES[mode],
+                    torch.cuda.current_stream().cuda_stream)  # the capture's stream
+                kms = cs.kernel_ms(launch, copies=cs.K2_COPIES)
+                del dirs_c
+                assert all(torch.equal(a, b) for a, b in zip((pn, pp, count), out))
+                pairs = int(out[2].sum())
+                b_ms, b_by = cs.bound_ms(pairs * 2 + 2 * B * D * L * 2 + B * D * 12,
+                                         pairs * cs.WALK_OPS_STEP)
+                print(json.dumps(dict(
+                    pkg=pkg_dir, shape=f"{label}: B={B} N={N} D={D} W={W} P={P} ring={R} {mode}",
+                    ms=ms, kernel_ms=kms, bound_ms=b_ms, bound_by=b_by, pairs=pairs,
+                    longest_walk_pairs=int(out[2].max()))), flush=True)
+    # phase 5a: both goldens through the backend sharded over two streams
+    from vechat_tpu_torch.cli.vechat_main import build_parser, run
+    from vechat_tpu_torch.io.fastx import write_fasta
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels.backend import TorchAlignerBackend
+    from vechat_tpu_torch.utils.logger import Logger
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for reads, expected, extra in cs.GOLDENS:
+            out_path = os.path.join(tmp, "out.fa")
+            args = build_parser().parse_args([reads, "-o", out_path, "--backend", "cuda", *extra])
+            backend = TorchAlignerBackend(args.match, args.mismatch, args.gap,
+                                          devices=cs.SHARD_DEVICES)
+            _build.reset_launches()
+            dev_ms = {}
+            (corrected, _), wall, busy = cs._profiled(lambda: run(args, Logger(), backend=backend),
+                                                      True, dev_ms)
+            write_fasta(corrected, out_path)
+            print(json.dumps(dict(
+                pkg=pkg_dir, run=f"5a {os.path.basename(reads)}", wall_s=wall, device_busy_s=busy,
+                poa_walk_dense_kernel_device_s=cs.kernel_device_s(dev_ms, "poa_walk_dense_kernel"),
+                poa_dp_kernel_device_s=cs.kernel_device_s(dev_ms, "poa_dp_kernel"),
+                dense_launches=_build.LAUNCHES["poa_walk_dense"],
+                byte_identical=cs._same_bytes(out_path, expected))), flush=True)
 
 
 def _rows_only_lib(_build):
@@ -357,6 +448,21 @@ def main(argv):
         return 0
     if len(argv) == 2 and argv[0] == "_time_k2":
         _time_k2(argv[1])
+        return 0
+    if len(argv) >= 2 and argv[0] == "time-dense":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        for d in argv[1:]:
+            rc = subprocess.run([sys.executable, __file__, "_time_dense",
+                                 os.path.abspath(d)]).returncode
+            if rc:
+                return rc
+        return 0
+    if len(argv) == 2 and argv[0] == "_time_dense":
+        _time_dense(argv[1])
         return 0
     if len(argv) == 2 and argv[0] == "sass":
         path = argv[1]

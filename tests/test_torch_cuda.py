@@ -234,6 +234,10 @@ def synthetic_walk_inputs(seed, B, N1, D, W, P, kind, mode):
         code = (dprio << 9) | 1
     elif kind == "runs511":
         code = np.where(np.minimum(i, j) >= 511, (marker_d << 9) | 511, (dprio << 9) | 1)
+    elif kind == "moves":  # random as below, without run markers
+        pick = rng.integers(0, 3, shape)
+        code = np.select([pick == 0, pick == 1], [(dprio << 9) | delta, (vprio << 9) | delta],
+                         np.full(shape, 1 << 9))
     else:
         run_d = 1 + (rng.random(shape) * np.minimum(reach, j)).astype(np.int64)
         run_v = 1 + (rng.random(shape) * reach).astype(np.int64)
@@ -254,6 +258,29 @@ def synthetic_walk_inputs(seed, B, N1, D, W, P, kind, mode):
         maxi.flat[1] = 0
         maxj.flat[2] = 0
     return code.astype(np.int16), maxi.astype(np.int32), maxj.astype(np.int32)
+
+
+def k1_marked(code, P):
+    """Synthetic direction codes without run markers [B, N1, D, W] with the
+    markers K1 writes (`_dp_plain`): a diagonal (vertical) delta-1 move gets
+    MARKER_D (MARKER_V) and the length of the chain of such moves ending
+    there, clamped at 511, a diagonal chain going on one row up and one lane
+    left (the lane wrapping as K1's roll does), a vertical one in the same
+    lane. Codes the dense walk may take a marker's whole run from."""
+    marker_d, marker_v = pl.markers(P)
+    out = code.astype(np.int32)
+    B, N1, D, W = code.shape
+    rld = np.zeros((B, D, W), np.int32)
+    rlv = np.zeros((B, D, W), np.int32)
+    for i in range(1, N1):
+        c = out[:, i]
+        unit = (c & 511) == 1
+        isd1 = unit & (c >= (P + 2) << 9)
+        isv1 = unit & (c >= 2 << 9) & ~isd1
+        rld = np.where(isd1, np.minimum(np.roll(rld, 1, axis=2) + 1, 511), 0)
+        rlv = np.where(isv1, np.minimum(rlv + 1, 511), 0)
+        out[:, i] = np.where(isd1, (marker_d << 9) | rld, np.where(isv1, (marker_v << 9) | rlv, c))
+    return out.astype(np.int16)
 
 
 def max_row_jump(runs, steps):
@@ -392,6 +419,139 @@ def test_walk_and_expansion_at_phase_1_shape_match_plain(cuda, mode):
         dirs, maxi, maxj, _ = pl.poa_dp(codes, aux, deg, sink, nn, seqp, slen, mode, 3, -5, -4,
                                         ring)
         _walk_and_expand_equal_plain(dirs, maxi, maxj, nid, mode, P)
+
+
+def _dense_equal_plain(dirs, maxi, maxj, nid, mode, L, P):
+    """The dense walk kernel against its plain version, whole buffers (the
+    -2 columns included), exact; one launch unless B*D is 0. Returns the
+    plain walk's (pn, pp, count)."""
+    B, N1, D, W = dirs.shape
+    before = _build.LAUNCHES["poa_walk_dense"]
+    k = pl.traceback_walk_dense(dirs, maxi, maxj, mode, L, P, nid)
+    assert _build.LAUNCHES["poa_walk_dense"] == before + (B * D > 0)
+    p = pl._walk_dense_plain(dirs, maxi, maxj, mode, L, P, nid)
+    for name, a, b in zip(("pn", "pp", "count"), k, p):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), name
+    return p
+
+
+DENSE_KINDS = ["vertical", "horizontal", "diagonal", "moves", "runs511"]
+
+
+@pytest.mark.parametrize("node_ids", [False, True])
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+@pytest.mark.parametrize("kind", DENSE_KINDS)
+def test_dense_walk_kernel_tiles_and_runs_match_plain(cuda, kind, mode, node_ids):
+    """The dense walk on synthetic codes marked as K1 marks them: walks out
+    of the staged tile through its top edge (vertical runs), its left edge
+    (horizontal moves) and its corner (diagonal runs), runs of 511 across
+    tiles, jumps to predecessors up to 299 rows back (moves); B*D = 15 and 6
+    are no multiple of a block's 4 walks; sw walks that stop at random
+    cells, ov walks that start on row 0 or column 0; ranks or node ids."""
+    B, N1, D, W, P = (2, 600, 3, 576, 8) if kind == "runs511" else (3, 300, 5, 200, 4)
+    dirs, maxi, maxj = synthetic_walk_inputs(
+        50 + DENSE_KINDS.index(kind), B, N1, D, W, P,
+        "diagonal" if kind == "runs511" else kind, mode)
+    if kind == "runs511":
+        maxi[1:], maxj[1:] = N1 - 1, W - 1
+    dirs = k1_marked(dirs, P)
+    nid = np.random.default_rng(3).permutation(4095)[: N1 - 1].astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    dirs, maxi, maxj = t(dirs), t(maxi), t(maxj)
+    L = N1 - 1 + W
+    _dense_equal_plain(dirs, maxi, maxj, t(np.tile(nid, (B, 1))) if node_ids else None, mode, L, P)
+    runs, steps, _ = pl._walk_plain(dirs, maxi, maxj, mode, L, P)
+    runs = runs[:steps].cpu().numpy()
+    if kind == "runs511" and mode != "sw":
+        assert ((runs & 511) == 511).any()
+    if kind == "moves" and mode == "nw":
+        assert max_row_jump(runs, steps) > 64  # past a tile's 64 rows
+
+
+@pytest.mark.parametrize("kind", ["diagonal", "vertical"])
+@pytest.mark.parametrize("L", [1, 37, 100, 260])
+def test_dense_walk_kernel_cut_inside_a_run_matches_plain(cuda, kind, L):
+    """L below the walks' lengths: the kernel cuts the run it is in where
+    the walk reaches L pairs and reports count L, as the unit walk of the
+    plain version stops; some walk's cut falls inside a run."""
+    B, N1, D, W, P = 2, 600, 3, 576, 8
+    dirs, maxi, maxj = synthetic_walk_inputs(60, B, N1, D, W, P, kind, "nw")
+    maxi[:], maxj[:] = N1 - 1, W - 1 - np.arange(B * D).reshape(B, D)
+    dirs = torch.from_numpy(k1_marked(dirs, P)).to(cuda)
+    maxi, maxj = torch.from_numpy(maxi).to(cuda), torch.from_numpy(maxj).to(cuda)
+    pn, pp, count = _dense_equal_plain(dirs, maxi, maxj, None, "nw", L, P)
+    assert bool((count == L).all())
+    runs, steps, _ = pl._walk_plain(dirs, maxi, maxj, "nw", N1 - 1 + W, P)
+    ends = np.cumsum(runs[:steps].cpu().numpy() & 511, axis=0)  # pairs after each header
+    assert (~(ends == L).any(axis=0)).any()  # some walk's cut falls inside a run
+
+
+@pytest.mark.parametrize("B,D", [(0, 3), (1, 1), (1, 5), (2, 5)])
+def test_dense_walk_kernel_batch_sizes_match_plain(cuda, B, D):
+    """B*D of 0 (nothing launched), 1 (one warp of a block's 4) and 5, 10
+    (spare warps that leave)."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    for mode in ("nw", "sw", "ov"):
+        for node_ids in (False, True):
+            # walks 3.. of a larger draw: the first three start on the edges
+            dirs, maxi, maxj = synthetic_walk_inputs(B * 10 + D, max(B, 1), 150, D + 3, 64, 4,
+                                                     "moves", mode)
+            dirs, maxi, maxj = k1_marked(dirs, 4)[:B, :, 3:], maxi[:B, 3:], maxj[:B, 3:]
+            nid = t(np.arange(B * 149, dtype=np.int32).reshape(B, 149)) if node_ids else None
+            _dense_equal_plain(t(dirs), t(maxi), t(maxj), nid, mode, 149 + 64, 4)
+
+
+def test_dense_walk_kernel_first_cell_stops_and_edges(cuda):
+    """sw walks that stop at their first cell and ov walks that start on
+    row 0 or column 0 hold no pair: count 0 and both rows -2 whole."""
+    B, N1, D, W, P = 2, 40, 3, 64, 4
+    dirs = torch.zeros((B, N1, D, W), dtype=torch.int16, device=cuda)
+    start = torch.tensor([[5, 9, 39], [1, 2, 3]], dtype=torch.int32, device=cuda)
+    nid = torch.zeros((B, N1 - 1), dtype=torch.int32, device=cuda)
+    for L in (N1 - 1 + W, 61):
+        pn, pp, count = _dense_equal_plain(dirs, start, start + 7, nid, "sw", L, P)
+        assert int(count.sum()) == 0 and bool((pn == -2).all()) and bool((pp == -2).all())
+    zero = torch.zeros_like(start)
+    dirs.fill_((P + 2) << 9 | 2)  # diagonal, two rows up: no run marker
+    for mi, mj in ((zero, start), (start, zero)):
+        _, _, count = _dense_equal_plain(dirs, mi, mj, None, "ov", N1 - 1 + W, P)
+        assert int(count.sum()) == 0
+
+
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+def test_dense_walk_kernel_at_a_5a_shard_matches_plain(cuda, mode):
+    """A shard of chip_smoke.py's phase 5a: 28 window graphs, N=640, W=576,
+    D=38, P=4, ring 221, K1's codes; node ids as the sharded route asks."""
+    B, N, P, W, D = 28, 640, 4, 576, 38
+    arrs, _, _ = windows(22, B, N, P, W, D, depth=6, base_len=400)
+    codes, preds, sink, nn, seqp, slen = _tensors(arrs, cuda, B, N, D)
+    nid = torch.from_numpy(arrs[3]).to(cuda).reshape(B, N)
+    aux, deg = pl.pack_aux(preds, 221)
+    dirs, maxi, maxj, _ = pl.poa_dp(codes, aux, deg, sink, nn, seqp, slen, mode, 3, -5, -4, 221)
+    for node_id in (nid, None):
+        _, _, count = _dense_equal_plain(dirs, maxi, maxj, node_id, mode, N + W, P)
+    assert int(count.min()) > 0
+
+
+def test_dense_walk_kernel_raises_on_rows_off_16_bytes(cuda):
+    """Rows of a width no multiple of 8, or codes not on a 16-byte boundary:
+    the wrapper raises, and so does the launcher under it; no kernel runs."""
+    B, N1, D, W, P = 1, 20, 2, 64, 4
+    mx = torch.ones((B, D), dtype=torch.int32, device=cuda)
+    dirs = torch.zeros((B, N1, D, W), dtype=torch.int16, device=cuda)
+    buf = torch.zeros(B * N1 * D * W + 8, dtype=torch.int16, device=cuda)
+    off = buf[1 : 1 + dirs.numel()].view(B, N1, D, W)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    before = _build.LAUNCHES["poa_walk_dense"]
+    with pytest.raises(ValueError, match="16-byte"):
+        pl.traceback_walk_dense(dirs[..., :60].contiguous(), mx, mx, "nw", N1 + 59, P)
+    with pytest.raises(ValueError, match="16-byte"):
+        pl.traceback_walk_dense(off, mx, mx, "nw", N1 - 1 + W, P)
+    pn = torch.empty((B, D, N1 - 1 + W), dtype=torch.int16, device=cuda)
+    count = torch.empty((B, D), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        pl.launch_walk_dense(off, mx, mx, None, pn, pn.clone(), count, "nw", N1 - 1 + W, P)
+    assert _build.LAUNCHES["poa_walk_dense"] == before
 
 
 @pytest.mark.parametrize("n_shards", [2, 3])

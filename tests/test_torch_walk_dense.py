@@ -233,3 +233,92 @@ def test_dense_walk_defaults_to_the_card(monkeypatch):
     codes, preds, sink, nid, nn, seqp, slen = pack([gr], [[encode("ACGT")]])
     with pytest.raises(RuntimeError, match="CUDA"):
         tpl.poa_align(codes, preds, sink, nn, seqp, slen, "nw", *SCORES, emit_rle=False)
+
+
+# ------------------------------------------------------------------------
+# The premise of the dense walk kernel, on the CPU: K2's plain walk (a
+# marked run is one header) with its headers expanded, cut after L pairs and
+# laid into the dense rows, is the dense walk of K1's codes. Exact.
+
+
+def k1_walk_inputs(graphs, seq_lists, n, p, w, mode, ring):
+    """K1's direction codes (its plain version) for `graphs` with their
+    sequences at N=n, P=p, W=w: (dirs, maxi, maxj, node_id [B, n])."""
+    dense = [graph_to_dense(g, n, p) for g in graphs]
+    assert all(d is not None for d in dense)
+    codes, preds, sink, nid, nn, seqp, slen = pack_windows(list(zip(dense, seq_lists)), n, p, w)
+    B, D = len(graphs), seqp.shape[1]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(torch.int32)  # noqa: E731
+    R = n if ring <= 0 or ring > n else ring
+    aux, deg = tpl.pack_aux(t(preds), R)
+    dirs, maxi, maxj, _ = tpl.poa_dp(t(codes).reshape(B, n), aux, deg, t(sink).reshape(B, n),
+                                     t(nn).reshape(B), t(seqp), t(slen).reshape(B, D), mode,
+                                     *SCORES, R)
+    return dirs, maxi, maxj, t(nid).reshape(B, n)
+
+
+def dense_from_runs(dirs, maxi, maxj, mode, L, P, node_id=None):
+    """What the dense walk kernel computes: K2's plain walk, each walk's
+    headers expanded (`runs_to_pairs_np`, `ranks_to_node_ids_np`), its first
+    L pairs in walk order (a run cut where the walk reaches L), laid back to
+    front into [B, D, L] rows with -2 before them. Also returns K2's headers
+    and counts, uncut."""
+    B, N1, D, W = dirs.shape
+    runs, steps, count = tpl.traceback_walk_rle(dirs, maxi, maxj, mode, N1 - 1 + W, P)
+    runs = runs[:steps].numpy()
+    pn = np.full((B, D, L), -2, np.int16)
+    pp = np.full((B, D, L), -2, np.int16)
+    cnt = np.zeros((B, D), np.int32)
+    for b in range(B):
+        for d in range(D):
+            rn, rp = tpl.runs_to_pairs_np(runs[:, b * D + d])  # front to back
+            if node_id is not None:
+                rn = tpl.ranks_to_node_ids_np(rn, node_id[b].numpy())
+            c = min(len(rn), L)  # the walk's first c pairs are the alignment's last c
+            pn[b, d, L - c:] = rn[len(rn) - c:]
+            pp[b, d, L - c:] = rp[len(rp) - c:]
+            cnt[b, d] = c
+    return (pn, pp, cnt), runs, count.numpy()
+
+
+def premise_case(case, mode):
+    """(dirs, maxi, maxj, node_id, L, P) of K1 on: `ring5`, two deep graphs
+    at N=64 P=4 with ring 5; `p16`, the same packed with 16 in-edge slots
+    (other marker codes); `chain`, one 620-node chain graph at N=W=640 with
+    ring 511 and an exact copy of it (620 matches: runs clamped at 511, then
+    a run of 109) beside a noisy one; `cut`, the chain with L=300, inside the
+    copy's first run."""
+    if case in ("ring5", "p16"):
+        graphs, seq_lists = deep_case(20 + ["nw", "sw", "ov"].index(mode))
+        P = 16 if case == "p16" else 4
+        dirs, maxi, maxj, nid = k1_walk_inputs(graphs, seq_lists, N, P, W, mode,
+                                               5 if case == "ring5" else 0)
+        return dirs, maxi, maxj, nid, N + W, P
+    rng = np.random.default_rng(30)
+    base = rand_seq(rng, 620)
+    gr = build_graph([base])
+    dirs, maxi, maxj, nid = k1_walk_inputs([gr], [[encode(base), encode(mutate(rng, base))]],
+                                           640, 4, 640, mode, 511)
+    return dirs, maxi, maxj, nid, 300 if case == "cut" else 640 + 640, 4
+
+
+@pytest.mark.parametrize("node_ids", [False, True])
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+@pytest.mark.parametrize("case", ["ring5", "p16", "chain", "cut"])
+def test_dense_walk_is_the_rle_walk_expanded_and_cut(case, mode, node_ids):
+    """The dense walk kernel's design, modelled in numpy on K1's codes
+    against `_walk_dense_plain`, whole buffers, exact: one header a marked
+    run, its pairs arithmetic, node ids looked up a pair, the last run cut
+    where the walk reaches L (count == L), -2 before the pairs."""
+    dirs, maxi, maxj, nid, L, P = premise_case(case, mode)
+    node_id = nid if node_ids else None
+    (pn, pp, cnt), runs, rle_count = dense_from_runs(dirs, maxi, maxj, mode, L, P, node_id)
+    want = tpl._walk_dense_plain(dirs, maxi, maxj, mode, L, P, node_id)
+    for name, got, ref in zip(("pn", "pp", "count"), (pn, pp, cnt), want):
+        np.testing.assert_array_equal(got, ref.numpy(), err_msg=name)
+    r = runs & ((1 << tpl.RUN_R_BITS) - 1)
+    if case == "chain":
+        assert (r == 511).any() and rle_count[0, 0] == 620  # the copy: runs clamped at 511
+    if case == "cut":
+        # the copy's walk reaches L inside its first run of 511 pairs
+        assert r[0, 0] == 511 and cnt[0, 0] == L < rle_count[0, 0]

@@ -28,7 +28,9 @@
 // in shared memory; then the expansion of its headers to node-id pairs on the
 // card (poa_expand_kernel). See the notes above the kernels.
 // The dense walk (poa_walk_dense_kernel, the sharded route's walk) replaces
-// _traceback_walk: see the note above the kernel.
+// _traceback_walk: one warp a walk with K2's tile cursor, a marked run one
+// step, its pairs spread over the lanes as the expansion spreads them,
+// written with the -2 columns into [B, D, L] rows. See the note above it.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -407,10 +409,94 @@ __global__ void __launch_bounds__(32 * kK1MaxWarps) poa_dp_kernel(const K1Args a
 // chain of dependent steps, each a shared-memory load and the decode, plus
 // one device-memory latency a tile (about 9 tiles a walk on the main path's
 // windows). 4 warps take 32 KB of static shared memory, below the 48 KB that
-// needs no opt-in.
+// needs no opt-in. The dense walk steps with the same cursor (TileWalk).
 constexpr int kWalkWarps = 4;
 constexpr int kTileRows = 64;
 constexpr int kTileCols = 64;  // 8 16-byte pieces a row: a warp copies 4 rows at a time
+
+// A walk's cell (i, j) in dirs[b, :, d, :] ([B, N1, D, W], W % 8 == 0,
+// 16-byte aligned) and the warp's tile of those codes in shared memory. Every
+// lane of the warp holds the same cursor and calls step() together.
+struct TileWalk {
+  const short* base;  // this lane's piece of row 0: column piece lane % 8, row lane / 8
+  short* tile;        // the warp's kTileRows x kTileCols codes
+  short* mine;        // this lane's piece of the tile
+  size_t row_stride;
+  int W, P, marker_d;
+  int lane;
+  int i, j;
+  int r0, c0;  // the tile's first row and column: none staged yet
+
+  __device__ __forceinline__ TileWalk(const short* dirs, short* tile_, int lane_, int b, int d,
+                                      int N1, int D, int W_, int P_, int i_, int j_)
+      : tile(tile_), row_stride((size_t)D * W_), W(W_), P(P_), lane(lane_), i(i_), j(j_),
+        r0(i_ + 1), c0(0) {
+    const int pb = 32 - __clz(2 * P_ + 3);  // ceil(log2(2P + 4))
+    marker_d = (1 << pb) - 1;
+    base = dirs + (size_t)b * N1 * D * W_ + (size_t)d * W_ + (lane_ & 7) * 8 +
+           (size_t)(lane_ >> 3) * row_stride;
+    mine = tile_ + (lane_ >> 3) * kTileCols + (lane_ & 7) * 8;
+  }
+
+  // rows [i-63, i] by the 64 columns ending with j's 16-byte piece, clamped at 0
+  __device__ __forceinline__ void stage() {
+    r0 = max(i - kTileRows + 1, 0);
+    c0 = max(((j + 8) & ~7) - kTileCols, 0);
+    __syncwarp();  // every lane has read its last code of the previous tile
+    if ((lane & 7) * 8 < W - c0) {
+      const short* src = base + (size_t)r0 * row_stride + c0;
+      short* dst = mine;
+      for (int rr = lane >> 3; rr <= i - r0; rr += 4) {
+        __pipeline_memcpy_async(dst, src, 16);
+        src += 4 * row_stride;
+        dst += 4 * kTileCols;
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();  // every lane's pieces are in
+  }
+
+  // The move at (i, j): false at sw's stop code; else its run header (the
+  // first pair (pn0, pp0), -1 for an insertion or a deletion, and its rl
+  // pairs: a marked run is jumped whole) and (i, j) moves past it.
+  template <int MODE>
+  __device__ __forceinline__ bool step(int& pn0, int& pp0, int& rl) {
+    if (i < r0 || j < c0) stage();
+    const int code = tile[(i - r0) * kTileCols + (j - c0)];
+    const int pr = code >> kDeltaBits, dl = code & kDmask;
+    if (MODE == kSW && pr == 0) return false;
+    const bool mrkd = pr == marker_d, mrkv = pr == marker_d - 1;
+    const bool is_run = mrkd || mrkv;
+    const bool is_diag = (pr >= P + 2 && pr < marker_d - 1) || mrkd;
+    const bool is_vert = (pr >= 2 && pr <= P + 1) || mrkv;
+    const bool moves = is_diag || is_vert;
+    const int delta = is_run ? 1 : dl;
+    rl = is_run ? dl : 1;
+    int pi1 = moves ? i - delta : i;
+    if (delta == 0) pi1 = moves ? 0 : i;  // delta 0: the predecessor is row 0
+    const int pj1 = (is_diag || !is_vert) ? j - 1 : j;
+    pn0 = pi1 == i ? -1 : i - 1;
+    pp0 = pj1 == j ? -1 : j - 1;
+    i = is_run ? i - rl : pi1;
+    j = (is_run && is_diag) ? j - rl : pj1;
+    return true;
+  }
+
+  // whether the walk goes on from (i, j) (sw: until its stop code)
+  template <int MODE>
+  __device__ __forceinline__ bool goes_on() const {
+    if (MODE == kNW) return !(i == 0 && j == 0);
+    if (MODE == kOV) return !(i == 0 || j == 0);
+    return true;
+  }
+};
+
+// whether walk (maxi, maxj) takes a first step
+template <int MODE>
+__device__ __forceinline__ bool walk_starts(int i, int j) {
+  return MODE == kOV ? (i != 0 && j != 0) : !(i == 0 && j == 0);
+}
 
 template <int MODE>
 __global__ void __launch_bounds__(32 * kWalkWarps) poa_walk_kernel(
@@ -425,66 +511,46 @@ __global__ void __launch_bounds__(32 * kWalkWarps) poa_walk_kernel(
   const int lane = threadIdx.x & 31;
   const int w = blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
   if (w >= BD) return;  // no block barrier: a spare warp just leaves
-  short* tile = tiles[threadIdx.x >> 5];
-  const int b = w / D, d = w % D;
-  const int pb = 32 - __clz(2 * P + 3);  // ceil(log2(2P + 4))
-  const int MARKER_D = (1 << pb) - 1, MARKER_V = MARKER_D - 1;
-  const size_t row_stride = (size_t)D * W;
-  // this lane's piece of a tile: column piece lane % 8 of rows lane / 8, +4, ...
-  const short* base = dirs + (size_t)b * N1 * D * W + (size_t)d * W + (lane & 7) * 8 +
-                      (size_t)(lane >> 3) * row_stride;
-  short* mine = tile + (lane >> 3) * kTileCols + (lane & 7) * 8;
-  int i = maxi[w], j = maxj[w];
-  const bool started = !(i == 0 && j == 0);
-  bool active = MODE == kOV ? (started && i != 0 && j != 0) : started;
-  int r0 = i + 1, c0 = 0;  // the tile's first row and column: none staged yet
+  const int i0 = maxi[w], j0 = maxj[w];
+  TileWalk t(dirs, tiles[threadIdx.x >> 5], lane, w / D, w % D, N1, D, W, P, i0, j0);
+  bool active = walk_starts<MODE>(i0, j0);
   int cnt = 0, step = 0;
   while (active && step < L) {
-    if (i < r0 || j < c0) {
-      r0 = max(i - kTileRows + 1, 0);
-      c0 = max(((j + 8) & ~7) - kTileCols, 0);
-      __syncwarp();  // every lane has read its last code of the previous tile
-      if ((lane & 7) * 8 < W - c0) {
-        const short* src = base + (size_t)r0 * row_stride + c0;
-        short* dst = mine;
-        for (int rr = lane >> 3; rr <= i - r0; rr += 4) {
-          __pipeline_memcpy_async(dst, src, 16);
-          src += 4 * row_stride;
-          dst += 4 * kTileCols;
-        }
-      }
-      __pipeline_commit();
-      __pipeline_wait_prior(0);
-      __syncwarp();  // every lane's pieces are in
-    }
-    const int code = tile[(i - r0) * kTileCols + (j - c0)];
-    const int pr = code >> kDeltaBits, dl = code & kDmask;
-    if (MODE == kSW && pr == 0) break;
-    const bool mrkd = pr == MARKER_D, mrkv = pr == MARKER_V;
-    const bool is_run = mrkd || mrkv;
-    const bool is_diag = (pr >= P + 2 && pr < MARKER_V) || mrkd;
-    const bool is_vert = (pr >= 2 && pr <= P + 1) || mrkv;
-    const bool moves = is_diag || is_vert;
-    const int delta = is_run ? 1 : dl;
-    const int rl = is_run ? dl : 1;
-    int pi1 = moves ? i - delta : i;
-    if (delta == 0) pi1 = moves ? 0 : i;
-    const int pj1 = (is_diag || !is_vert) ? j - 1 : j;
-    const int pn0 = pi1 == i ? -1 : i - 1;
-    const int pp0 = pj1 == j ? -1 : j - 1;
+    int pn0, pp0, rl;
+    if (!t.step<MODE>(pn0, pp0, rl)) break;
     // every lane stores the same word: one store, no branch
     runs[(size_t)step * BD + w] = ((pn0 + 2) << kRunPnShift) | ((pp0 + 2) << kRunRBits) | rl;
-    i = is_run ? i - rl : pi1;
-    j = (is_run && is_diag) ? j - rl : pj1;
     cnt += rl;
     ++step;
-    if (MODE == kNW) active = !(i == 0 && j == 0);
-    else if (MODE == kOV) active = !(i == 0 || j == 0);
+    active = t.goes_on<MODE>();
   }
   if (lane == 0) {
-    count[w] = started ? cnt : 0;
+    count[w] = cnt;
     if (step) atomicMax(steps, step);
   }
+}
+
+// The warp's inclusive prefix sum of v
+__device__ __forceinline__ int warp_inclusive_sum(int v) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, o);
+    if ((threadIdx.x & 31) >= o) v += u;
+  }
+  return v;
+}
+
+// Pair p of a chunk of 32 runs whose inclusive scan of run lengths is es:
+// the run k that holds it (a 5-step search) and its place q in that run. The
+// run's pair q is (pn0 - q, pp0 - q), or (pn0, -1) from a deletion (pp0 =
+// -1); a run of one pair has q = 0.
+__device__ __forceinline__ int chunk_run(const int* es, int p, int& q) {
+  int k = 0;  // the first run that ends past pair p
+#pragma unroll
+  for (int half = 16; half > 0; half >>= 1)
+    if (es[k + half - 1] <= p) k += half;
+  q = p - (k ? es[k - 1] : 0);
+  return k;
 }
 
 // The expansion: walk w's headers to its count[w] pairs, front to back, at
@@ -494,10 +560,10 @@ __global__ void __launch_bounds__(32 * kWalkWarps) poa_walk_kernel(
 // ranks_to_node_ids_np). One warp a walk: 32 headers at a time (the next 32
 // loaded while these expand), a shuffle scan of their run lengths, then the
 // lanes take the pairs those headers hold in turn, each finding its header by
-// a 5-step search of the scan, so that a run of 511 pairs spreads over the
-// warp and consecutive lanes write consecutive words. The warp reads every
-// header row below S, so that headers holding more pairs than count[w] (a
-// chunk's runs past the count, or a run after it) are caught as well as
+// a 5-step search of the scan (chunk_run), so that a run of 511 pairs spreads
+// over the warp and consecutive lanes write consecutive words. The warp reads
+// every header row below S, so that headers holding more pairs than count[w]
+// (a chunk's runs past the count, or a run after it) are caught as well as
 // fewer: either sets *err, on which the wrapper raises, as the plain version
 // does. Bound by the latency of its few dependent loads a walk (headers, node
 // ids), not by its bytes.
@@ -527,21 +593,15 @@ __global__ void __launch_bounds__(32 * kExpandWarps) poa_expand_kernel(
   for (int s0 = 0; s0 < S; s0 += 32) {
     const int s = s0 + 32 + lane;
     const int h_next = s < S ? runs[(size_t)s * BD + w] : 0;
-    int e = h & ((1 << kRunRBits) - 1);
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(kFull, e, o);
-      if (lane >= o) e += u;
-    }
+    const int e = warp_inclusive_sum(h & ((1 << kRunRBits) - 1));
     hs[lane] = h;
     es[lane] = e;
     __syncwarp();
-    const int sum = __shfl_sync(kFull, e, 31);
-    if (sum > c - done) {  // more pairs than count: uniform over the warp
+    const int tot = __shfl_sync(kFull, e, 31);
+    if (tot > c - done) {  // more pairs than count: uniform over the warp
       bad = true;
       break;
     }
-    const int tot = sum;
     for (int p0 = 0; p0 < tot; p0 += 32 * kExpandUnroll) {
       unsigned word[kExpandUnroll] = {};
       int dst[kExpandUnroll];
@@ -550,17 +610,11 @@ __global__ void __launch_bounds__(32 * kExpandWarps) poa_expand_kernel(
         const int p = p0 + u * 32 + lane;
         dst[u] = -1;
         if (p >= tot) continue;
-        int k = 0;  // the first header whose run ends past pair p
-#pragma unroll
-        for (int half = 16; half > 0; half >>= 1)
-          if (es[k + half - 1] <= p) k += half;
-        const int hk = hs[k];
-        const int rk = hk & ((1 << kRunRBits) - 1);
-        const int q = p - (es[k] - rk);  // pair q of the header's run
-        const int pn0 = (hk >> kRunPnShift) - 2;
+        int q;
+        const int hk = hs[chunk_run(es, p, q)];
+        const int pn = (hk >> kRunPnShift) - 2 - q;
         const int pp0 = ((hk >> kRunRBits) & ((1 << kRunPpBits) - 1)) - 2;
-        const int pn = rk > 1 ? pn0 - q : pn0;
-        const int pp = rk > 1 && pp0 >= 0 ? pp0 - q : pp0;
+        const int pp = pp0 >= 0 ? pp0 - q : pp0;
         const int node = pn >= 0 ? nid[pn] : -1;
         word[u] = ((unsigned)node & 0xffffu) | ((unsigned)pp << 16);
         dst[u] = c - 1 - (done + p);  // walk order is back to front
@@ -576,75 +630,117 @@ __global__ void __launch_bounds__(32 * kExpandWarps) poa_expand_kernel(
   if ((bad || done != c) && lane == 0) atomicExch(err, 1);
 }
 
-// The dense walk: one (rank, position) pair a step, written back to front
-// into pn/pp [B*D, L] int16, so that walk w's pairs are its last count[w]
-// columns; every column before them holds -2. Replaces _traceback_walk of
-// poa_pallas.py (all walks stepping together, one gather a step). One thread
-// per walk, one warp per block: the walk is a chain of dependent int16 loads
-// (bound by load latency, not by bytes), so the blocks are small to spread
-// the chains over the SMs, and the warp then fills its 32 walks' unused
-// columns with coalesced stores. A run marker is read as the unit move it
-// stands for. With node_id != nullptr pn holds node ids, else DP ranks.
-constexpr int kDenseThreads = 32;
+// Columns [0, n) of an int16 row to -2, by the warp: 16 bytes a lane
+// between the row's first 16-byte boundary and its last, one column a lane
+// before and after (rows start wherever w * L * 2 bytes puts them).
+__device__ __forceinline__ void fill_neg2(short* row, int n, int lane) {
+  const int head = min(n, (int)((16 - (reinterpret_cast<size_t>(row) & 15)) & 15) >> 1);
+  if (lane < head) row[lane] = -2;
+  const int pieces = (n - head) >> 3;
+  int4* body = reinterpret_cast<int4*>(row + head);
+  const int v = (int)0xfffefffeu;
+  for (int c = lane; c < pieces; c += 32) body[c] = make_int4(v, v, v, v);
+  const int tail = head + (pieces << 3);  // fewer than 8 columns left
+  if (tail + lane < n) row[tail + lane] = -2;
+}
 
-__global__ void poa_walk_dense_kernel(
-    const short* __restrict__ dirs,  // [B, N1, D, W]
+// The dense walk: walk w's pairs written back to front into pn/pp [B*D, L]
+// int16, so that they are its last count[w] columns; every column before
+// them holds -2. With node_id != nullptr pn holds node ids, else DP ranks.
+// Replaces _traceback_walk of poa_pallas.py (all walks stepping together,
+// one gather and one pair a step). One warp a walk, kWalkWarps walks a block,
+// stepping with K2's cursor over staged tiles (TileWalk), so a marked run is
+// one step of the chain: K1 marks a cell whose move is the last of a chain of
+// rl diagonal (or vertical) delta-1 moves, and those moves' pairs are (i-1-k,
+// j-1-k) (or (i-1-k, -1)), the ones the unit walk would step through. Lane
+// k % 32 keeps header k; every 32 headers, and once at the end, the warp
+// expands them as the expansion does (a shuffle scan of their run lengths,
+// each lane taking pairs p, p+32, ... by chunk_run), so consecutive lanes
+// write consecutive columns and the node ids are loads of their own, off the
+// chain. The walk stops after L pairs, as the unit walk does, so its last
+// run is cut at the pairs left. Then the warp writes the -2 columns of its
+// two rows (fill_neg2). No block barrier: a spare warp leaves. 4 warps take
+// 33 KB of static shared memory: K2's tiles and the headers of a chunk. What
+// bounds it is K2's chain of steps plus a chunk's expansion every 32 of them:
+// the kernel alone takes about what K2 and the expansion take together.
+template <int MODE>
+__global__ void __launch_bounds__(32 * kWalkWarps) poa_walk_dense_kernel(
+    const short* __restrict__ dirs,  // [B, N1, D, W], W % 8 == 0, 16-byte aligned
     const int* __restrict__ maxi, const int* __restrict__ maxj,  // [B, D]
     const int* __restrict__ node_id,  // [B, N1 - 1] or nullptr
     short* __restrict__ pn, short* __restrict__ pp,  // [B*D, L]
     int* __restrict__ count,                         // [B, D]
-    int B, int N1, int D, int W, int L, int P, int mode) {
-  __shared__ int used[kDenseThreads];
+    int B, int N1, int D, int W, int L, int P) {
+  __shared__ __align__(16) short tiles[kWalkWarps][kTileRows * kTileCols];
+  __shared__ int hdr[kWalkWarps][32], ends[kWalkWarps][32];
   const int BD = B * D;
-  const int w = blockIdx.x * kDenseThreads + threadIdx.x;
-  int step = 0;
-  if (w < BD) {
-    const int b = w / D, d = w % D;
-    const int pb = 32 - __clz(2 * P + 3);  // ceil(log2(2P + 4))
-    const int MARKER_D = (1 << pb) - 1, MARKER_V = MARKER_D - 1;
-    const short* base = dirs + (size_t)b * N1 * D * W + (size_t)d * W;
-    const int* nid = node_id ? node_id + (size_t)b * (N1 - 1) : nullptr;
-    const size_t row_stride = (size_t)D * W;
-    short* pn_w = pn + (size_t)w * L;
-    short* pp_w = pp + (size_t)w * L;
-    int i = maxi[w], j = maxj[w];
-    const bool started = !(i == 0 && j == 0);
-    bool active = mode == kOV ? (started && i != 0 && j != 0) : started;
-    while (active && step < L) {
-      const int code = base[(size_t)i * row_stride + j];
-      const int pr = code >> kDeltaBits, dl = code & kDmask;
-      if (mode == kSW && pr == 0) break;
-      const bool mrkd = pr == MARKER_D, mrkv = pr == MARKER_V;
-      const bool is_diag = (pr >= P + 2 && pr < MARKER_V) || mrkd;
-      const bool is_vert = (pr >= 2 && pr <= P + 1) || mrkv;
-      const bool moves = is_diag || is_vert;
-      const int delta = (mrkd || mrkv) ? 1 : dl;
-      int pi = moves ? i - delta : i;
-      if (delta == 0) pi = moves ? 0 : i;  // delta 0: the predecessor is row 0
-      const int pj = (is_diag || !is_vert) ? j - 1 : j;
-      const int rank = i - 1;
-      pn_w[L - 1 - step] = pi == i ? -1 : (short)(nid && rank >= 0 ? nid[rank] : rank);
-      pp_w[L - 1 - step] = pj == j ? -1 : (short)(j - 1);
-      i = pi;
-      j = pj;
-      ++step;
-      if (mode == kNW) active = !(i == 0 && j == 0);
-      else if (mode == kOV) active = !(i == 0 || j == 0);
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const int w = blockIdx.x * kWalkWarps + wi;
+  if (w >= BD) return;  // no block barrier: a spare warp just leaves
+  const int b = w / D;
+  const int* nid = node_id ? node_id + (size_t)b * (N1 - 1) : nullptr;
+  short* pn_w = pn + (size_t)w * L;
+  short* pp_w = pp + (size_t)w * L;
+  int* hs = hdr[wi];
+  int* es = ends[wi];
+  const int i0 = maxi[w], j0 = maxj[w];
+  TileWalk t(dirs, tiles[wi], lane, b, w % D, N1, D, W, P, i0, j0);
+  bool active = walk_starts<MODE>(i0, j0);
+  int total = 0, done = 0;  // pairs walked; pairs written (those of earlier chunks)
+  int k = 0;                // headers held
+  int hpn = 0, hpp = 0, hrl = 0;  // lane k's header
+  // headers whose pairs the chunks write: columns [L - total, L - done)
+  auto write_chunk = [&]() {
+    const int e = warp_inclusive_sum(hrl);
+    hs[lane] = (hpn & 0xffff) | (hpp << 16);
+    es[lane] = e;
+    __syncwarp();
+    const int tot = total - done;
+    for (int p0 = 0; p0 < tot; p0 += 32 * kExpandUnroll) {
+      int vn[kExpandUnroll], vp[kExpandUnroll], col[kExpandUnroll];
+#pragma unroll
+      for (int u = 0; u < kExpandUnroll; ++u) {
+        const int p = p0 + u * 32 + lane;
+        col[u] = -1;
+        if (p >= tot) continue;
+        int q;
+        const int h = hs[chunk_run(es, p, q)];
+        const int pn0 = (short)(h & 0xffff), pp0 = h >> 16;
+        const int rank = pn0 - q;
+        vn[u] = rank >= 0 && nid ? nid[rank] : rank;
+        vp[u] = pp0 >= 0 ? pp0 - q : pp0;
+        col[u] = L - 1 - (done + p);  // walk order is back to front
+      }
+#pragma unroll
+      for (int u = 0; u < kExpandUnroll; ++u)
+        if (col[u] >= 0) {
+          pn_w[col[u]] = (short)vn[u];
+          pp_w[col[u]] = (short)vp[u];
+        }
     }
-    count[w] = started ? step : 0;
-  }
-  used[threadIdx.x] = step;
-  __syncthreads();
-  const int w0 = blockIdx.x * kDenseThreads;
-  for (int k = 0; k < kDenseThreads && w0 + k < BD; ++k) {
-    const int fill = L - used[k];
-    short* pn_k = pn + (size_t)(w0 + k) * L;
-    short* pp_k = pp + (size_t)(w0 + k) * L;
-    for (int c = threadIdx.x; c < fill; c += kDenseThreads) {
-      pn_k[c] = -2;
-      pp_k[c] = -2;
+    __syncwarp();  // every lane has read hs, es before the next chunk's stores
+    done = total;
+    k = 0;
+    hrl = 0;
+  };
+  // a header holds at least one pair, so L steps reach L pairs
+  for (int s = 0; active && total < L && s < L; ++s) {
+    int pn0, pp0, rl;
+    if (!t.step<MODE>(pn0, pp0, rl)) break;
+    rl = min(rl, L - total);  // the unit walk stops after L pairs, maybe inside a run
+    if (lane == k) {
+      hpn = pn0;
+      hpp = pp0;
+      hrl = rl;
     }
+    total += rl;
+    active = t.goes_on<MODE>();
+    if (++k == 32) write_chunk();
   }
+  if (k) write_chunk();
+  fill_neg2(pn_w, L - total, lane);
+  fill_neg2(pp_w, L - total, lane);
+  if (lane == 0) count[w] = total;
 }
 
 template <int LPT, int PMAX, bool SMEM, bool EXACT, bool SW>
@@ -731,9 +827,13 @@ int poa_expand_launch(const int* runs, const int* count, const long long* offset
 int poa_walk_dense_launch(const short* dirs, const int* maxi, const int* maxj,
                           const int* node_id, short* pn, short* pp, int* count, int B,
                           int N1, int D, int W, int L, int P, int mode, void* stream) {
-  const int blocks = (B * D + kDenseThreads - 1) / kDenseThreads;
-  poa_walk_dense_kernel<<<blocks, kDenseThreads, 0, (cudaStream_t)stream>>>(
-      dirs, maxi, maxj, node_id, pn, pp, count, B, N1, D, W, L, P, mode);
+  // the tiles are copied in 16-byte pieces: every row must start on one
+  if (W % 8 != 0 || reinterpret_cast<size_t>(dirs) % 16 != 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (B * D + kWalkWarps - 1) / kWalkWarps;
+  auto kern = mode == kSW ? poa_walk_dense_kernel<kSW>
+                          : (mode == kOV ? poa_walk_dense_kernel<kOV> : poa_walk_dense_kernel<kNW>);
+  kern<<<blocks, 32 * kWalkWarps, 0, (cudaStream_t)stream>>>(dirs, maxi, maxj, node_id, pn, pp,
+                                                              count, B, N1, D, W, L, P);
   return (int)cudaGetLastError();
 }
 

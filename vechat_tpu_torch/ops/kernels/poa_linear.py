@@ -46,11 +46,14 @@ One warp a walk: a shuffle scan of 32 headers' run lengths, then the lanes
 take the pairs in turn, so a long run spreads over the warp.
 
 The dense walk (`traceback_walk_dense`), which the sharded route of
-`parallel/mesh.py` uses. One thread per walk again, one pair a step written
-back to front into int16 [B, D, L] buffers; a run marker is read as the
-unit move it stands for. Bound by the same dependent-load latency; blocks
-of one warp spread the walks over the SMs, and the warp fills its walks'
-unused columns with -2 in coalesced stores.
+`parallel/mesh.py` uses: the pairs back to front in int16 [B, D, L] rows,
+-2 before them. One warp a walk, stepping with K2's tile cursor, so a
+marked run is one step of the chain (its pairs are arithmetic, the ones
+the unit walk of the plain version steps through). The warp keeps 32 run
+headers in its lanes and expands them as the expansion does, the lanes
+looking up node ids off the chain; it cuts the last run where the walk
+reaches L pairs, and writes its rows' -2 columns itself. It needs K2's
+16-byte rows (W % 8 == 0).
 """
 
 from __future__ import annotations
@@ -658,7 +661,7 @@ def traceback_walk_dense(dirs, maxi, maxj, align_type, L, P, node_id=None):
     the alignment front to back; every column before it holds -2. pn holds
     DP ranks (row - 1), or node ids when `node_id` is given; -1 marks an
     insertion (pn) or a deletion (pp). CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel or raise (and need W % 8 == 0)."""
     B, N1, D, W = dirs.shape
     if N1 > 32767 or W > 32767:
         raise ValueError(f"shape N1={N1}, W={W} exceeds the int16 pair fields")
@@ -678,23 +681,33 @@ def traceback_walk_dense(dirs, maxi, maxj, align_type, L, P, node_id=None):
         return _walk_dense_plain(dirs, maxi, maxj, align_type, L, P, node_id)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if W % 8 or dirs.data_ptr() % 16:
+        raise ValueError("dirs rows must start on 16-byte boundaries (W % 8 == 0)")
     pn = torch.empty((B, D, L), dtype=torch.int16, device=dev)
     pp = torch.empty_like(pn)
     count = torch.empty((B, D), dtype=torch.int32, device=dev)
     if B * D == 0:
         return pn, pp, count
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    launch_walk_dense(dirs, maxi, maxj, node_id, pn, pp, count, align_type, L, P)
+    return pn, pp, count
+
+
+def launch_walk_dense(dirs, maxi, maxj, node_id, pn, pp, count, align_type, L, P):
+    """The dense walk's kernel alone, on the buffers `traceback_walk_dense`
+    makes (all on the card); `chip_smoke.py` times it apart from that glue.
+    The kernel writes every column of pn and pp and every count, so a
+    second launch on the same buffers gives the same outputs."""
+    B, N1, D, W = dirs.shape
+    stream = torch.cuda.current_stream(dirs.device).cuda_stream
+    with torch.cuda.device(dirs.device):
         rc = _lib().poa_walk_dense_launch(
             dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(),
             0 if node_id is None else node_id.data_ptr(),
             pn.data_ptr(), pp.data_ptr(), count.data_ptr(),
-            B, N1, D, W, L, P, MODES[align_type],
-            stream,
+            B, N1, D, W, L, P, MODES[align_type], stream,
         )
     _build.check(_lib(), rc, "poa_walk_dense")
     _build.LAUNCHES["poa_walk_dense"] += 1
-    return pn, pp, count
 
 
 # ------------------------------------------------------- public entry point
