@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Probes of K1, the linear POA DP kernel of vechat_tpu_torch, of K2, its
-run-length walk, of the dense walk and of K3, the banded NW kernel, on one
-NVIDIA GPU (the timing) or on the output of `cuobjdump -sass` (K1's count).
+run-length walk, of the dense walk, of K3, the banded NW kernel, and of K5,
+the affine POA DP kernel, on one NVIDIA GPU (the timing) or on the output
+of `cuobjdump -sass` (K1's count).
 
     python3 k1_probe.py time DIR [DIR ...]   # DIR: the root of a checkout
     python3 k1_probe.py time-k3 [--inputs NPZ] DIR [DIR ...]
     python3 k1_probe.py time-k2 DIR [DIR ...]
     python3 k1_probe.py time-dense DIR [DIR ...]
+    python3 k1_probe.py time-k5 DIR [DIR ...]
     python3 k1_probe.py sass FILE            # cuobjdump -sass output or a .so
 
 `time` runs K1 of each DIR's package in a process of its own, in the order
@@ -65,6 +67,20 @@ with chip_smoke.py's bound; then both goldens through the backend sharded
 over two streams of the card, as phase 5a runs them, under the profiler:
 `poa_walk_dense_kernel`'s and `poa_dp_kernel`'s seconds on the card, the
 device's busy seconds and the wall, and whether the output is the golden.
+
+`time-k5` runs K5 of each DIR's package in a process of its own, in the
+order given, nw with the affine scores of chip_smoke.py's spoa path: at
+the last launch of each of its (N, P) buckets ((640, 4), (1152, 4),
+(1152, 8); one block, B=1 D=1 W=576, the graph grown read by read through
+that DIR's engine on the card, as `gap_path_phase` grows it), and at K1's
+batched shape (phase 1's 16 window graphs, D=32, the backend's ring). Each
+line is one (DIR, shape, lanes a thread): the kernel alone through its C
+launcher on buffers made once (`kernel_ms`, chip_smoke.py's `kernel_ms`:
+24 launches in a CUDA graph), the real rows and microseconds a row, the
+rings' memory and chip_smoke.py's bound; the line of the lanes the wrapper
+picks (`default`) also has the wrapper's time (`ms`, the CUDA-event median
+of 20 calls). A package whose K5 launcher takes the lanes a thread is
+timed at every one its kernel is built for that divides W/32.
 """
 
 import json
@@ -277,6 +293,77 @@ def _time_dense(pkg_dir):
                 byte_identical=cs._same_bytes(out_path, expected))), flush=True)
 
 
+def _time_k5(pkg_dir):
+    """Time K5 of the package under pkg_dir; prints one JSON line a case."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, pkg_dir)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vechat_tpu_torch.ops.kernels import poa_affine as pa
+    from vechat_tpu_torch.ops.kernels import poa_gap
+    from vechat_tpu_torch.ops.kernels.poa_linear import MODES, SMEM_RING_MAX, max_pred_distance
+
+    assert pa.__file__.startswith(os.path.abspath(pkg_dir)), pa.__file__
+    dev = torch.device("cuda")
+    scores = cs.AFFINE_SCORES
+    reads = cs.spoa_reads(np.random.default_rng(cs.SEED + 1))
+    cases = [(f"spoa {shape}", arrays, ring) for shape, (arrays, ring)
+             in sorted(cs.spoa_launch_inputs(dev, reads, scores).items())]
+    inputs = cs.window_inputs(np.random.default_rng(cs.SEED), B=16, N=640, P=8, W=576, D=32)
+    preds, nn = inputs[1], inputs[4]
+    dist = max(max_pred_distance(preds[b].T, nn[b, 0, 0]) for b in range(preds.shape[0]))
+    cases.append(("K1's batched shape", inputs, dist))
+    smem_max = getattr(pa, "K5_SMEM_RING_MAX", SMEM_RING_MAX)
+    for label, arrays, R in cases:
+        codes, preds, sink, nid, nn, seqp, slen = arrays
+        B, P, N = preds.shape
+        D, W = seqp.shape[1], seqp.shape[2]
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        nn_t = t(nn).reshape(B)
+        real_rows = torch.arange(N + 1, device=dev)[None, :] <= nn_t[:, None]
+        aux, deg = pa.pack_aux_gap(t(preds), R)
+        args = (t(codes).reshape(B, N), aux, deg, t(sink).reshape(B, N), nn_t, t(seqp),
+                t(slen).reshape(B, D), "nw", *scores, R)
+        ref = pa.poa_dp_affine(*args)
+        ms = cs.time_ms(lambda: pa.poa_dp_affine(*args), warmup=2, reps=20)
+        if hasattr(pa, "launch_dp_affine"):
+            out = poa_gap.dp_buffers(B, N, D, W, R, 2, dev, smem_max)
+            lpts = [n for n in pa.K5_LPTS if (W // 32) % n == 0]
+            default = pa.k5_lanes_per_thread(W)
+        else:  # a thread a lane, its launcher without the lanes argument
+            out = poa_gap.dp_buffers(B, N, D, W, R, 2, dev)
+            lpts, default = [None], None
+        nbytes, ops = cs.gap_dp_work(nn_t, deg, real_rows, P, D, W, seqp, slen,
+                                     cs.K5_OPS_CELL, cs.K5_OPS_EDGE)
+        b_ms, b_by = cs.bound_ms(nbytes, ops)
+        n_rows = int(nn_t.sum())
+        for lpt in lpts:
+            if lpt is None:
+                dirs, maxi, maxj, score, rings = out
+                launch = lambda r: pa._lib().poa_dp_affine_launch(  # noqa: E731
+                    *(a.data_ptr() for a in args[:7]), dirs.data_ptr(), maxi.data_ptr(),
+                    maxj.data_ptr(), score.data_ptr(), 0 if rings is None else rings.data_ptr(),
+                    B, N, P, D, W, R, MODES["nw"], *scores, int(rings is None),
+                    pa.sh_bits_aff(P), pa.shf_bits(P), torch.cuda.current_stream().cuda_stream)
+            else:
+                launch = lambda r: pa.launch_dp_affine(*args, out, lpt)  # noqa: E731
+            kms = cs.kernel_ms(launch)
+            assert torch.equal(out[0][real_rows], ref[0][real_rows])
+            assert all(torch.equal(a, b) for a, b in zip(out[1:4], ref[1:]))
+            print(json.dumps(dict(
+                pkg=pkg_dir, shape=f"{label}: B={B} N={N} D={D} W={W} P={P} ring={R} nw",
+                lanes_per_thread=lpt, default=lpt == default,
+                ms=ms if lpt == default else None, kernel_ms=kms, rows=n_rows,
+                us_per_row=kms * 1e3 / n_rows,
+                ring_memory="shared" if 2 * (R + 1) * W * 2 <= smem_max else "global",
+                bound_ms=b_ms, bound_by=b_by)), flush=True)
+
+
 def _rows_only_lib(_build):
     """DIR's pairwise_nw.cu built with its K3 kernel stopping after the DP
     rows, loaded with ctypes."""
@@ -463,6 +550,20 @@ def main(argv):
         return 0
     if len(argv) == 2 and argv[0] == "_time_dense":
         _time_dense(argv[1])
+        return 0
+    if len(argv) >= 2 and argv[0] == "time-k5":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        for d in argv[1:]:
+            rc = subprocess.run([sys.executable, __file__, "_time_k5", os.path.abspath(d)]).returncode
+            if rc:
+                return rc
+        return 0
+    if len(argv) == 2 and argv[0] == "_time_k5":
+        _time_k5(argv[1])
         return 0
     if len(argv) == 2 and argv[0] == "sass":
         path = argv[1]

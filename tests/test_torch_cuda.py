@@ -700,6 +700,178 @@ def test_gap_dp_and_walk_match_plain(cuda, kind, mode, ring):
         assert torch.equal(a, b)
 
 
+def k5_inputs(seed, B, N, P, W, D, max_dist, slens=None, chain=False, far=0):
+    """K5's inputs (JAX layout, numpy, from `seed`): random rank-ordered
+    DAGs with up to P in-edges a node from the `max_dist` rows above it, or
+    a chain of delta-1 edges (`chain`); with `far`, n_nodes N - 1 and one
+    in-edge of that distance; D random sequences of lengths `slens`."""
+    codes, preds, sink, nn, seqp, slen = dag_windows(seed, B, N, P, W, D, max_dist)
+    if chain:
+        preds[:] = np.arange(N, dtype=np.int32)[None, None, :]
+    if far:
+        nn[:] = N - 1
+        preds[:, 1 % P, far] = 1  # DP row far + 1 from row 1
+    if slens is not None:
+        rng = np.random.default_rng(seed + 1)
+        slen = np.resize(np.array(slens, np.int32), B * D).reshape(B, D)
+        seqp[:] = 0xFF
+        for b in range(B):
+            for d in range(D):
+                seqp[b, d, 1 : 1 + slen[b, d]] = rng.integers(0, 4, slen[b, d])
+    return codes, preds, sink, nn, seqp, slen
+
+
+def k5_insertion(W, N=64):
+    """A chain of N codes and a query of its first half, W - 1 - N random
+    bases and its second half: the nw alignment's E chain crosses every
+    warp of the row."""
+    rng = np.random.default_rng(5)
+    g = rng.integers(0, 4, N).astype(np.int32)
+    preds = np.arange(N, dtype=np.int32)[None, None, :].repeat(4, axis=1)
+    sink = np.zeros((1, N), np.int32)
+    sink[0, -1] = 1
+    seqp = np.full((1, 1, W), 0xFF, np.int32)
+    seqp[0, 0, 1:] = np.concatenate([g[: N // 2], rng.integers(0, 4, W - 1 - N), g[N // 2 :]])
+    return g[None], preds, sink, np.array([N], np.int32), seqp, np.array([[W - 1]], np.int32)
+
+
+def k5_mismatch(W, N=96):
+    """A graph of A's against queries of C's: every sw cell clamps to 0."""
+    preds = np.arange(N, dtype=np.int32)[None, None, :].repeat(4, axis=1)
+    seqp = np.full((1, 2, W), 0xFF, np.int32)
+    seqp[0, :, 1:] = 1
+    return (np.zeros((1, N), np.int32), preds, np.ones((1, N), np.int32),
+            np.array([N - 3], np.int32), seqp, np.array([[W - 1, W // 2]], np.int32))
+
+
+AFFINE = (3, -5, -8, -6)
+K5_SLENS = [31, 32, 33, 191, 192, 193, 383, 384, 385, 575]
+
+
+def k5_case(name):
+    """(arrays, mode, ring, lanes a thread or None for the default,
+    scores) of a K5 case."""
+    kind, _, rest = name.partition(":")
+    if kind == "width":  # W/LPT/mode
+        W, lpt, mode = rest.split("/")
+        W, lpt = int(W), int(lpt)
+        return k5_inputs(W + lpt, 1, 96, 4, W, 3, max_dist=12), mode, 12, lpt, AFFINE
+    if kind == "ring":  # R/mode
+        R, mode = rest.split("/")
+        R = int(R)
+        if R == 511:
+            arrays = k5_inputs(R, 1, 640, 8, 192, 2, max_dist=8, far=511)
+        else:
+            arrays = k5_inputs(R, 1, 256, 8, 192, 2, max_dist=R, chain=R == 1)
+        return arrays, mode, R, None, AFFINE
+    if kind == "slens":
+        arrays = k5_inputs(17, 1, 160, 4, 576, len(K5_SLENS), max_dist=6, slens=K5_SLENS)
+        return arrays, rest, 6, None, AFFINE
+    if kind == "slens1":  # a thread a lane: a warp boundary every 32 lanes
+        arrays = k5_inputs(18, 1, 160, 4, 576, len(K5_SLENS), max_dist=6, slens=K5_SLENS)
+        return arrays, rest, 6, 1, AFFINE
+    if kind == "insertion":  # W/LPT
+        W, lpt = (int(v) for v in rest.split("/"))
+        return k5_insertion(W), "nw", 1, lpt, AFFINE
+    if kind == "sw_zero":
+        return k5_mismatch(int(rest)), "sw", 1, None, AFFINE
+    if kind == "floor":  # lanes below the rings' int16 floor
+        return k5_inputs(41, 1, 256, 4, 576, 2, max_dist=3), rest, 3, None, (3, -5, -40, -30)
+    if kind == "p16":  # in-degrees past the slots fetched ahead
+        return k5_inputs(77, 2, 256, 16, 128, 2, max_dist=30), rest, 30, None, AFFINE
+    if kind == "rows":  # graph rows at the edges of the 32-row batches
+        arrays = k5_inputs(int(rest), 1, 96, 8, 192, 2, max_dist=20)
+        arrays[3][:] = int(rest)
+        return arrays, "nw", 20, 3, AFFINE
+    raise KeyError(name)
+
+
+K5_WIDTHS = [(128, 4), (128, 1), (320, 5), (320, 2), (576, 6), (576, 3), (576, 2), (768, 6),
+             (768, 4), (768, 3), (96, 3), (224, 1), (1024, 4), (32, 1)]
+K5_CASES = (
+    [f"width:{W}/{lpt}/{mode}" for W, lpt in K5_WIDTHS for mode in ("nw", "sw", "ov")]
+    + [f"ring:{R}/{mode}" for R in (1, 5, 64, 511) for mode in ("nw", "sw")]
+    + [f"slens:{mode}" for mode in ("nw", "sw", "ov")] + ["slens1:nw", "slens1:ov"]
+    + [f"insertion:{W}/{lpt}" for W, lpt in ((576, 6), (576, 3), (768, 6), (320, 5))]
+    + ["sw_zero:576", "sw_zero:128", "floor:nw", "floor:ov", "p16:nw", "p16:sw"]
+    + [f"rows:{n}" for n in (31, 32, 33, 64, 65)]
+)
+
+
+def _k5_equals_plain(device, arrays, mode, R, lpt=None, scores=AFFINE):
+    """K5 against `_dp_affine_plain`: the real rows, every lane, and the
+    three best-cell outputs, torch.equal. Through the wrapper (one launch,
+    counted), or with `lpt` through the launcher at those lanes a thread."""
+    codes, preds, sink, nn, seqp, slen = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                                          for a in arrays)
+    B, P, N = preds.shape
+    D = seqp.shape[1]
+    aux, deg = pa.pack_aux_gap(preds, R)
+    args = (codes.reshape(B, N), aux, deg, sink.reshape(B, N), nn.reshape(B), seqp,
+            slen.reshape(B, D), mode, *scores, R)
+    if lpt is None:
+        before = _build.LAUNCHES["poa_dp_affine"]
+        k = pa.poa_dp_affine(*args)
+        assert _build.LAUNCHES["poa_dp_affine"] == before + (B * D > 0)
+    else:
+        W = seqp.shape[2]
+        k = pa.poa_gap.dp_buffers(B, N, D, W, R, 2, device, pa.K5_SMEM_RING_MAX)
+        _build.check(pa._lib(), pa.launch_dp_affine(*args, k, lpt), "poa_dp_affine")
+        k = k[:4]
+    p = pa._dp_affine_plain(*args)
+    real = torch.arange(N + 1, device=device)[None, :] <= nn.reshape(B)[:, None]
+    assert torch.equal(k[0][real], p[0][real])
+    for name, a, b in zip(("maxi", "maxj", "score"), k[1:], p[1:]):
+        assert torch.equal(a, b), name
+    return k
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+def test_affine_dp_kernel_cases_match_plain(cuda, case):
+    """K5 at the widths and lanes a thread it is built for (the buckets'
+    defaults and the others measured, odd ones, a thread a lane, one warp),
+    nw/sw/ov; rings 1 (every in-edge delta 1), 5, 64 and 511 (one in-edge
+    of distance 511); lengths on both sides of every warp boundary; an E
+    chain across every warp; sw rows clamped to 0; lanes at the int16
+    floor; in-degrees past the slots fetched ahead; row counts at the
+    edges of the 32-row batches of graph words."""
+    arrays, mode, R, lpt, scores = k5_case(case)
+    _k5_equals_plain(cuda, arrays, mode, R, lpt, scores)
+
+
+@pytest.mark.parametrize("B,D", [(0, 3), (1, 1), (1, 7), (5, 4)])
+def test_affine_dp_kernel_batch_sizes_match_plain(cuda, B, D):
+    arrays = k5_inputs(B * 10 + D, max(B, 1), 192, 8, 320, D, max_dist=20)
+    if B == 0:
+        arrays = tuple(a[:0] for a in arrays)
+    _k5_equals_plain(cuda, arrays, "nw", 20)
+
+
+@pytest.mark.parametrize("W,R", [(576, 99), (576, 100), (768, 74), (768, 75), (128, 511)])
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+def test_affine_dp_kernel_rings_on_both_sides_of_shared_memory(cuda, W, R, mode):
+    """The rings in shared memory up to K5's own limit and in the global
+    scratch ring past it (W=576: 99 rows | 100; W=768: 74 | 75)."""
+    smem = 2 * (R + 1) * W * 2 <= pa.K5_SMEM_RING_MAX
+    assert smem == ((W, R) in ((576, 99), (768, 74)))
+    arrays = k5_inputs(W + R, 1, 320, 8, W, 2, max_dist=min(R, 40), far=R if R < 319 else 0)
+    _k5_equals_plain(cuda, arrays, mode, R)
+
+
+def test_affine_dp_kernel_raises_on_widths_and_lanes_it_cannot_take(cuda):
+    arrays = k5_inputs(3, 1, 64, 4, 576, 1, max_dist=4)
+    codes, preds, sink, nn, seqp, slen = (torch.from_numpy(a).to(cuda) for a in arrays)
+    aux, deg = pa.pack_aux_gap(preds, 4)
+    args = (codes, aux, deg, sink, nn, seqp, slen, "nw", *AFFINE, 4)
+    out = pa.poa_gap.dp_buffers(1, 64, 1, 576, 4, 2, cuda, pa.K5_SMEM_RING_MAX)
+    for lpt in (4, 7, -1):  # 4 does not divide 576/32; 7 and -1 are not built
+        with pytest.raises(RuntimeError, match="cudaError"):
+            _build.check(pa._lib(), pa.launch_dp_affine(*args, out, lpt), "poa_dp_affine")
+    bad = seqp[:, :, :100].contiguous()  # W off 32
+    with pytest.raises(ValueError):
+        pa.poa_dp_affine(codes, aux, deg, sink, nn, bad, slen, "nw", *AFFINE, 4)
+
+
 @pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
 @pytest.mark.parametrize(
     "scores", [(3, -5, -4, -4, -4, -4), (3, -5, -8, -6, -8, -6), (5, -4, -8, -6, -10, -4)]

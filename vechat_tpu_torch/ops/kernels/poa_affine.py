@@ -17,13 +17,20 @@ says E was formed by extension. Both ranks come from packed maxes
 (``value << SH | prio << 9 | delta``), so one max picks the move and the
 predecessor row.
 
-K5 (`poa_dp_affine`). One thread block per (graph b, sequence d), one thread
-per lane j, a loop over DP rows; the E recurrence is a block-wide prefix max
-of ``A0[j] - j*e`` read one lane to the left. On this card the kernel is
-bound by the serial row chain (in-edge loads from two int16 rings, the scan,
-four barriers per row). The rings sit in shared memory when
-``2*(R+1)*W*2`` bytes fit, else in a global scratch ring. The direction rows
-are int32, 4 bytes a cell.
+K5 (`poa_dp_affine`). One thread block per (graph b, sequence d) of W / LPT
+threads, each owning LPT contiguous lanes in registers
+(`k5_lanes_per_thread` picks LPT per W), a loop over DP rows. The E
+recurrence is a prefix max of ``A0[j] - j*e`` read one lane to the left:
+serial over a thread's lanes, a shuffle scan across the warp, one carry a
+warp from the totals the warps publish before the row's single block
+barrier. An in-edge from the row just
+above takes H and F from registers; a warp's first lane rebuilds the left
+warp's last H from published values instead of reading a ring slot that
+would race. The two int16 rings serve the other in-edges and sit in shared
+memory while ``2*(R+1)*W*2`` bytes fit K5's own limit (`K5_SMEM_RING_MAX`,
+Hopper's 227 KB less the row exchange), else in a global scratch ring. The
+kernel is bound by the latency of the row chain: the spoa path launches one
+block. The direction rows are int32, 4 bytes a cell.
 
 K5w (`traceback_walk_affine`). One thread per walk, one int32 load per step.
 An nw walk ends at cell (0, 0) in any state (`poa_gap._walk3_plain` says why).
@@ -43,6 +50,7 @@ from .poa_linear import (
     MODES,
     NEG16,
     NEGV,
+    SMEM_MAX,
     TIE,
     best_cell,
     best_init,
@@ -53,6 +61,22 @@ from .poa_linear import (
 )
 
 EB_BIT = CHAIN_BIT  # E-extension flag bit in the FE halfword
+
+# K5's launch: the lanes a thread its kernel is instantiated for, and the
+# bytes its two rings may take in shared memory (Hopper's 227 KB a block,
+# less the row exchange and the reductions' 224 ints)
+K5_LPTS = (1, 2, 3, 4, 5, 6)
+K5_SMEM_RING_MAX = SMEM_MAX - 224 * 4
+
+
+def k5_lanes_per_thread(W: int) -> int:
+    """K5's lanes a thread at width W: the largest of K5_LPTS that divides
+    W/32, so that the block's W / LPT threads are whole warps (at the spoa
+    path's W=576, 6: three warps, the fastest of those measured; PERF.md).
+    Raises on a W that is not a multiple of 32 in [32, 1024]."""
+    if W % 32 or not 32 <= W <= 1024:
+        raise ValueError(f"W={W} must be a multiple of 32 in [32, 1024]")
+    return max(n for n in K5_LPTS if (W // 32) % n == 0)
 
 
 def fits_int16_affine(n_cap: int, w_cap: int, m: int, x: int, g: int, e: int) -> bool:
@@ -198,27 +222,43 @@ def poa_dp_affine(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, 
     undefined on the card), maxi, maxj, score [B, D] int32. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
     B, P, N, D, W = check_dp_inputs(codes, aux, deg, sink, n_nodes, seqp, slen, R)
-    mode = MODES[align_type]
+    MODES[align_type]  # an unknown mode raises on either device
     dev = seqp.device
     if dev.type == "cpu":
         return _dp_affine_plain(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, e, R)
-    dirs, maxi, maxj, score, rings = poa_gap.dp_buffers(B, N, D, W, R, 2, dev)
+    lpt = k5_lanes_per_thread(W)
+    dirs, maxi, maxj, score, rings = poa_gap.dp_buffers(B, N, D, W, R, 2, dev, K5_SMEM_RING_MAX)
     if B * D == 0:
         return dirs, maxi, maxj, score
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib().poa_dp_affine_launch(
-            codes.data_ptr(), aux.data_ptr(), deg.data_ptr(), sink.data_ptr(),
-            n_nodes.data_ptr(), seqp.data_ptr(), slen.data_ptr(),
-            dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(), score.data_ptr(),
-            0 if rings is None else rings.data_ptr(),
-            B, N, P, D, W, R, mode, m, x, g, e, int(rings is None),
-            sh_bits_aff(P), shf_bits(P),
-            stream,
-        )
+        rc = launch_dp_affine(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, e,
+                              R, (dirs, maxi, maxj, score, rings), lpt)
     _build.check(_lib(), rc, "poa_dp_affine")
     _build.LAUNCHES["poa_dp_affine"] += 1
     return dirs, maxi, maxj, score
+
+
+def launch_dp_affine(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, e, R, out,
+                     lanes_per_thread):
+    """K5's C launcher on checked inputs and the buffers `out` (dirs, maxi,
+    maxj, score, rings of `poa_gap.dp_buffers` at K5_SMEM_RING_MAX), on the
+    current stream, at `lanes_per_thread` (one of K5_LPTS dividing W/32;
+    the launcher returns an error for any other); counts nothing and
+    returns the cudaError_t. The wrapper calls it at
+    `k5_lanes_per_thread(W)`; timing the kernel alone (a CUDA graph of
+    launches) and at other lanes a thread calls it directly."""
+    B, P, N = aux.shape
+    D, W = seqp.shape[1], seqp.shape[2]
+    dirs, maxi, maxj, score, rings = out
+    return _lib().poa_dp_affine_launch(
+        codes.data_ptr(), aux.data_ptr(), deg.data_ptr(), sink.data_ptr(),
+        n_nodes.data_ptr(), seqp.data_ptr(), slen.data_ptr(),
+        dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(), score.data_ptr(),
+        0 if rings is None else rings.data_ptr(),
+        B, N, P, D, W, R, MODES[align_type], m, x, g, e, int(rings is None),
+        sh_bits_aff(P), lanes_per_thread,
+        torch.cuda.current_stream(seqp.device).cuda_stream,
+    )
 
 
 # -------------------------------------------------------------- K5w: walk

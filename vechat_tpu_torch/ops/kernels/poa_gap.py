@@ -24,16 +24,17 @@ from .poa_linear import DELTA_BITS, DMASK, MODES, SMEM_RING_MAX, _check_inputs
 CHAIN_BIT = 14  # "the sequence-gap chain continues" flag of the chain halfword
 
 
-def dp_buffers(B, N, D, W, R, n_rings, dev):
+def dp_buffers(B, N, D, W, R, n_rings, dev, smem_max=SMEM_RING_MAX):
     """Outputs of a DP kernel (dirs [B, N+1, D, W] int32; maxi, maxj, score
     [B, D] int32) and its ring scratch: None when the `n_rings` int16 rings
-    of R+1 rows fit in shared memory, else [B*D, n_rings, R+1, W] int16."""
+    of R+1 rows fit in `smem_max` bytes of shared memory, else
+    [B*D, n_rings, R+1, W] int16."""
     dirs = torch.empty((B, N + 1, D, W), dtype=torch.int32, device=dev)
     maxi = torch.empty((B, D), dtype=torch.int32, device=dev)
     maxj = torch.empty_like(maxi)
     score = torch.empty_like(maxi)
     rings = None
-    if n_rings * (R + 1) * W * 2 > SMEM_RING_MAX:
+    if n_rings * (R + 1) * W * 2 > smem_max:
         rings = torch.empty((B * D, n_rings, R + 1, W), dtype=torch.int16, device=dev)
     return dirs, maxi, maxj, score, rings
 
