@@ -63,7 +63,7 @@ the measurement; counts set to 0 just before each), the largest difference
 from its plain version (0: the tolerance is exact), its time, the plain
 version's time and the bound (the least time the card could take for
 the same work), each time the wrapper's by CUDA events (K2, the
-expansion, the dense walk and K5 also give `kernel_ms`, the kernel alone:
+expansion, the dense walk, K5 and K6 also give `kernel_ms`, the kernel alone:
 `walk_expand_rows`, `dense_kernel_ms`, `check_gap_launch`);
 K1's, K2's and the expansion's are at phase 3b's heaviest
 shape and K3's at 3c's launch, which their entries name (phase 1's rows,
@@ -106,8 +106,9 @@ EXPAND_OPS_PAIR = 10
 # chain code (30), the rest (30) and the (E, Q) recurrence (8: 4 adds and 4
 # maxes). Both scans are counted at the function's work, one pass along the
 # row: the kernels' log-step scans (K5: 5 shuffle steps and one carry a
-# warp; K6: ceil(log2 W) steps of 8, and 12 more a step squaring the matrix)
-# are their own choice and stay out of the bound. A three-state walk step
+# warp; K6: 5 shuffle steps of 4 DPX, a carry chained over the warps to the
+# left and a second pass over the lanes) are their own choice and stay out
+# of the bound. A three-state walk step
 # decodes two halfwords (30)
 K5_OPS_CELL, K5_OPS_EDGE = 26, 20
 K6_OPS_CELL, K6_OPS_EDGE = 68, 34
@@ -538,16 +539,18 @@ def mix_peak_phase(device):
 def gap_kinds():
     """kind: (int16 rings, DP, plain DP, walk, plain walk, operations per
     cell, per in-edge per cell, the bytes the rings may take in shared
-    memory) of K5/K5w and K6/K6w."""
+    memory, the DP's lanes a thread at a width, its C launcher) of K5/K5w
+    and K6/K6w."""
     from vechat_tpu_torch.ops.kernels import poa_affine as pa
     from vechat_tpu_torch.ops.kernels import poa_convex as pc
-    from vechat_tpu_torch.ops.kernels.poa_linear import SMEM_RING_MAX
 
     return {
         "affine": (2, pa.poa_dp_affine, pa._dp_affine_plain, pa.traceback_walk_affine,
-                   pa._walk_affine_plain, K5_OPS_CELL, K5_OPS_EDGE, pa.K5_SMEM_RING_MAX),
+                   pa._walk_affine_plain, K5_OPS_CELL, K5_OPS_EDGE, pa.K5_SMEM_RING_MAX,
+                   pa.k5_lanes_per_thread, pa.launch_dp_affine),
         "convex": (3, pc.poa_dp_convex, pc._dp_convex_plain, pc.traceback_walk_convex,
-                   pc._walk_convex_plain, K6_OPS_CELL, K6_OPS_EDGE, SMEM_RING_MAX),
+                   pc._walk_convex_plain, K6_OPS_CELL, K6_OPS_EDGE, pc.K6_SMEM_RING_MAX,
+                   pc.k6_lanes_per_thread, pc.launch_dp_convex),
     }
 
 
@@ -569,17 +572,17 @@ def check_gap_launch(device, kind, arrays, mode, scores, ring, time_plain):
     `pack_windows`) against the plain versions: exact equality of dirs (rows
     the kernel writes), best cells, scores, pairs and counts. Returns the DP's
     and the walk's rows (times, bound); `plain_ms` only with `time_plain`.
-    K5's row also has the kernel alone (`kernel_ms`: launches of its C
+    The DP's row also has the kernel alone (`kernel_ms`: launches of its C
     launcher on buffers made once, in a CUDA graph, `kernel_ms()`), the
     launch's real rows and the microseconds a row, the ring's memory and
     the lanes a thread."""
     import torch
 
-    from vechat_tpu_torch.ops.kernels import poa_affine as pa
     from vechat_tpu_torch.ops.kernels import poa_gap
     from vechat_tpu_torch.ops.kernels.poa_affine import pack_aux_gap
 
-    n_rings, dp, dp_plain, walk, walk_plain, ops_cell, ops_edge, smem_max = gap_kinds()[kind]
+    (n_rings, dp, dp_plain, walk, walk_plain, ops_cell, ops_edge, smem_max, lanes,
+     launch) = gap_kinds()[kind]
     codes, preds, sink, nid, nn, seqp, slen = arrays
     B, P, N = preds.shape
     D, W = seqp.shape[1], seqp.shape[2]
@@ -606,16 +609,14 @@ def check_gap_launch(device, kind, arrays, mode, scores, ring, time_plain):
     ms1 = time_ms(lambda: dp(*args))
     ms2 = time_ms(lambda: walk(dirs, maxi, maxj, mode, L, P))
     n_rows = int(nn_t.sum())
-    k5 = {}
-    if kind == "affine":
-        lpt = pa.k5_lanes_per_thread(W)
-        out = poa_gap.dp_buffers(B, N, D, W, ring, 2, device, pa.K5_SMEM_RING_MAX)
-        kms = kernel_ms(lambda r: pa.launch_dp_affine(*args, out, lpt))
-        # the graph's launches wrote what the wrapper's did
-        _max_err(f"{label} DP alone", ("dirs", "maxi", "maxj", "score"),
-                 (out[0][real_rows], *out[1:4]), (k_out[0][real_rows], *k_out[1:]))
-        k5 = dict(kernel_ms=kms, rows=n_rows, us_per_row=kms * 1e3 / max(n_rows, 1),
-                  ring_memory="shared" if in_smem else "global", lanes_per_thread=lpt)
+    lpt = lanes(W)
+    out = poa_gap.dp_buffers(B, N, D, W, ring, n_rings, device, smem_max)
+    kms = kernel_ms(lambda r: launch(*args, out, lpt))
+    # the graph's launches wrote what the wrapper's did
+    _max_err(f"{label} DP alone", ("dirs", "maxi", "maxj", "score"),
+             (out[0][real_rows], *out[1:4]), (k_out[0][real_rows], *k_out[1:]))
+    alone = dict(kernel_ms=kms, rows=n_rows, us_per_row=kms * 1e3 / max(n_rows, 1),
+                 ring_memory="shared" if in_smem else "global", lanes_per_thread=lpt)
     pms1 = pms2 = None
     if time_plain:  # the comparison runs above were the warm-up
         pms1 = time_ms(lambda: dp_plain(*args), warmup=0, reps=2)
@@ -630,8 +631,8 @@ def check_gap_launch(device, kind, arrays, mode, scores, ring, time_plain):
         b_ms, b_by = bound_ms(nb, ops)
         rows.append(dict(kernel=name, shape=shape, scores="/".join(map(str, scores)), ms=ms,
                          plain_ms=pms, max_abs_err=e, bound_ms=b_ms, bound_by=b_by))
-        if name == "poa_dp_affine":
-            rows[-1].update(k5)
+        if name == f"poa_dp_{kind}":
+            rows[-1].update(alone)
         log_row(rows[-1])
     return rows
 
@@ -651,7 +652,7 @@ def gap_kernels_phase(device, inputs):
         f"{(N + 1) * B * D * W * 4 / 1e6:.0f} MB (int32) per launch")
     for kind, scores in (("affine", AFFINE_SCORES), ("convex", CONVEX_SCORES)):
         # the first ring whose int16 rings of R+1 rows leave shared memory
-        n_rings, smem_max = gap_kinds()[kind][0], gap_kinds()[kind][-1]
+        n_rings, smem_max = gap_kinds()[kind][0], gap_kinds()[kind][7]
         r_global = max(dist, smem_max // (n_rings * W * 2))
         for mode, ring in (("nw", dist), ("sw", dist), ("ov", dist), ("nw", r_global),
                            ("sw", r_global)):

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Probes of K1, the linear POA DP kernel of vechat_tpu_torch, of K2, its
-run-length walk, of the dense walk, of K3, the banded NW kernel, and of K5,
-the affine POA DP kernel, on one NVIDIA GPU (the timing) or on the output
-of `cuobjdump -sass` (K1's count).
+run-length walk, of the dense walk, of K3, the banded NW kernel, of K5,
+the affine POA DP kernel, and of K6, the convex one, on one NVIDIA GPU
+(the timing) or on the output of `cuobjdump -sass` (K1's count).
 
     python3 k1_probe.py time DIR [DIR ...]   # DIR: the root of a checkout
     python3 k1_probe.py time-k3 [--inputs NPZ] DIR [DIR ...]
     python3 k1_probe.py time-k2 DIR [DIR ...]
     python3 k1_probe.py time-dense DIR [DIR ...]
     python3 k1_probe.py time-k5 DIR [DIR ...]
+    python3 k1_probe.py time-k6 DIR [DIR ...]
     python3 k1_probe.py sass FILE            # cuobjdump -sass output or a .so
 
 `time` runs K1 of each DIR's package in a process of its own, in the order
@@ -70,17 +71,25 @@ device's busy seconds and the wall, and whether the output is the golden.
 
 `time-k5` runs K5 of each DIR's package in a process of its own, in the
 order given, nw with the affine scores of chip_smoke.py's spoa path: at
-the last launch of each of its (N, P) buckets ((640, 4), (1152, 4),
-(1152, 8); one block, B=1 D=1 W=576, the graph grown read by read through
-that DIR's engine on the card, as `gap_path_phase` grows it), and at K1's
-batched shape (phase 1's 16 window graphs, D=32, the backend's ring). Each
+the last launch of each of its (N, P) buckets (one block, B=1 D=1 W=576,
+the graph grown read by read through that DIR's engine on the card, as
+`gap_path_phase` grows it), at K1's batched shape (phase 1's 16 window
+graphs, D=32, the backend's ring), and at one block (a window graph and
+one read) at each of the spoa engine's widths 128, 320, 576, 768. Each
 line is one (DIR, shape, lanes a thread): the kernel alone through its C
 launcher on buffers made once (`kernel_ms`, chip_smoke.py's `kernel_ms`:
 24 launches in a CUDA graph), the real rows and microseconds a row, the
-rings' memory and chip_smoke.py's bound; the line of the lanes the wrapper
-picks (`default`) also has the wrapper's time (`ms`, the CUDA-event median
-of 20 calls). A package whose K5 launcher takes the lanes a thread is
-timed at every one its kernel is built for that divides W/32.
+rings' memory, the registers and spills ptxas reported for that
+instantiation (`_build.ptxas_usage`, where the package keeps them) and
+chip_smoke.py's bound; the line of the lanes the wrapper picks
+(`default`) also has the wrapper's time (`ms`, the CUDA-event median of 20
+calls). A package whose launcher takes the lanes a thread is timed at
+every one its kernel is built for that divides W/32; one with a thread a
+lane through its old launcher.
+
+`time-k6` does the same for K6, with the launches of both of
+chip_smoke.py's convex spoa runs (the command line's scores and those
+within 8) and the command line's scores elsewhere.
 """
 
 import json
@@ -293,8 +302,9 @@ def _time_dense(pkg_dir):
                 byte_identical=cs._same_bytes(out_path, expected))), flush=True)
 
 
-def _time_k5(pkg_dir):
-    """Time K5 of the package under pkg_dir; prints one JSON line a case."""
+def _time_gap(pkg_dir, kind):
+    """Time K5 (kind "affine") or K6 ("convex") of the package under
+    pkg_dir; prints one JSON line a case."""
     import importlib.util
 
     import numpy as np
@@ -304,22 +314,38 @@ def _time_k5(pkg_dir):
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    from vechat_tpu_torch.ops.kernels import _build, poa_gap
     from vechat_tpu_torch.ops.kernels import poa_affine as pa
-    from vechat_tpu_torch.ops.kernels import poa_gap
+    from vechat_tpu_torch.ops.kernels import poa_convex as pc
     from vechat_tpu_torch.ops.kernels.poa_linear import MODES, SMEM_RING_MAX, max_pred_distance
 
-    assert pa.__file__.startswith(os.path.abspath(pkg_dir)), pa.__file__
+    affine = kind == "affine"
+    mod, k = (pa, "5") if affine else (pc, "6")
+    assert mod.__file__.startswith(os.path.abspath(pkg_dir)), mod.__file__
+    dp = getattr(mod, f"poa_dp_{kind}")
+    launcher = getattr(mod, f"launch_dp_{kind}", None)
+    n_rings = 2 if affine else 3
+    smem_max = getattr(mod, f"K{k}_SMEM_RING_MAX", SMEM_RING_MAX)
+    ops = (cs.K5_OPS_CELL, cs.K5_OPS_EDGE) if affine else (cs.K6_OPS_CELL, cs.K6_OPS_EDGE)
+    score_sets = ([("", cs.AFFINE_SCORES)] if affine else
+                  [("default ", cs.CONVEX_SCORES), ("within 8 ", cs.CONVEX_SMALL_SCORES)])
     dev = torch.device("cuda")
-    scores = cs.AFFINE_SCORES
     reads = cs.spoa_reads(np.random.default_rng(cs.SEED + 1))
-    cases = [(f"spoa {shape}", arrays, ring) for shape, (arrays, ring)
-             in sorted(cs.spoa_launch_inputs(dev, reads, scores).items())]
+    cases = []
+    for label, scores in score_sets:
+        cases += [(f"spoa {label}{shape}", arrays, ring, scores) for shape, (arrays, ring)
+                  in sorted(cs.spoa_launch_inputs(dev, reads, scores).items())]
     inputs = cs.window_inputs(np.random.default_rng(cs.SEED), B=16, N=640, P=8, W=576, D=32)
     preds, nn = inputs[1], inputs[4]
     dist = max(max_pred_distance(preds[b].T, nn[b, 0, 0]) for b in range(preds.shape[0]))
-    cases.append(("K1's batched shape", inputs, dist))
-    smem_max = getattr(pa, "K5_SMEM_RING_MAX", SMEM_RING_MAX)
-    for label, arrays, R in cases:
+    cases.append(("K1's batched shape", inputs, dist, score_sets[0][1]))
+    # one block at each width bucket of the spoa engine (a window graph and
+    # one read, as the engine launches them), for the lanes a thread per W
+    for W in (128, 320, 576, 768):
+        arrays = cs.window_inputs(np.random.default_rng(cs.SEED + 3), B=1, N=1152, P=8, W=W, D=1)
+        dist = max_pred_distance(arrays[1][0].T, arrays[4][0, 0, 0])
+        cases.append((f"one block at W={W}", arrays, max(dist, 1), score_sets[0][1]))
+    for label, arrays, R, scores in cases:
         codes, preds, sink, nid, nn, seqp, slen = arrays
         B, P, N = preds.shape
         D, W = seqp.shape[1], seqp.shape[2]
@@ -329,39 +355,44 @@ def _time_k5(pkg_dir):
         aux, deg = pa.pack_aux_gap(t(preds), R)
         args = (t(codes).reshape(B, N), aux, deg, t(sink).reshape(B, N), nn_t, t(seqp),
                 t(slen).reshape(B, D), "nw", *scores, R)
-        ref = pa.poa_dp_affine(*args)
-        ms = cs.time_ms(lambda: pa.poa_dp_affine(*args), warmup=2, reps=20)
-        if hasattr(pa, "launch_dp_affine"):
-            out = poa_gap.dp_buffers(B, N, D, W, R, 2, dev, smem_max)
-            lpts = [n for n in pa.K5_LPTS if (W // 32) % n == 0]
-            default = pa.k5_lanes_per_thread(W)
+        ref = dp(*args)
+        ms = cs.time_ms(lambda: dp(*args), warmup=2, reps=20)
+        out = poa_gap.dp_buffers(B, N, D, W, R, n_rings, dev, smem_max)
+        in_smem = out[4] is None
+        if launcher is not None:
+            lpts = [n for n in getattr(mod, f"K{k}_LPTS") if (W // 32) % n == 0]
+            default = getattr(mod, f"k{k}_lanes_per_thread")(W)
         else:  # a thread a lane, its launcher without the lanes argument
-            out = poa_gap.dp_buffers(B, N, D, W, R, 2, dev)
             lpts, default = [None], None
-        nbytes, ops = cs.gap_dp_work(nn_t, deg, real_rows, P, D, W, seqp, slen,
-                                     cs.K5_OPS_CELL, cs.K5_OPS_EDGE)
-        b_ms, b_by = cs.bound_ms(nbytes, ops)
+        usage = getattr(_build, "ptxas_usage", lambda name: {})(f"poa_{kind}")
+        nbytes, n_ops = cs.gap_dp_work(nn_t, deg, real_rows, P, D, W, seqp, slen, *ops)
+        b_ms, b_by = cs.bound_ms(nbytes, n_ops)
         n_rows = int(nn_t.sum())
         for lpt in lpts:
+            regs = {}
             if lpt is None:
                 dirs, maxi, maxj, score, rings = out
-                launch = lambda r: pa._lib().poa_dp_affine_launch(  # noqa: E731
+                codes_args = ((pa.sh_bits_aff(P), pa.shf_bits(P)) if affine else
+                              (pc.sh_bits_cvx(P), pc.shf_bits_cvx(P), int(np.ceil(np.log2(W)))))
+                launch = lambda r: getattr(mod._lib(), f"poa_dp_{kind}_launch")(  # noqa: E731
                     *(a.data_ptr() for a in args[:7]), dirs.data_ptr(), maxi.data_ptr(),
                     maxj.data_ptr(), score.data_ptr(), 0 if rings is None else rings.data_ptr(),
-                    B, N, P, D, W, R, MODES["nw"], *scores, int(rings is None),
-                    pa.sh_bits_aff(P), pa.shf_bits(P), torch.cuda.current_stream().cuda_stream)
+                    B, N, P, D, W, R, MODES["nw"], *scores, int(rings is None), *codes_args,
+                    torch.cuda.current_stream().cuda_stream)
             else:
-                launch = lambda r: pa.launch_dp_affine(*args, out, lpt)  # noqa: E731
+                launch = lambda r: launcher(*args, out, lpt)  # noqa: E731
+                key = f"poa_dp_{kind}_kernelILi{lpt}ELb0ELb{int(in_smem)}E"
+                regs = next((v for name, v in usage.items() if key in name), {})
             kms = cs.kernel_ms(launch)
             assert torch.equal(out[0][real_rows], ref[0][real_rows])
             assert all(torch.equal(a, b) for a, b in zip(out[1:4], ref[1:]))
             print(json.dumps(dict(
                 pkg=pkg_dir, shape=f"{label}: B={B} N={N} D={D} W={W} P={P} ring={R} nw",
-                lanes_per_thread=lpt, default=lpt == default,
+                scores="/".join(map(str, scores)), lanes_per_thread=lpt, default=lpt == default,
                 ms=ms if lpt == default else None, kernel_ms=kms, rows=n_rows,
-                us_per_row=kms * 1e3 / n_rows,
-                ring_memory="shared" if 2 * (R + 1) * W * 2 <= smem_max else "global",
-                bound_ms=b_ms, bound_by=b_by)), flush=True)
+                us_per_row=kms * 1e3 / n_rows, ring_memory="shared" if in_smem else "global",
+                registers=regs.get("registers"), spill_stores=regs.get("spill_stores"),
+                spill_loads=regs.get("spill_loads"), bound_ms=b_ms, bound_by=b_by)), flush=True)
 
 
 def _rows_only_lib(_build):
@@ -551,19 +582,21 @@ def main(argv):
     if len(argv) == 2 and argv[0] == "_time_dense":
         _time_dense(argv[1])
         return 0
-    if len(argv) >= 2 and argv[0] == "time-k5":
+    if len(argv) >= 2 and argv[0] in ("time-k5", "time-k6"):
         import torch
 
         if not torch.cuda.is_available():
             print("k1_probe: no CUDA device", file=sys.stderr)
             return 2
+        kind = "affine" if argv[0] == "time-k5" else "convex"
         for d in argv[1:]:
-            rc = subprocess.run([sys.executable, __file__, "_time_k5", os.path.abspath(d)]).returncode
+            rc = subprocess.run([sys.executable, __file__, "_time_gap", kind,
+                                 os.path.abspath(d)]).returncode
             if rc:
                 return rc
         return 0
-    if len(argv) == 2 and argv[0] == "_time_k5":
-        _time_k5(argv[1])
+    if len(argv) == 3 and argv[0] == "_time_gap":
+        _time_gap(argv[2], argv[1])
         return 0
     if len(argv) == 2 and argv[0] == "sass":
         path = argv[1]

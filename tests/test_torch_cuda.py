@@ -798,32 +798,45 @@ K5_CASES = (
 )
 
 
-def _k5_equals_plain(device, arrays, mode, R, lpt=None, scores=AFFINE):
-    """K5 against `_dp_affine_plain`: the real rows, every lane, and the
-    three best-cell outputs, torch.equal. Through the wrapper (one launch,
-    counted), or with `lpt` through the launcher at those lanes a thread."""
+# kind: (rings, DP, plain DP, C launcher, the rings' shared-memory limit)
+GAP_DP = {
+    "affine": (2, pa.poa_dp_affine, pa._dp_affine_plain, pa.launch_dp_affine, pa.K5_SMEM_RING_MAX),
+    "convex": (3, pc.poa_dp_convex, pc._dp_convex_plain, pc.launch_dp_convex, pc.K6_SMEM_RING_MAX),
+}
+
+
+def _gap_dp_equals_plain(device, kind, arrays, mode, R, lpt, scores):
+    """K5 or K6 against its plain version: the real rows, every lane, and
+    the three best-cell outputs, torch.equal. Through the wrapper (one
+    launch, counted), or with `lpt` through the launcher at those lanes a
+    thread."""
+    n_rings, dp, dp_plain, launch, smem_max = GAP_DP[kind]
     codes, preds, sink, nn, seqp, slen = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
                                           for a in arrays)
     B, P, N = preds.shape
-    D = seqp.shape[1]
+    D, W = seqp.shape[1], seqp.shape[2]
     aux, deg = pa.pack_aux_gap(preds, R)
     args = (codes.reshape(B, N), aux, deg, sink.reshape(B, N), nn.reshape(B), seqp,
             slen.reshape(B, D), mode, *scores, R)
     if lpt is None:
-        before = _build.LAUNCHES["poa_dp_affine"]
-        k = pa.poa_dp_affine(*args)
-        assert _build.LAUNCHES["poa_dp_affine"] == before + (B * D > 0)
+        before = _build.LAUNCHES[f"poa_dp_{kind}"]
+        k = dp(*args)
+        assert _build.LAUNCHES[f"poa_dp_{kind}"] == before + (B * D > 0)
     else:
-        W = seqp.shape[2]
-        k = pa.poa_gap.dp_buffers(B, N, D, W, R, 2, device, pa.K5_SMEM_RING_MAX)
-        _build.check(pa._lib(), pa.launch_dp_affine(*args, k, lpt), "poa_dp_affine")
+        k = pa.poa_gap.dp_buffers(B, N, D, W, R, n_rings, device, smem_max)
+        _build.check(pa._lib() if kind == "affine" else pc._lib(), launch(*args, k, lpt),
+                     f"poa_dp_{kind}")
         k = k[:4]
-    p = pa._dp_affine_plain(*args)
+    p = dp_plain(*args)
     real = torch.arange(N + 1, device=device)[None, :] <= nn.reshape(B)[:, None]
     assert torch.equal(k[0][real], p[0][real])
     for name, a, b in zip(("maxi", "maxj", "score"), k[1:], p[1:]):
         assert torch.equal(a, b), name
     return k
+
+
+def _k5_equals_plain(device, arrays, mode, R, lpt=None, scores=AFFINE):
+    return _gap_dp_equals_plain(device, "affine", arrays, mode, R, lpt, scores)
 
 
 @pytest.mark.parametrize("case", K5_CASES)
@@ -870,6 +883,140 @@ def test_affine_dp_kernel_raises_on_widths_and_lanes_it_cannot_take(cuda):
     bad = seqp[:, :, :100].contiguous()  # W off 32
     with pytest.raises(ValueError):
         pa.poa_dp_affine(codes, aux, deg, sink, nn, bad, slen, "nw", *AFFINE, 4)
+
+
+# K6's scores: the spoa command line's, every magnitude within 8, and gap
+# lines that fall below the rings' int16 floor from lane ~470
+CONVEX = (5, -4, -8, -6, -10, -4)
+CONVEX_SMALL = (3, -5, -6, -4, -8, -2)
+CONVEX_FLOOR = (3, -5, -40, -35, -50, -34)
+
+
+def k6_case(name):
+    """(arrays, mode, ring, lanes a thread or None for the default,
+    scores) of a K6 case, on the inputs of K5's cases (the shapes of
+    `tests/test_torch_poa_convex_rows.py`, whose model runs them on the
+    CPU)."""
+    kind, _, rest = name.partition(":")
+    if kind == "width":  # W/LPT/mode
+        W, lpt, mode = rest.split("/")
+        W, lpt = int(W), int(lpt)
+        return k5_inputs(W + lpt, 1, 96, 4, W, 3, max_dist=12), mode, 12, lpt, CONVEX
+    if kind == "ring":  # R/mode: 1 every in-edge delta 1; 511 one in-edge of that distance
+        R, mode = rest.split("/")
+        R = int(R)
+        if R == 511:
+            arrays = k5_inputs(R, 1, 640, 8, 192, 2, max_dist=8, far=511)
+        else:
+            arrays = k5_inputs(R, 1, 256, 8, 192, 2, max_dist=R, chain=R == 1)
+        return arrays, mode, R, None, CONVEX
+    if kind == "slens":  # LPT/mode
+        lpt, mode = rest.split("/")
+        arrays = k5_inputs(17, 1, 160, 4, 576, len(K5_SLENS), max_dist=6, slens=K5_SLENS)
+        return arrays, mode, 6, int(lpt), CONVEX_SMALL
+    if kind == "insertion":  # W/LPT/scores: Q overtakes E, the chain crosses every warp
+        W, lpt, sc = rest.split("/")
+        return k5_insertion(int(W)), "nw", 1, int(lpt), CONVEX if sc == "default" else CONVEX_SMALL
+    if kind == "sw_zero":
+        return k5_mismatch(int(rest)), "sw", 1, None, CONVEX
+    if kind == "floor":  # LPT/mode
+        lpt, mode = rest.split("/")
+        return k5_inputs(41, 1, 256, 4, 576, 2, max_dist=3), mode, 3, int(lpt), CONVEX_FLOOR
+    if kind == "p8":  # in-degrees up to P_CAP, past the slots fetched ahead
+        return k5_inputs(77, 2, 256, pc.P_CAP, 128, 2, max_dist=30), rest, 30, None, CONVEX
+    if kind == "rows":  # graph rows at the edges of the 32-row batches
+        arrays = k5_inputs(int(rest), 1, 96, 8, 192, 2, max_dist=20)
+        arrays[3][:] = int(rest)
+        return arrays, "nw", 20, 3, CONVEX
+    raise KeyError(name)
+
+
+# every lanes a thread the wrapper picks (k6_lanes_per_thread) and every one
+# that divides W/32 at the spoa path's W=576
+K6_WIDTHS = [(64, 1), (64, 2), (192, 3), (192, 6), (576, 6), (576, 3), (576, 2), (576, 1),
+             (128, 4), (320, 5), (768, 6), (1024, 4), (32, 1), (96, 3)]
+K6_CASES = (
+    [f"width:{W}/{lpt}/{mode}" for W, lpt in K6_WIDTHS for mode in ("nw", "sw", "ov")]
+    + [f"ring:{R}/{mode}" for R in (1, 5, 64, 511) for mode in ("nw", "sw")]
+    + [f"slens:{lpt}/{mode}" for lpt in (6, 1) for mode in ("nw", "sw", "ov")]
+    + [f"insertion:{W}/{lpt}/{sc}" for W, lpt in ((576, 6), (576, 3), (576, 1), (320, 5))
+       for sc in ("default", "small")]
+    + ["sw_zero:576", "sw_zero:64"]
+    + [f"floor:{lpt}/{mode}" for lpt in (6, 3, 1) for mode in ("nw", "ov")]
+    + ["p8:nw", "p8:sw", "p8:ov"] + [f"rows:{n}" for n in (31, 32, 33, 64, 65)]
+)
+
+
+def _k6_equals_plain(device, arrays, mode, R, lpt=None, scores=CONVEX):
+    return _gap_dp_equals_plain(device, "convex", arrays, mode, R, lpt, scores)
+
+
+@pytest.mark.parametrize("case", K6_CASES)
+def test_convex_dp_kernel_cases_match_plain(cuda, case):
+    """K6 at every lanes a thread it is built for (the wrapper's choices
+    and every one at W=576), nw/sw/ov; rings 1 (every in-edge delta 1), 5,
+    64 and 511 (one in-edge of distance 511); lengths on both sides of
+    every warp boundary; a long insertion where Q overtakes E across every
+    warp, at both spoa score sets; sw rows clamped to 0; lanes at the
+    int16 floor across warp boundaries; in-degrees up to P_CAP; row counts
+    at the edges of the 32-row batches of graph words."""
+    arrays, mode, R, lpt, scores = k6_case(case)
+    _k6_equals_plain(cuda, arrays, mode, R, lpt, scores)
+
+
+@pytest.mark.parametrize("B,D", [(0, 3), (1, 1), (1, 7), (5, 4)])
+def test_convex_dp_kernel_batch_sizes_match_plain(cuda, B, D):
+    arrays = k5_inputs(B * 10 + D + 1, max(B, 1), 192, 8, 320, D, max_dist=20)
+    if B == 0:
+        arrays = tuple(a[:0] for a in arrays)
+    _k6_equals_plain(cuda, arrays, "nw", 20)
+
+
+@pytest.mark.parametrize("W,R", [(576, 65), (576, 66), (768, 49), (768, 50), (128, 511)])
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+def test_convex_dp_kernel_rings_on_both_sides_of_shared_memory(cuda, W, R, mode):
+    """The rings in shared memory up to K6's own limit and in the global
+    scratch ring past it (W=576: 65 rows | 66; W=768: 49 | 50)."""
+    smem = 3 * (R + 1) * W * 2 <= pc.K6_SMEM_RING_MAX
+    assert smem == ((W, R) in ((576, 65), (768, 49)))
+    arrays = k5_inputs(W + R + 1, 1, 320, 8, W, 2, max_dist=min(R, 40), far=R if R < 319 else 0)
+    _k6_equals_plain(cuda, arrays, mode, R)
+
+
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+def test_convex_dp_launcher_equals_the_wrapper(cuda, mode):
+    """`launch_dp_convex` at the wrapper's lanes a thread, on buffers made
+    apart, writes what the wrapper returns; it counts no launch."""
+    arrays = k5_inputs(61, 2, 256, 8, 576, 3, max_dist=20)
+    codes, preds, sink, nn, seqp, slen = (torch.from_numpy(a).to(cuda) for a in arrays)
+    B, P, N = preds.shape
+    D, W = seqp.shape[1], seqp.shape[2]
+    aux, deg = pa.pack_aux_gap(preds, 20)
+    args = (codes, aux, deg, sink, nn, seqp, slen, mode, *CONVEX, 20)
+    ref = pc.poa_dp_convex(*args)
+    out = pc.poa_gap.dp_buffers(B, N, D, W, 20, 3, cuda, pc.K6_SMEM_RING_MAX)
+    before = _build.LAUNCHES["poa_dp_convex"]
+    rc = pc.launch_dp_convex(*args, out, pc.k6_lanes_per_thread(W))
+    _build.check(pc._lib(), rc, "poa_dp_convex")
+    assert _build.LAUNCHES["poa_dp_convex"] == before
+    real = torch.arange(N + 1, device=cuda)[None, :] <= nn[:, None]
+    assert torch.equal(out[0][real], ref[0][real])
+    for a, b in zip(out[1:4], ref[1:]):
+        assert torch.equal(a, b)
+
+
+def test_convex_dp_kernel_raises_on_widths_and_lanes_it_cannot_take(cuda):
+    arrays = k5_inputs(3, 1, 64, 4, 576, 1, max_dist=4)
+    codes, preds, sink, nn, seqp, slen = (torch.from_numpy(a).to(cuda) for a in arrays)
+    aux, deg = pa.pack_aux_gap(preds, 4)
+    args = (codes, aux, deg, sink, nn, seqp, slen, "nw", *CONVEX, 4)
+    out = pc.poa_gap.dp_buffers(1, 64, 1, 576, 4, 3, cuda, pc.K6_SMEM_RING_MAX)
+    for lpt in (4, 7, -1):  # 4 does not divide 576/32; 7 and -1 are not built
+        with pytest.raises(RuntimeError, match="cudaError"):
+            _build.check(pc._lib(), pc.launch_dp_convex(*args, out, lpt), "poa_dp_convex")
+    bad = seqp[:, :, :100].contiguous()  # W off 32
+    with pytest.raises(ValueError):
+        pc.poa_dp_convex(codes, aux, deg, sink, nn, bad, slen, "nw", *CONVEX, 4)
 
 
 @pytest.mark.parametrize("mode", ["nw", "sw", "ov"])

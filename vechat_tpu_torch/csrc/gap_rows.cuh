@@ -1,7 +1,7 @@
 // Row machinery of the sequence-to-graph DP kernels with gap channels
-// (poa_affine.cu; the convex kernel's redesign is meant to take it too):
-// a sequence's W lanes over a block of W / LPT threads, thread t owning the
-// LPT contiguous lanes [t*LPT, (t+1)*LPT) in registers.
+// (poa_affine.cu, poa_convex.cu): a sequence's W lanes over a block of
+// W / LPT threads, thread t owning the LPT contiguous lanes
+// [t*LPT, (t+1)*LPT) in registers.
 //
 //  - GraphRows: the graph's rows (code, in-degree, sink, the first PMAX
 //    in-edge words) fetched 32 at a time, a batch ahead, lane k of every
@@ -14,7 +14,11 @@
 //    single __syncthreads both publishes this row's values and frees the
 //    buffer the previous row read. A value published before barrier r and
 //    read after it by another warp needs nothing more.
-//  - warp_prefix_max: the 5-step shuffle scan of a row's running max.
+//  - warp_prefix_max: the 5-step shuffle scan of a row's running max (K5).
+//  - MpPowers / mp_acc / mp_mul / warp_scan_mp: max-plus 2x2 algebra of a
+//    coupled pair of gap channels (K6's (E, Q)), and its 5-step shuffle
+//    scan over the warp with powers computed once, on the host.
+//  - pin: a per-block constant kept in a register.
 //  - h16: a cell value as an int16 ring holds it, for registers that stand
 //    in for the ring (the previous row) so that both give the same bits.
 //  - ThreadBest / store_best_lanes: the best cell over a thread's lanes,
@@ -29,6 +33,10 @@
 
 namespace vk {
 
+// keeps v in a register: the compiler would otherwise recompute a constant
+// in every row, or copy it out of a uniform register for each lane's select
+__device__ __forceinline__ void pin(int& v) { asm volatile("" : "+r"(v)); }
+
 // a value as the int16 rings store it: the poison floor, then the int16 cast
 __device__ __forceinline__ int h16(int v) { return (int)(short)max(v, kNeg16); }
 
@@ -38,6 +46,47 @@ __device__ __forceinline__ int warp_prefix_max(int v) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) v = max(v, __shfl_up_sync(kFull, v, o));
   return v;
+}
+
+// Max-plus powers of a 2x2 matrix M = [[m11, m12], [m21, m22]] that a
+// kernel with LPT lanes a thread needs, each {m11, m12, m21, m22}, from the
+// host (the matrix is the scores' and never changes in a launch)
+struct MpPowers {
+  int seg[6][4];   // M^1 .. M^6: a thread's lane i from its carry, M^(i+1)
+  int step[5][4];   // M^(LPT * 2^s): step s of the scan over a warp's threads
+  int xstep[5][4];  // M^(32 * LPT * 2^s): step s of the scan over the warps
+  int warp1[4];     // M^(32 * LPT - 1): to a warp's second-to-last lane
+};
+
+// (a, b) = max((a, b), m (x) (x, y)), max-plus: four DPX add-then-max
+__device__ __forceinline__ void mp_acc(const int (&m)[4], int x, int y, int& a, int& b) {
+  a = __viaddmax_s32(x, m[0], __viaddmax_s32(y, m[1], a));
+  b = __viaddmax_s32(x, m[2], __viaddmax_s32(y, m[3], b));
+}
+
+// out = a (x) b, max-plus (out may be a)
+__device__ __forceinline__ void mp_mul(const int (&a)[4], const int (&b)[4], int (&out)[4]) {
+  const int o0 = max(a[0] + b[0], a[1] + b[2]), o1 = max(a[0] + b[1], a[1] + b[3]);
+  const int o2 = max(a[2] + b[0], a[3] + b[2]), o3 = max(a[2] + b[1], a[3] + b[3]);
+  out[0] = o0;
+  out[1] = o1;
+  out[2] = o2;
+  out[3] = o3;
+}
+
+// Inclusive max-plus scan of (a, b) over the warp's first 2^S lanes (the
+// rest take values from lanes they do not own), each lane's value the total
+// of a segment of k DP lanes: after step s a lane holds v_l (+) M^(k 2^s)
+// v_(l - 2^s) of the step before, `step[s]` being M^(k 2^s). A lane below
+// the offset keeps its value: unlike a plain max, v (+) M^k v can exceed v.
+template <int S = 5>
+__device__ __forceinline__ void warp_scan_mp(const int (&step)[5][4], int lane, int& a, int& b) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int o = 1 << s;
+    const int x = __shfl_up_sync(kFull, a, o), y = __shfl_up_sync(kFull, b, o);
+    if (lane >= o) mp_acc(step[s], x, y, a, b);
+  }
 }
 
 // The thread's LPT int16 lanes at p (p + LPT shorts from a 4-byte boundary

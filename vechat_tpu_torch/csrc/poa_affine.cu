@@ -88,9 +88,6 @@ constexpr int kK5HeadInts = K5Exchange::kInts + 32;
 // The packed maxes (value << SH | prio << 9 | delta) of H's candidates and
 // of the F chain both use H's shift SH: the F chain's codes are below 2^SH
 // too, so its max and code are those of the reference's narrower pack.
-// keeps v in a register: the compiler would otherwise recompute a constant
-// in every row, or copy it out of a uniform register for each lane's select
-__device__ __forceinline__ void pin(int& v) { asm volatile("" : "+r"(v)); }
 
 template <int LPT, bool SW, bool SMEM>
 __global__ void __launch_bounds__((1024 / LPT + 31) / 32 * 32)

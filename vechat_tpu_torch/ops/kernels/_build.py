@@ -2,7 +2,8 @@
 
 Each source is compiled by `nvcc` for `sm_90a` into its own shared library
 with a plain C interface under `vechat_tpu_torch/_build/`, at first use, and
-loaded with ctypes. A library is rebuilt when its source (or a header in
+loaded with ctypes; ptxas's report of each build (registers, spills) is
+kept beside its library (`ptxas_usage`). A library is rebuilt when its source (or a header in
 `csrc/`) is newer. All sources build in parallel, one `nvcc` each. A failed
 build raises with nvcc's stderr; there is no fallback.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import glob
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -118,9 +120,36 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
             continue
         os.replace(tmp, _lib_path(n))
         reports[n] = err + out
+        with open(_lib_path(n) + ".ptxas.txt", "w") as f:
+            f.write(reports[n])
     if errors:
         raise RuntimeError("\n".join(errors))
     return reports
+
+
+def ptxas_usage(name: str) -> Dict[str, dict]:
+    """{entry function: {"registers", "stack", "spill_stores", "spill_loads"}}
+    of `csrc/<name>.cu` as ptxas reported them at its last build (nvcc's
+    -Xptxas -v, kept beside the library); {} before a build."""
+    path = _lib_path(name) + ".ptxas.txt"
+    if not os.path.exists(path):
+        return {}
+    usage, fn = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn = m.group(1)
+                usage[fn] = {}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                usage[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                usage[fn]["registers"] = int(m.group(1))
+    return usage
 
 
 def get_lib(name: str) -> ctypes.CDLL:

@@ -18,8 +18,10 @@ convex ordering q < g < e < c it is the max-plus linear recurrence
   [E_j]   [e  g]   [E_{j-1}]   [A0[j-1]+g]
   [Q_j] = [q  c] x [Q_{j-1}] + [A0[j-1]+q]
 
-solved by a doubling scan over the row that applies the matrix power
-M^(2^s) at offset 2^s (`mat_powers`).
+solved in the plain version by a doubling scan over the row that applies
+the matrix power M^(2^s) at offset 2^s (`mat_powers`), as the reference
+does; the kernel composes the same max-plus products in another order
+(`k6_powers`), with the same result.
 
 Direction words (int32 per cell, ``FOCB << 16 | Hcode``, see `poa_gap.py`):
 Hcode ranks diag per slot; per slot F-ext, F-open, O-ext, O-open; then
@@ -28,13 +30,21 @@ extends; below it the vertical-chain code: continue through the first slot
 whose F or O EXTENDS to the final value (all continues rank before all
 stops), else stop at the first slot that opens it.
 
-K6 (`poa_dp_convex`). One thread block per (graph b, sequence d), one
-thread per lane j, a loop over DP rows. The scan runs in its Hillis-Steele
-form over the whole row through a double-buffered shared-memory row, one
-barrier per step: a warp-then-block scan would combine prefixes at offsets
-that are no powers of two and need a table of M^k. Bound by the serial row
-chain (ceil(log2 W) + 3 barriers per row). Three int16 rings (H, F, O), in
-shared memory when ``3*(R+1)*W*2`` bytes fit, else in a global scratch ring.
+K6 (`poa_dp_convex`). One thread block per (graph b, sequence d) of W / LPT
+threads, each owning LPT contiguous lanes in registers
+(`k6_lanes_per_thread` picks LPT per W), a loop over DP rows, on K5's row
+machinery (`csrc/gap_rows.cuh`). The scan is serial over a thread's lanes,
+a shuffle scan across the warp applying M^(LPT 2^s), and one carry a warp
+from the totals the warps publish before the row's single block barrier,
+scanned across the warps' lanes with M^(32 LPT 2^s); every power of M
+comes from the host
+(`k6_powers`). An in-edge from the row just above takes H, F and O from
+registers; a warp's first lane rebuilds the left warp's last H from
+published values. The three int16 rings (H, F, O) serve the other
+in-edges and sit in shared memory while ``3*(R+1)*W*2`` bytes fit K6's own
+limit (`K6_SMEM_RING_MAX`, Hopper's 227 KB less the row exchange), else in
+a global scratch ring. The kernel is bound by the latency of the row
+chain: the spoa path launches one block.
 
 K6w (`traceback_walk_convex`). One thread per walk, one int32 load per step.
 An nw walk ends at cell (0, 0) in any state (`poa_gap._walk3_plain` says why).
@@ -46,6 +56,7 @@ delta fit 16 bits; graphs of larger in-degree go to the host engine.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -59,6 +70,7 @@ from .poa_linear import (
     MODES,
     NEG16,
     NEGV,
+    SMEM_MAX,
     TIE,
     best_cell,
     best_init,
@@ -69,6 +81,24 @@ from .poa_linear import (
 
 CB_BIT = CHAIN_BIT  # "E or Q extends" flag bit in the FOCB halfword
 P_CAP = 8
+
+# K6's launch: the lanes a thread its kernel is instantiated for, and the
+# bytes its three rings may take in shared memory (Hopper's 227 KB a block,
+# less the row exchange and the reductions' 352 ints)
+K6_LPTS = (1, 2, 3, 4, 5, 6)
+K6_SMEM_RING_MAX = SMEM_MAX - 352 * 4
+
+
+def k6_lanes_per_thread(W: int) -> int:
+    """K6's lanes a thread at width W: the largest of K6_LPTS that divides
+    W/32 (whole warps) and leaves the block at least four warps, one to
+    each of an SM's schedulers; 1 below W=128. At the spoa engine's widths
+    128, 320, 576, 768: 1, 2, 3, 6, the fastest of every choice measured
+    there at one block (PERF.md, `k1_probe.py time-k6`). Raises on a W
+    that is not a multiple of 32 in [32, 1024]."""
+    if W % 32 or not 32 <= W <= 1024:
+        raise ValueError(f"W={W} must be a multiple of 32 in [32, 1024]")
+    return max(n for n in K6_LPTS if (W // 32) % n == 0 and (n == 1 or W // (32 * n) >= 4))
 
 
 def fits_int16_convex(
@@ -89,18 +119,48 @@ def shf_bits_cvx(P: int) -> int:
 def mat_powers(g: int, e: int, q: int, c: int, log_w: int):
     """Max-plus powers M^(2^s), s < log_w, of M = [[e, g], [q, c]]
     (Python ints)."""
-    M = [[e, g], [q, c]]
-
-    def mul(A, B):
-        return [
-            [max(A[i][0] + B[0][j], A[i][1] + B[1][j]) for j in range(2)]
-            for i in range(2)
-        ]
-
-    out = [M]
+    out = [[[e, g], [q, c]]]
     for _ in range(log_w - 1):
-        out.append(mul(out[-1], out[-1]))
+        out.append(_mp_mul(out[-1], out[-1]))
     return out
+
+
+def _mp_mul(A, B):
+    return [[max(A[i][0] + B[0][j], A[i][1] + B[1][j]) for j in range(2)] for i in range(2)]
+
+
+def mat_power(g: int, e: int, q: int, c: int, k: int):
+    """Max-plus power M^k, k >= 1, of M = [[e, g], [q, c]] (Python ints),
+    by squaring."""
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
+    out, sq = None, [[e, g], [q, c]]
+    while k:
+        if k & 1:
+            out = sq if out is None else _mp_mul(out, sq)
+        k >>= 1
+        if k:
+            sq = _mp_mul(sq, sq)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def k6_powers(g: int, e: int, q: int, c: int, lpt: int):
+    """The powers of M = [[e, g], [q, c]] that K6 at `lpt` lanes a thread
+    takes (`MpPowers` in csrc/gap_rows.cuh), each flattened (m11, m12, m21,
+    m22): M^1..M^6, M^(lpt 2^s) and M^(32 lpt 2^s) for s < 5, and
+    M^(32 lpt - 1). Returns a tuple of 68 ints."""
+    mats = [mat_power(g, e, q, c, k) for k in range(1, 7)]
+    mats += [mat_power(g, e, q, c, lpt << s) for s in range(5)]
+    mats += [mat_power(g, e, q, c, 32 * lpt << s) for s in range(5)]
+    mats += [mat_power(g, e, q, c, 32 * lpt - 1)]
+    return tuple(v for M in mats for row in M for v in row)
+
+
+@functools.lru_cache(maxsize=64)
+def _powers_arg(g: int, e: int, q: int, c: int, lpt: int):
+    p = k6_powers(g, e, q, c, lpt)
+    return (ctypes.c_int * len(p))(*p)
 
 
 def _log_w(W: int) -> int:
@@ -263,7 +323,8 @@ def _dp_convex_plain(codes, aux, deg, sink, n_nodes, seqp, slen, mode, m, x, g, 
     return (dirs, *best_cell(bestc, jlane, mode))
 
 
-_DP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+_DP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 15 + [ctypes.c_void_p, ctypes.c_int,
+                                                            ctypes.c_void_p]
 _WALK_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -288,29 +349,46 @@ def poa_dp_convex(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, 
     take the plain version; CUDA tensors launch the kernel or raise."""
     B, P, N, D, W = check_dp_inputs(codes, aux, deg, sink, n_nodes, seqp, slen, R)
     _check_p(P)
-    mode = MODES[align_type]
+    MODES[align_type]  # an unknown mode raises on either device
     dev = seqp.device
     if dev.type == "cpu":
         return _dp_convex_plain(
             codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, e, q, c, R
         )
-    dirs, maxi, maxj, score, rings = poa_gap.dp_buffers(B, N, D, W, R, 3, dev)
+    lpt = k6_lanes_per_thread(W)
+    dirs, maxi, maxj, score, rings = poa_gap.dp_buffers(B, N, D, W, R, 3, dev, K6_SMEM_RING_MAX)
     if B * D == 0:
         return dirs, maxi, maxj, score
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib().poa_dp_convex_launch(
-            codes.data_ptr(), aux.data_ptr(), deg.data_ptr(), sink.data_ptr(),
-            n_nodes.data_ptr(), seqp.data_ptr(), slen.data_ptr(),
-            dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(), score.data_ptr(),
-            0 if rings is None else rings.data_ptr(),
-            B, N, P, D, W, R, mode, m, x, g, e, q, c, int(rings is None),
-            sh_bits_cvx(P), shf_bits_cvx(P), _log_w(W),
-            stream,
-        )
+        rc = launch_dp_convex(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, e,
+                              q, c, R, (dirs, maxi, maxj, score, rings), lpt)
     _build.check(_lib(), rc, "poa_dp_convex")
     _build.LAUNCHES["poa_dp_convex"] += 1
     return dirs, maxi, maxj, score
+
+
+def launch_dp_convex(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, x, g, e, q, c, R,
+                     out, lanes_per_thread):
+    """K6's C launcher on checked inputs and the buffers `out` (dirs, maxi,
+    maxj, score, rings of `poa_gap.dp_buffers` at K6_SMEM_RING_MAX), on the
+    current stream, at `lanes_per_thread` (one of K6_LPTS dividing W/32;
+    the launcher returns an error for any other); counts nothing and
+    returns the cudaError_t. The wrapper calls it at
+    `k6_lanes_per_thread(W)`; timing the kernel alone (a CUDA graph of
+    launches) and at other lanes a thread calls it directly."""
+    B, P, N = aux.shape
+    D, W = seqp.shape[1], seqp.shape[2]
+    dirs, maxi, maxj, score, rings = out
+    lpt = lanes_per_thread if lanes_per_thread in K6_LPTS else 1  # the launcher refuses others
+    return _lib().poa_dp_convex_launch(
+        codes.data_ptr(), aux.data_ptr(), deg.data_ptr(), sink.data_ptr(),
+        n_nodes.data_ptr(), seqp.data_ptr(), slen.data_ptr(),
+        dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(), score.data_ptr(),
+        0 if rings is None else rings.data_ptr(),
+        B, N, P, D, W, R, MODES[align_type], m, x, g, e, q, c, int(rings is None),
+        sh_bits_cvx(P), _powers_arg(g, e, q, c, lpt), lanes_per_thread,
+        torch.cuda.current_stream(seqp.device).cuda_stream,
+    )
 
 
 # -------------------------------------------------------------- K6w: walk
