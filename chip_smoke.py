@@ -509,7 +509,8 @@ def mix_peak_phase(device):
     chains = rf.mix_inputs(T, SEED, device)
     for iters in (1, 8):
         _max_err(f"K7 iters={iters}", names, rf.mix_peak(*chains, iters, SEED),
-                 rf._mix_plain(*chains, iters, SEED))
+                 rf._mix_plain(*chains, iters, SEED),
+                 again=lambda: rf.mix_peak(*chains, iters, SEED))
     _build.reset_launches()
     m = rf.measure_mix_peak(device=device, seed=SEED)
     launches = _build.LAUNCHES["mix_peak"]
@@ -517,7 +518,8 @@ def mix_peak_phase(device):
     # at the measurement's own depth: once more against the plain version
     # (that run is the plain timing's warm-up)
     err = _max_err(f"K7 iters={iters}", names, rf.mix_peak(*chains, iters, SEED),
-                   rf._mix_plain(*chains, iters, SEED))
+                   rf._mix_plain(*chains, iters, SEED),
+                   again=lambda: rf.mix_peak(*chains, iters, SEED))
     plain_ms = time_ms(lambda: rf._mix_plain(*chains, iters, SEED), warmup=0, reps=2)
     elems = T * rf.ROWS * rf.COLS
     rounds = 4 * iters * elems  # element rounds: four chains a round each
@@ -539,18 +541,24 @@ def mix_peak_phase(device):
 def gap_kinds():
     """kind: (int16 rings, DP, plain DP, walk, plain walk, operations per
     cell, per in-edge per cell, the bytes the rings may take in shared
-    memory, the DP's lanes a thread at a width, its C launcher) of K5/K5w
-    and K6/K6w."""
+    memory, the DP's lanes a thread at a width, its C launcher, the walk's
+    C launcher `poa_gap.launch_walk3` bound to its library) of K5/K5w and
+    K6/K6w."""
+    import functools
+
     from vechat_tpu_torch.ops.kernels import poa_affine as pa
     from vechat_tpu_torch.ops.kernels import poa_convex as pc
+    from vechat_tpu_torch.ops.kernels.poa_gap import launch_walk3
 
     return {
         "affine": (2, pa.poa_dp_affine, pa._dp_affine_plain, pa.traceback_walk_affine,
                    pa._walk_affine_plain, K5_OPS_CELL, K5_OPS_EDGE, pa.K5_SMEM_RING_MAX,
-                   pa.k5_lanes_per_thread, pa.launch_dp_affine),
+                   pa.k5_lanes_per_thread, pa.launch_dp_affine,
+                   functools.partial(launch_walk3, pa._lib, "poa_walk_affine")),
         "convex": (3, pc.poa_dp_convex, pc._dp_convex_plain, pc.traceback_walk_convex,
                    pc._walk_convex_plain, K6_OPS_CELL, K6_OPS_EDGE, pc.K6_SMEM_RING_MAX,
-                   pc.k6_lanes_per_thread, pc.launch_dp_convex),
+                   pc.k6_lanes_per_thread, pc.launch_dp_convex,
+                   functools.partial(launch_walk3, pc._lib, "poa_walk_convex")),
     }
 
 
@@ -570,19 +578,22 @@ def gap_dp_work(nn_t, deg, real_rows, P, D, W, seqp, slen, ops_cell, ops_edge):
 def check_gap_launch(device, kind, arrays, mode, scores, ring, time_plain):
     """One launch of K5 or K6 and of its walk on `arrays` (the JAX layout of
     `pack_windows`) against the plain versions: exact equality of dirs (rows
-    the kernel writes), best cells, scores, pairs and counts. Returns the DP's
-    and the walk's rows (times, bound); `plain_ms` only with `time_plain`.
-    The DP's row also has the kernel alone (`kernel_ms`: launches of its C
-    launcher on buffers made once, in a CUDA graph, `kernel_ms()`), the
+    the kernel writes), best cells, scores, pairs and counts; the walk in
+    DP ranks and in node ids (the spoa path's call, whose wrapper `ms` is).
+    Returns the DP's and the walk's rows (times, bound); `plain_ms` only
+    with `time_plain`. Both rows also have the kernel alone (`kernel_ms`:
+    24 launches of its C launcher on buffers made once, in a CUDA graph,
+    `kernel_ms()`, then held to the wrapper's outputs); the DP's has the
     launch's real rows and the microseconds a row, the ring's memory and
-    the lanes a thread."""
+    the lanes a thread; the walk's has the longest walk's steps and tiles,
+    and the microseconds a step of that walk."""
     import torch
 
-    from vechat_tpu_torch.ops.kernels import poa_gap
+    from vechat_tpu_torch.ops.kernels import _build, poa_gap
     from vechat_tpu_torch.ops.kernels.poa_affine import pack_aux_gap
 
     (n_rings, dp, dp_plain, walk, walk_plain, ops_cell, ops_edge, smem_max, lanes,
-     launch) = gap_kinds()[kind]
+     launch, walk_launch) = gap_kinds()[kind]
     codes, preds, sink, nid, nn, seqp, slen = arrays
     B, P, N = preds.shape
     D, W = seqp.shape[1], seqp.shape[2]
@@ -603,11 +614,15 @@ def check_gap_launch(device, kind, arrays, mode, scores, ring, time_plain):
                    (k_out[0][real_rows], *k_out[1:]), (p_out[0][real_rows], *p_out[1:]))
     del p_out
     dirs, maxi, maxj, _ = k_out
+    nid_t = t(nid).reshape(B, N)
     kw = walk(dirs, maxi, maxj, mode, L, P)
     err2 = _max_err(f"{label} walk", ("pn", "pp", "count"), kw,
                     walk_plain(dirs, maxi, maxj, mode, L, P))
+    kw = walk(dirs, maxi, maxj, mode, L, P, nid_t)  # node ids, as the spoa path calls it
+    err2 = max(err2, _max_err(f"{label} walk, node ids", ("pn", "pp", "count"), kw,
+                              walk_plain(dirs, maxi, maxj, mode, L, P, nid_t)))
     ms1 = time_ms(lambda: dp(*args))
-    ms2 = time_ms(lambda: walk(dirs, maxi, maxj, mode, L, P))
+    ms2 = time_ms(lambda: walk(dirs, maxi, maxj, mode, L, P, nid_t))
     n_rows = int(nn_t.sum())
     lpt = lanes(W)
     out = poa_gap.dp_buffers(B, N, D, W, ring, n_rings, device, smem_max)
@@ -617,22 +632,37 @@ def check_gap_launch(device, kind, arrays, mode, scores, ring, time_plain):
              (out[0][real_rows], *out[1:4]), (k_out[0][real_rows], *k_out[1:]))
     alone = dict(kernel_ms=kms, rows=n_rows, us_per_row=kms * 1e3 / max(n_rows, 1),
                  ring_memory="shared" if in_smem else "global", lanes_per_thread=lpt)
+    w_out = tuple(torch.empty_like(x) for x in kw)
+    tiles = torch.zeros((B, D), dtype=torch.int32, device=device)
+
+    def walk_alone(r):
+        rc = walk_launch(dirs, maxi, maxj, nid_t, w_out, mode, L, P, tiles=tiles)
+        _build.check(_build.get_lib(f"poa_{kind}"), rc, f"poa_walk_{kind}")
+
+    w_kms = kernel_ms(walk_alone)
+    _max_err(f"{label} walk alone", ("pn", "pp", "count"), w_out, kw)
+    longest = int(kw[2].reshape(-1).argmax())
+    w_steps = int(kw[2].reshape(-1)[longest])
+    walk_row = dict(kernel_ms=w_kms, steps=w_steps, tiles=int(tiles.reshape(-1)[longest]),
+                    us_per_step=w_kms * 1e3 / max(w_steps, 1))
     pms1 = pms2 = None
     if time_plain:  # the comparison runs above were the warm-up
         pms1 = time_ms(lambda: dp_plain(*args), warmup=0, reps=2)
         pms2 = time_ms(lambda: walk_plain(dirs, maxi, maxj, mode, L, P), warmup=0, reps=2)
     dp_bytes, dp_ops = gap_dp_work(nn_t, deg, real_rows, P, D, W, seqp, slen, ops_cell, ops_edge)
+    # a walk step reads one word, a node step also its node id (pn >= 0);
+    # the walk writes both rows whole and its count, and reads its start cell
     steps = int(kw[2].sum())
+    walk_bytes = steps * 4 + int((kw[0] >= 0).sum()) * 4 + 2 * B * D * L * 4 + B * D * 12
     rows = []
     for name, ms, pms, nb, ops, e in (
         (f"poa_dp_{kind}", ms1, pms1, dp_bytes, dp_ops, err),
-        (f"poa_walk_{kind}", ms2, pms2, steps * 12 + B * D * 12, steps * WALK3_OPS_STEP, err2),
+        (f"poa_walk_{kind}", ms2, pms2, walk_bytes, steps * WALK3_OPS_STEP, err2),
     ):
         b_ms, b_by = bound_ms(nb, ops)
         rows.append(dict(kernel=name, shape=shape, scores="/".join(map(str, scores)), ms=ms,
                          plain_ms=pms, max_abs_err=e, bound_ms=b_ms, bound_by=b_by))
-        if name == f"poa_dp_{kind}":
-            rows[-1].update(alone)
+        rows[-1].update(alone if name == f"poa_dp_{kind}" else walk_row)
         log_row(rows[-1])
     return rows
 
@@ -808,22 +838,41 @@ def k4_phase(device, rng, T=512, W=512, NP=64):
     return {"pairwise_tiled": row}
 
 
-def _max_err(label, names, k_out, p_out):
+def _max_err(label, names, k_out, p_out, again=None):
     """The largest difference between a kernel's outputs and its plain
-    version's; raises if there is any (the tolerance is exact)."""
+    version's; raises if there is any (the tolerance is exact). The error
+    names how many elements differ, the first of them with both values and
+    the bits they differ in, and, where `again` is given (a callable that
+    runs the kernel once more on the same inputs), whether that second run
+    gives the same value there: a fault that does not repeat is told from
+    one of the code."""
     import torch
 
     torch.cuda.synchronize()
     err = 0
-    for name, a, b in zip(names, k_out, p_out):
+    for i, (name, a, b) in enumerate(zip(names, k_out, p_out)):
         if a.shape != b.shape:
             raise RuntimeError(f"{label}: {name} has shape {tuple(a.shape)}, plain "
                                f"{tuple(b.shape)}")
         if a.numel() == 0:
             continue
-        bad = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+        diff = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        bad = int(diff.max())
         if bad:
-            raise RuntimeError(f"{label}: {name} differs from plain by {bad}")
+            where = (diff != 0).nonzero()
+            at = tuple(int(x) for x in where[0])
+            ka, pa = int(a[at]), int(b[at])
+            msg = (f"{label}: {name} differs from plain by {bad} in {len(where)} of "
+                   f"{a.numel()} elements; first at {at}: kernel {ka}, plain {pa}, "
+                   f"bits {(ka ^ pa) & 0xFFFFFFFF:#010x}")
+            if again is not None:
+                second = again()[i]
+                torch.cuda.synchronize()
+                ka2 = int(second[at])
+                same = bool((second.to(torch.int64) == b.to(torch.int64)).all())
+                msg += (f"; the kernel run again gives {ka2} there and "
+                        f"{'equals plain everywhere' if same else 'still differs from plain'}")
+            raise RuntimeError(msg)
         err = max(err, bad)
     return err
 
@@ -1550,6 +1599,19 @@ REPLACES = {
 }
 
 
+def gpu_ecc():
+    """The card's volatile ECC error counts, corrected and uncorrected, as
+    nvidia-smi reads them (or what it says where it cannot)."""
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=ecc.errors.corrected.volatile.total,"
+             "ecc.errors.uncorrected.volatile.total", "--format=csv"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"not read ({e})"
+    return " | ".join((r.stdout + r.stderr).split("\n")).strip(" |")
+
+
 def main(argv=()):
     # --save-k3 PATH: also save the inputs of phase 3c (npz)
     save_k3 = argv[1] if len(argv) == 2 and argv[0] == "--save-k3" else None
@@ -1580,6 +1642,7 @@ def main(argv=()):
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    log(f"gpu ecc errors at the start: {gpu_ecc()}")
 
     t0 = time.perf_counter()
     reports = _build.build()
@@ -1650,6 +1713,7 @@ def main(argv=()):
             kernels[-1]["shape"] = r["shape"]
         if "kernel_ms" in r:
             kernels[-1]["kernel_ms"] = r["kernel_ms"]
+    log(f"gpu ecc errors at the end: {gpu_ecc()}")
     log(f"gpu: {gpu}  total {time.perf_counter() - t_start:.1f} s")
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1658,4 +1722,9 @@ def main(argv=()):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        sys.exit(main(sys.argv[1:]))
+    except Exception:
+        # beside the traceback: whether the card counted memory errors
+        print(f"chip_smoke: gpu ecc errors: {gpu_ecc()}", file=sys.stderr)
+        raise

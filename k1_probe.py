@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Probes of K1, the linear POA DP kernel of vechat_tpu_torch, of K2, its
 run-length walk, of the dense walk, of K3, the banded NW kernel, of K5,
-the affine POA DP kernel, and of K6, the convex one, on one NVIDIA GPU
-(the timing) or on the output of `cuobjdump -sass` (K1's count).
+the affine POA DP kernel, of K6, the convex one, and of K5w and K6w, their
+three-state walk, on one NVIDIA GPU (the timing) or on the output of
+`cuobjdump -sass` (K1's count).
 
     python3 k1_probe.py time DIR [DIR ...]   # DIR: the root of a checkout
     python3 k1_probe.py time-k3 [--inputs NPZ] DIR [DIR ...]
@@ -10,6 +11,8 @@ the affine POA DP kernel, and of K6, the convex one, on one NVIDIA GPU
     python3 k1_probe.py time-dense DIR [DIR ...]
     python3 k1_probe.py time-k5 DIR [DIR ...]
     python3 k1_probe.py time-k6 DIR [DIR ...]
+    python3 k1_probe.py time-walk3 DIR [DIR ...]
+    python3 k1_probe.py repeat-k7 N          # K7 held to its plain version N times
     python3 k1_probe.py sass FILE            # cuobjdump -sass output or a .so
 
 `time` runs K1 of each DIR's package in a process of its own, in the order
@@ -90,6 +93,30 @@ lane through its old launcher.
 `time-k6` does the same for K6, with the launches of both of
 chip_smoke.py's convex spoa runs (the command line's scores and those
 within 8) and the command line's scores elsewhere.
+
+`time-walk3` runs K5w and K6w, the three-state walks, of each DIR's package
+in a process of its own, in the order given, nw on the direction words of
+that DIR's K5 (affine scores) and K6 (the convex scores within 8) at the
+last launch of each of the spoa path's (N, P) buckets, as `time-k5` grows
+them, and at K1's batched shape (B=16 D=32: 512 walks). Each line is one
+(DIR, kernel, shape): the wrapper in DP ranks (`ms`, and `ms_node_ids` for
+a package whose walk writes node ids; CUDA-event medians of 20 calls; the
+host's microseconds a call, `wrapper_host_us`, and those of the C launcher
+alone, `launch_host_us`, over 50 calls queued without a wait), the
+kernel alone through its C launcher on buffers made once (`kernel_ms`,
+chip_smoke.py's `kernel_ms`: 24 launches in a CUDA graph; a tiled walk
+with the tiles its walks staged), the longest walk's
+steps and the microseconds a step, and ptxas's registers and spills of
+each walk instantiation. Last, K5w on three straight walks of 1000 steps
+(a diagonal, a column, a row), which tell a step's cost from a tile's.
+
+`repeat-k7` launches K7, the mix-peak kernel of this checkout, N times at
+each of chip_smoke.py's check depths (1 and 8 rounds, its seed, a tile for
+each SM) and holds every run to the plain version's outputs, computed once
+a depth. One JSON line a depth: the runs, the runs that differed, and for
+the first of those the element and both values; then the card's volatile
+ECC error counts before and after, as chip_smoke.py reads them. It tells a
+fault of the card that does not repeat from one of the kernel.
 """
 
 import json
@@ -395,6 +422,151 @@ def _time_gap(pkg_dir, kind):
                 spill_loads=regs.get("spill_loads"), bound_ms=b_ms, bound_by=b_by)), flush=True)
 
 
+def _time_walk3(pkg_dir):
+    """Time K5w and K6w of the package under pkg_dir; prints one JSON line a
+    case."""
+    import importlib.util
+    import time
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, pkg_dir)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vechat_tpu_torch.ops.kernels import _build, poa_gap
+    from vechat_tpu_torch.ops.kernels import poa_affine as pa
+    from vechat_tpu_torch.ops.kernels import poa_convex as pc
+    from vechat_tpu_torch.ops.kernels.poa_linear import MODES, max_pred_distance
+
+    assert poa_gap.__file__.startswith(os.path.abspath(pkg_dir)), poa_gap.__file__
+    tiled = hasattr(poa_gap, "launch_walk3")  # else one thread a walk
+    dev = torch.device("cuda")
+
+    def host_us(fn, n=50):  # the host's time a call, the launches queued
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    reads = cs.spoa_reads(np.random.default_rng(cs.SEED + 1))
+    inputs = cs.window_inputs(np.random.default_rng(cs.SEED), B=16, N=640, P=8, W=576, D=32)
+    preds, nn = inputs[1], inputs[4]
+    dist = max(max_pred_distance(preds[b].T, nn[b, 0, 0]) for b in range(preds.shape[0]))
+    def time_case(mod, kernel, label, dirs, maxi, maxj, L, P, nid_t, usage):
+        """One JSON line: the walk of `mod` on these words, nw."""
+        walk = getattr(mod, f"traceback_{kernel[4:]}")
+        B, N1, D, W = dirs.shape
+        ref = walk(dirs, maxi, maxj, "nw", L, P)
+        row = dict(pkg=pkg_dir, kernel=kernel, shape=label,
+                   design="warp a walk" if tiled else "thread a walk",
+                   ms=cs.time_ms(lambda: walk(dirs, maxi, maxj, "nw", L, P), warmup=2, reps=20),
+                   wrapper_host_us=host_us(lambda: walk(dirs, maxi, maxj, "nw", L, P)))
+        out = tuple(torch.empty_like(x) for x in ref)
+        if tiled:
+            row["ms_node_ids"] = cs.time_ms(
+                lambda: walk(dirs, maxi, maxj, "nw", L, P, nid_t), warmup=2, reps=20)
+            tiles = torch.zeros((B, D), dtype=torch.int32, device=dev)
+            launch = lambda r: poa_gap.launch_walk3(  # noqa: E731
+                mod._lib, kernel, dirs, maxi, maxj, None, out, "nw", L, P, tiles=tiles)
+            row["kernel_ms"] = cs.kernel_ms(launch)
+            assert all(torch.equal(a, b) for a, b in zip(out, ref))
+            row["tiles_max"] = int(tiles.max())
+            row["tiles_mean"] = float(tiles.float().mean())
+            row["launch_host_us"] = host_us(lambda: launch(0))
+        else:  # its launcher writes the pairs into rows filled with -2
+            for x in out[:2]:
+                x.fill_(-2)
+            launch = lambda r: getattr(mod._lib(), f"{kernel}_launch")(  # noqa: E731
+                dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(), out[0].data_ptr(),
+                out[1].data_ptr(), out[2].data_ptr(), B, N1, D, W, L, P, MODES["nw"],
+                torch.cuda.current_stream().cuda_stream)
+            row["kernel_ms"] = cs.kernel_ms(launch)
+            assert all(torch.equal(a, b) for a, b in zip(out, ref))
+        steps = int(ref[2].max())
+        row.update(steps=steps, us_per_step=row["kernel_ms"] * 1e3 / max(steps, 1),
+                   walks=B * D, pairs=int(ref[2].sum()), ptxas=usage)
+        print(json.dumps(row), flush=True)
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    for kind, mod, scores in (("affine", pa, cs.AFFINE_SCORES),
+                              ("convex", pc, cs.CONVEX_SMALL_SCORES)):
+        dp = getattr(mod, f"poa_dp_{kind}")
+        kernel = f"poa_walk_{kind}"
+        cases = [(f"spoa {shape}", arrays, ring) for shape, (arrays, ring)
+                 in sorted(cs.spoa_launch_inputs(dev, reads, scores).items())]
+        cases.append(("K1's batched shape", inputs, dist))
+        usage = {name: v for name, v in _build.ptxas_usage(f"poa_{kind}").items()
+                 if "walk3_kernel" in name}
+        for label, arrays, R in cases:
+            codes, preds, sink, nid, nn, seqp, slen = arrays
+            B, P, N = preds.shape
+            D, W = seqp.shape[1], seqp.shape[2]
+            aux, deg = pa.pack_aux_gap(t(preds), R)
+            dirs, maxi, maxj, _ = dp(t(codes).reshape(B, N), aux, deg, t(sink).reshape(B, N),
+                                     t(nn).reshape(B), t(seqp), t(slen).reshape(B, D), "nw",
+                                     *scores, R)
+            time_case(mod, kernel, f"{label}: B={B} N={N} D={D} W={W} P={P} ring={R} nw",
+                      dirs, maxi, maxj, 2 * N + W, P, t(nid).reshape(B, N), usage)
+    # straight walks of 1000 steps (K5w, P=1, one walk): a step's and a
+    # tile's cost apart. A diagonal leaves a 64 x 32 tile every 32 steps,
+    # a column every 64 steps; a row's tiles are one row.
+    K, P, n = 1, 1, 1000
+    prio = lambda hidx: (3 * (P + 1) - 1 - hidx) << 9  # noqa: E731
+    words = {"diagonal": prio(0) | 1, "column": prio(P + 1) | 1, "row": prio(3 * P + 1)}
+    starts = {"diagonal": (n, n), "column": (n, 0), "row": (0, n)}
+    for label, word in words.items():
+        dirs = np.full((1, n + 1, 1, 1024), word, np.int32)
+        dirs[0, 0, 0, :] = words["row"]  # the boundary row and column lead to (0, 0)
+        dirs[0, :, 0, 0] = words["column"]
+        i0, j0 = starts[label]
+        time_case(pa, "poa_walk_affine", f"straight {label}: {n} steps, N1={n + 1} W=1024",
+                  t(dirs), t(np.array([[i0]], np.int32)), t(np.array([[j0]], np.int32)),
+                  2 * n + 1024, P, t(np.arange(n, dtype=np.int32)[None]), {})
+
+
+def _repeat_k7(n):
+    """K7 against its plain version n times at each of chip_smoke.py's check
+    depths; prints one JSON line a depth and the ECC counts."""
+    import importlib.util
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vechat_tpu_torch.utils import roofline as rf
+
+    ecc = cs.gpu_ecc()
+    dev = torch.device("cuda")
+    T = torch.cuda.get_device_properties(dev).multi_processor_count
+    chains = rf.mix_inputs(T, cs.SEED, dev)
+    for iters in (1, 8):
+        plain = rf._mix_plain(*chains, iters, cs.SEED)
+        bad, first = 0, None
+        for _ in range(n):
+            out = rf.mix_peak(*chains, iters, cs.SEED)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("a", "b", "c", "d", "checksum"), out, plain):
+                where = (a != b).nonzero()
+                if len(where):
+                    bad += 1
+                    if first is None:
+                        at = tuple(int(x) for x in where[0])
+                        first = dict(output=name, at=at, kernel=int(a[at]), plain=int(b[at]),
+                                     elements=len(where))
+                    break
+        print(json.dumps(dict(kernel="mix_peak", iters=iters, tiles=T, runs=n,
+                              runs_differing=bad, first=first)), flush=True)
+    print(json.dumps(dict(ecc_before=ecc, ecc_after=cs.gpu_ecc(),
+                          gpu=torch.cuda.get_device_name(0))), flush=True)
+
+
 def _rows_only_lib(_build):
     """DIR's pairwise_nw.cu built with its K3 kernel stopping after the DP
     rows, loaded with ctypes."""
@@ -595,8 +767,31 @@ def main(argv):
             if rc:
                 return rc
         return 0
+    if len(argv) >= 2 and argv[0] == "time-walk3":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        for d in argv[1:]:
+            rc = subprocess.run([sys.executable, __file__, "_time_walk3",
+                                 os.path.abspath(d)]).returncode
+            if rc:
+                return rc
+        return 0
+    if len(argv) == 2 and argv[0] == "_time_walk3":
+        _time_walk3(argv[1])
+        return 0
     if len(argv) == 3 and argv[0] == "_time_gap":
         _time_gap(argv[2], argv[1])
+        return 0
+    if len(argv) == 2 and argv[0] == "repeat-k7":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        _repeat_k7(int(argv[1]))
         return 0
     if len(argv) == 2 and argv[0] == "sass":
         path = argv[1]

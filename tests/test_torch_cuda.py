@@ -1065,6 +1065,164 @@ def test_nw_walk_kernel_ends_at_the_origin_like_the_host(cuda, scores, query):
     assert (dev.device_alignments, dev.fallbacks) == (1, 0)
 
 
+# ------------------------------------------- K5w / K6w: the three-state walk
+
+WALK3_KERNELS = {1: (pa._lib, "poa_walk_affine"), 2: (pc._lib, "poa_walk_convex")}
+
+
+def _walk3_tensors(device, dirs, maxi, maxj):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (dirs, maxi, maxj))
+
+
+def _walk3_equals_plain(device, dirs, maxi, maxj, mode, L, P, K):
+    """The walk kernel against `_walk3_plain`, ranks and node ids, through
+    the wrapper (launch counted) and through `launch_walk3` on buffers made
+    once, whose tiles a walk equal the numpy model's.
+    Returns the wrapper's (pn, pp, count) in ranks."""
+    from test_torch_walk3_tiles import model_walk3, node_ids
+    from vechat_tpu_torch.ops.kernels import poa_gap
+
+    lib, kernel = WALK3_KERNELS[K]
+    walk = pa.traceback_walk_affine if K == 1 else pc.traceback_walk_convex
+    d, mi, mj = _walk3_tensors(device, dirs, maxi, maxj)
+    B, N1, D, W = dirs.shape
+    ranks = None
+    for nid_np in (None, node_ids(5, B, N1)):
+        nid = None if nid_np is None else torch.from_numpy(nid_np).to(device)
+        before = _build.LAUNCHES[kernel]
+        got = walk(d, mi, mj, mode, L, P, nid)
+        assert _build.LAUNCHES[kernel] == before + 1
+        want = poa_gap._walk3_plain(d.cpu(), mi.cpu(), mj.cpu(), mode, L, P, K,
+                                    None if nid is None else nid.cpu())
+        for name, a, b in zip(("pn", "pp", "count"), got, want):
+            assert torch.equal(a.cpu(), b), f"{name} node_id={nid is not None}"
+        if ranks is None:
+            ranks = got
+        out = tuple(torch.full_like(t, 7) for t in got)
+        tiles = torch.full((B, D), -1, dtype=torch.int32, device=device)
+        rc = poa_gap.launch_walk3(lib, kernel, d, mi, mj, nid, out, mode, L, P, tiles)
+        assert rc == 0
+        for a, b in zip(out, got):
+            assert torch.equal(a, b)
+        stats = model_walk3(dirs, maxi, maxj, mode, L, P, K, nid_np)[3]
+        assert tiles.cpu().view(-1).tolist() == [s["tiles"] for s in stats]
+    return ranks
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+def test_walk3_kernel_vertical_jumps_match_plain(cuda, K, mode):
+    """Jumps of 1, 63, 64, 65, 511 and 0 (to row 0) from H and from the
+    vertical chain, sequence-gap chains across a tile's left edge, sw stop
+    codes; ranks and node ids."""
+    from test_torch_walk3_tiles import synth_walk3
+
+    dirs, maxi, maxj = synth_walk3(1 + K, 2, 1100, 3, 256, 4, K, mode,
+                                   jumps=(1, 63, 64, 65, 511, 0), p_vert=0.15, p_seq=0.25,
+                                   p_stop=0.002)
+    maxi[:, 0] = 1099
+    _walk3_equals_plain(cuda, dirs, maxi, maxj, mode, 2 * 1100 + 256, 4, K)
+
+
+@pytest.mark.parametrize("W", [32, 64, 576, 1024])
+@pytest.mark.parametrize("K", [1, 2])
+def test_walk3_kernel_widths_match_plain(cuda, W, K):
+    from test_torch_walk3_tiles import synth_walk3
+
+    for mode in ("nw", "sw"):
+        dirs, maxi, maxj = synth_walk3(W + K, 2, 130, 3, W, 8, K, mode,
+                                       jumps=(1, 2, 3, 64, 0), p_stop=0.001)
+        _walk3_equals_plain(cuda, dirs, maxi, maxj, mode, 2 * 130 + W, 8, K)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_walk3_kernel_chunks_cuts_and_empty_walks_match_plain(cuda, K):
+    """Pair counts of 31, 32, 33, 64 and 65 at the 32-pair chunks, walks
+    cut at L = 1, 31, 32, 33, and walks that never start."""
+    from test_torch_walk3_tiles import diagonal_walk3, synth_walk3
+
+    for n in (31, 32, 33, 64, 65):
+        dirs, maxi, maxj = diagonal_walk3(1, 80, 2, 96, 2, K, n)
+        _, _, count = _walk3_equals_plain(cuda, dirs, maxi, maxj, "nw", 200, 2, K)
+        assert (count == n).all()
+    for L in (1, 31, 32, 33):
+        dirs, maxi, maxj = synth_walk3(11, 1, 300, 4, 128, 4, K, "nw", jumps=(1, 2, 5))
+        maxi[:] = 299
+        maxj[:] = 127
+        _, _, count = _walk3_equals_plain(cuda, dirs, maxi, maxj, "nw", L, 4, K)
+        assert (count == L).all()
+    for mode in ("nw", "sw", "ov"):
+        dirs, maxi, maxj = synth_walk3(13, 2, 40, 3, 32, 3, K, mode)
+        maxi[0, :], maxj[0, :] = 0, 0
+        maxi[1, 0], maxj[1, 0] = 0, 7
+        maxi[1, 1], maxj[1, 1] = 9, 0
+        pn, pp, count = _walk3_equals_plain(cuda, dirs, maxi, maxj, mode, 2 * 40 + 32, 3, K)
+        assert (count[0] == 0).all() and (pn[0] == -2).all() and (pp[0] == -2).all()
+
+
+@pytest.mark.parametrize("B,D", [(0, 3), (1, 1), (1, 5), (3, 171)])
+def test_walk3_kernel_batch_sizes_match_plain(cuda, B, D):
+    """B*D of 0, 1, 5 and 513 walks: spare warps in the last block."""
+    from test_torch_walk3_tiles import synth_walk3
+
+    for K in (1, 2):
+        dirs, maxi, maxj = synth_walk3(21, B, 90, D, 64, 4, K, "nw", jumps=(1, 2, 70, 0))
+        if B * D == 0:
+            walk = pa.traceback_walk_affine if K == 1 else pc.traceback_walk_convex
+            pn, pp, count = walk(*_walk3_tensors(cuda, dirs, maxi, maxj), "nw", 244, 4)
+            assert pn.shape == (B, D, 244) and count.shape == (B, D)
+            continue
+        _walk3_equals_plain(cuda, dirs, maxi, maxj, "nw", 2 * 90 + 64, 4, K)
+
+
+@pytest.mark.parametrize("kind", ["affine", "convex"])
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+def test_walk3_kernel_on_dp_words_with_node_ids_matches_plain(cuda, kind, mode):
+    """The DP kernel's own words at the spoa path's width: the walk with
+    node ids equals `_walk3_plain(..., node_id)`."""
+    n_rings, scores, dp, _, walk, _ = GAP_KINDS[kind]
+    B, N, P, W, D = 2, 640, 8, 576, 3
+    arrs, _, _ = windows(8, B, N, P, W, D)
+    codes, preds, sink, nn, seqp, slen = _tensors(arrs, cuda, B, N, D)
+    aux, deg = pa.pack_aux_gap(preds, 64)
+    dirs, maxi, maxj, _ = dp(codes, aux, deg, sink, nn, seqp, slen, mode, *scores, 64)
+    _walk3_equals_plain(cuda, dirs.cpu().numpy(), maxi.cpu().numpy(), maxj.cpu().numpy(), mode,
+                        2 * N + W, P, 1 if kind == "affine" else 2)
+
+
+def test_walk3_kernel_raises_on_rows_off_16_bytes(cuda):
+    dirs = torch.zeros((1, 9, 1, 34), dtype=torch.int32, device=cuda)
+    mx = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.traceback_walk_affine(dirs, mx, mx, "nw", 50, 4)
+
+
+@pytest.mark.parametrize("scores", [(3, -5, -8, -6, -8, -6), (5, -4, -8, -6, -10, -4),
+                                    (3, -5, -6, -4, -8, -2)])
+def test_graph_engine_one_fetch_route_matches_host_over_a_growing_graph(cuda, scores):
+    """The affine and convex route (node ids from the walk, one copy to the
+    host) over a graph grown read by read: every alignment and score equals
+    the host engine's."""
+    from vechat_tpu_torch.ops.graph_align import make_engine
+    from vechat_tpu_torch.ops.kernels.graph_engine import TorchGraphEngine
+    from vechat_tpu_torch.ops.poagraph import PoaGraph
+
+    rng = np.random.default_rng(12)
+    base = rand_seq(rng, 260)
+    dev = TorchGraphEngine("nw", *scores, device=cuda)
+    assert dev.subtype in ("affine", "convex")
+    host = make_engine("nw", *scores)
+    g = PoaGraph()
+    for s in [base] + [mutate(rng, base, 0.08) for _ in range(8)]:
+        c = encode(s)
+        aln = []
+        if g.num_nodes():
+            aln, score = dev.align(c, g, return_score=True)
+            assert (aln, score) == host.align(c, g, return_score=True)
+        g.add_alignment(aln, c, np.ones(len(c), np.uint32))
+    assert (dev.device_alignments, dev.fallbacks) == (8, 0)
+
+
 def test_spoa_cli_cuda_matches_host(cuda, tmp_path, capsys):
     from vechat_tpu_torch.cli.spoa_main import main
 

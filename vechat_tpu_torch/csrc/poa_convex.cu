@@ -59,7 +59,9 @@
 // ring (a template parameter, as is sw's clamp). What bounds it is the
 // latency of a row's chain at one warp to a scheduler: the spoa path
 // launches one block, B = D = 1 (PERF.md, k1_probe.py time-k6).
-// K6w: vk::walk3_kernel<2>, one thread per walk (poa_gap.cuh).
+// K6w: vk::walk3_kernel<2, MODE>, one warp a walk over tiles of its
+// direction words staged in shared memory with cp.async, its pairs written
+// 32 columns at a time with node ids and the -2 columns (poa_gap.cuh).
 
 #include <cstring>
 
@@ -509,10 +511,13 @@ int poa_dp_convex_launch(const int* codes, const int* aux, const int* deg, const
   return use_smem ? launch_k6<false, true>(a, BD, lpt, s) : launch_k6<false, false>(a, BD, lpt, s);
 }
 
-int poa_walk_convex_launch(const int* dirs, const int* maxi, const int* maxj, int* pn, int* pp,
-                           int* count, int B, int N1, int D, int W, int L, int P, int mode,
-                           void* stream) {
-  return launch_walk3<2>(dirs, maxi, maxj, pn, pp, count, B, N1, D, W, L, P, mode, stream);
+// K6w: node_id [B, N1 - 1] or null (pn then holds DP ranks); tiles [B, D]
+// or null
+int poa_walk_convex_launch(const int* dirs, const int* maxi, const int* maxj, const int* node_id,
+                           int* pn, int* pp, int* count, int* tiles, int B, int N1, int D, int W,
+                           int L, int P, int mode, void* stream) {
+  return launch_walk3<2>(dirs, maxi, maxj, node_id, pn, pp, count, tiles, B, N1, D, W, L, P,
+                          mode, stream);
 }
 
 }  // extern "C"

@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..graph_align import make_engine
 from ..poagraph import PoaGraph
@@ -36,7 +37,7 @@ from .backend import MAX_RING, pack_windows, pair_lists
 from .dense import N_BUCKETS, P_BUCKETS, W_BUCKETS, bucket, graph_to_dense
 from .poa_affine import fits_int16_affine, poa_align_affine
 from .poa_convex import P_CAP, fits_int16_convex, poa_align_convex
-from .poa_linear import fits_int16, max_pred_distance, poa_align, ranks_to_node_ids_np
+from .poa_linear import fits_int16, max_pred_distance, poa_align
 
 
 class TorchGraphEngine:
@@ -119,24 +120,27 @@ class TorchGraphEngine:
             )
             aln = pair_lists(pairs.cpu().numpy(), [0], [pairs.shape[0]])[0]
         else:
+            # the walk writes node ids; its two rows, count and score come
+            # to the host in one copy
             if self.subtype == "affine":
                 pn, pp, count, score = poa_align_affine(
                     cb, preds, sink, nnb, seqp, slen, self.type, self.m, self.n,
-                    self.g, self.e, **common,
+                    self.g, self.e, node_id=nid, **common,
                 )
             else:
                 pn, pp, count, score = poa_align_convex(
                     cb, preds, sink, nnb, seqp, slen, self.type, self.m, self.n,
-                    self.g, self.e, self.q, self.c, **common,
+                    self.g, self.e, self.q, self.c, node_id=nid, **common,
                 )
-            cnt = int(count[0, 0, 0])
             L = pn.shape[2]
-            pn = pn[0, 0, L - cnt :].cpu().numpy().astype(np.int64)
-            pp = pp[0, 0, L - cnt :].cpu().numpy().astype(np.int64)
-            aln = list(zip(ranks_to_node_ids_np(pn, nid[0, 0]).tolist(), pp.tolist()))
+            host = torch.cat([pn.view(-1), pp.view(-1), count.view(-1), score.view(-1)])
+            host = host.cpu().numpy()
+            cnt = int(host[2 * L])
+            aln = list(zip(host[L - cnt : L].tolist(), host[2 * L - cnt : 2 * L].tolist()))
+            score = host[2 * L + 1]
         self.device_alignments += 1
         if return_score:
-            return aln, int(score[0, 0, 0])
+            return aln, int(score)
         return aln
 
     __call__ = align

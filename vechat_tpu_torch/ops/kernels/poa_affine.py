@@ -32,8 +32,11 @@ Hopper's 227 KB less the row exchange), else in a global scratch ring. The
 kernel is bound by the latency of the row chain: the spoa path launches one
 block. The direction rows are int32, 4 bytes a cell.
 
-K5w (`traceback_walk_affine`). One thread per walk, one int32 load per step.
-An nw walk ends at cell (0, 0) in any state (`poa_gap._walk3_plain` says why).
+K5w (`traceback_walk_affine`). One warp a walk over tiles of its int32
+direction words staged in shared memory; the pairs go out 32 columns at a
+time, with node ids when given `node_id`, and the warp writes the -2
+columns itself (`poa_gap.py`). An nw walk ends at cell (0, 0) in any state
+(`poa_gap._walk3_plain` says why).
 """
 
 from __future__ import annotations
@@ -199,7 +202,6 @@ def _dp_affine_plain(codes, aux, deg, sink, n_nodes, seqp, slen, mode, m, x, g, 
 
 
 _DP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-_WALK_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _lib():
@@ -207,7 +209,7 @@ def _lib():
     if lib.poa_dp_affine_launch.argtypes is None:
         lib.poa_dp_affine_launch.argtypes = _DP_ARGS
         lib.poa_dp_affine_launch.restype = ctypes.c_int
-        lib.poa_walk_affine_launch.argtypes = _WALK_ARGS
+        lib.poa_walk_affine_launch.argtypes = poa_gap.WALK3_ARGS
         lib.poa_walk_affine_launch.restype = ctypes.c_int
     return lib
 
@@ -264,39 +266,46 @@ def launch_dp_affine(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, 
 # -------------------------------------------------------------- K5w: walk
 
 
-def _walk_affine_plain(dirs, maxi, maxj, mode, L, P):
+def _walk_affine_plain(dirs, maxi, maxj, mode, L, P, node_id=None):
     """Plain PyTorch version of K5w (H / F-chain / E-chain)."""
-    return poa_gap._walk3_plain(dirs, maxi, maxj, mode, L, P, 1)
+    return poa_gap._walk3_plain(dirs, maxi, maxj, mode, L, P, 1, node_id)
 
 
-def traceback_walk_affine(dirs, maxi, maxj, align_type, L, P):
+def traceback_walk_affine(dirs, maxi, maxj, align_type, L, P, node_id=None):
     """K5w. dirs [B, N1, D, W] int32 from `poa_dp_affine`, maxi/maxj [B, D]
-    int32. Returns pn, pp [B, D, L] int32 (pairs back to front in the last
-    `count` columns, -2 elsewhere; pn holds DP ranks) and count [B, D].
+    int32; node_id [B, N1-1] int32 or None. Returns pn, pp [B, D, L] int32
+    (pairs back to front in the last `count` columns, -2 elsewhere; pn
+    holds DP ranks, or node ids with `node_id`) and count [B, D].
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
-    return poa_gap.walk3(dirs, maxi, maxj, align_type, L, P, 1, _lib, "poa_walk_affine")
+    return poa_gap.walk3(dirs, maxi, maxj, align_type, L, P, 1, _lib, "poa_walk_affine",
+                         node_id)
 
 
 # ------------------------------------------------------- public entry point
 
 
 def poa_align_affine(codes, preds, sink, n_nodes, seqp, seq_len, align_type, m, x, g, e,
-                     ring: int = 0, device="cuda"):
-    """K5 then K5w on the JAX package's layouts (`poa_align_pallas_affine(...,
-    emit_node_ids=False)`): codes/sink [B, 1, N], preds [B, P, N] (DP rows),
-    n_nodes [B, 1, 1], seqp [B, D, W], seq_len [B, 1, D]; numpy arrays or
-    tensors of any integer dtype. ring: ring rows (0 = full history).
+                     ring: int = 0, device="cuda", node_id=None):
+    """K5 then K5w on the JAX package's layouts (`poa_align_pallas_affine`):
+    codes/sink [B, 1, N], preds [B, P, N] (DP rows), n_nodes [B, 1, 1],
+    seqp [B, D, W], seq_len [B, 1, D]; numpy arrays or tensors of any
+    integer dtype. ring: ring rows (0 = full history). node_id [B, 1, N]:
+    pn holds these node ids (`emit_node_ids=True`), not DP ranks (without
+    it, as `emit_node_ids=False`).
 
     Returns (pn, pp [B, D, L], count [B, 1, D], score [B, 1, D]), int32
     tensors on `device`; L = 2N + W (F chains can visit more rows than a
     linear path). `device` is the card unless the caller asks for "cpu"
-    (the plain versions); without a GPU, "cuda" raises."""
+    (the plain versions); without a GPU, "cuda" raises. On the card W must
+    be a multiple of 4 (the walk copies its tiles in 16-byte pieces), else
+    the walk raises."""
     device = _build.resolve_device(device)
     preds = to_i32(preds, device)
     B, P, N = preds.shape
     seqp = to_i32(seqp, device)
     D, W = seqp.shape[1], seqp.shape[2]
+    nid = None if node_id is None else to_i32(node_id, device).reshape(B, N)
     R = N if ring <= 0 or ring > N else ring
     aux, deg = pack_aux_gap(preds, R)
     dirs, maxi, maxj, score = poa_dp_affine(
@@ -305,5 +314,5 @@ def poa_align_affine(codes, preds, sink, n_nodes, seqp, seq_len, align_type, m, 
         seqp, to_i32(seq_len, device).reshape(B, D),
         align_type, m, x, g, e, R,
     )
-    pn, pp, count = traceback_walk_affine(dirs, maxi, maxj, align_type, 2 * N + W, P)
+    pn, pp, count = traceback_walk_affine(dirs, maxi, maxj, align_type, 2 * N + W, P, nid)
     return pn, pp, count[:, None, :], score[:, None, :]

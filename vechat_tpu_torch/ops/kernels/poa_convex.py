@@ -46,8 +46,11 @@ limit (`K6_SMEM_RING_MAX`, Hopper's 227 KB less the row exchange), else in
 a global scratch ring. The kernel is bound by the latency of the row
 chain: the spoa path launches one block.
 
-K6w (`traceback_walk_convex`). One thread per walk, one int32 load per step.
-An nw walk ends at cell (0, 0) in any state (`poa_gap._walk3_plain` says why).
+K6w (`traceback_walk_convex`). One warp a walk over tiles of its int32
+direction words staged in shared memory; the pairs go out 32 columns at a
+time, with node ids when given `node_id`, and the warp writes the -2
+columns itself (`poa_gap.py`). An nw walk ends at cell (0, 0) in any state
+(`poa_gap._walk3_plain` says why).
 
 P (in-edge slots) is capped at P_CAP so the Hcode priorities (5P+5) and the
 delta fit 16 bits; graphs of larger in-degree go to the host engine.
@@ -325,7 +328,6 @@ def _dp_convex_plain(codes, aux, deg, sink, n_nodes, seqp, slen, mode, m, x, g, 
 
 _DP_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 15 + [ctypes.c_void_p, ctypes.c_int,
                                                             ctypes.c_void_p]
-_WALK_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _lib():
@@ -333,7 +335,7 @@ def _lib():
     if lib.poa_dp_convex_launch.argtypes is None:
         lib.poa_dp_convex_launch.argtypes = _DP_ARGS
         lib.poa_dp_convex_launch.restype = ctypes.c_int
-        lib.poa_walk_convex_launch.argtypes = _WALK_ARGS
+        lib.poa_walk_convex_launch.argtypes = poa_gap.WALK3_ARGS
         lib.poa_walk_convex_launch.restype = ctypes.c_int
     return lib
 
@@ -394,41 +396,47 @@ def launch_dp_convex(codes, aux, deg, sink, n_nodes, seqp, slen, align_type, m, 
 # -------------------------------------------------------------- K6w: walk
 
 
-def _walk_convex_plain(dirs, maxi, maxj, mode, L, P):
+def _walk_convex_plain(dirs, maxi, maxj, mode, L, P, node_id=None):
     """Plain PyTorch version of K6w (H / vertical chain / seq-gap chain)."""
-    return poa_gap._walk3_plain(dirs, maxi, maxj, mode, L, P, 2)
+    return poa_gap._walk3_plain(dirs, maxi, maxj, mode, L, P, 2, node_id)
 
 
-def traceback_walk_convex(dirs, maxi, maxj, align_type, L, P):
+def traceback_walk_convex(dirs, maxi, maxj, align_type, L, P, node_id=None):
     """K6w. dirs [B, N1, D, W] int32 from `poa_dp_convex`, maxi/maxj [B, D]
-    int32. Returns pn, pp [B, D, L] int32 (pairs back to front in the last
-    `count` columns, -2 elsewhere; pn holds DP ranks) and count [B, D].
+    int32; node_id [B, N1-1] int32 or None. Returns pn, pp [B, D, L] int32
+    (pairs back to front in the last `count` columns, -2 elsewhere; pn
+    holds DP ranks, or node ids with `node_id`) and count [B, D].
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     _check_p(P)
-    return poa_gap.walk3(dirs, maxi, maxj, align_type, L, P, 2, _lib, "poa_walk_convex")
+    return poa_gap.walk3(dirs, maxi, maxj, align_type, L, P, 2, _lib, "poa_walk_convex",
+                         node_id)
 
 
 # ------------------------------------------------------- public entry point
 
 
 def poa_align_convex(codes, preds, sink, n_nodes, seqp, seq_len, align_type, m, x, g, e, q, c,
-                     ring: int = 0, device="cuda"):
-    """K6 then K6w on the JAX package's layouts (`poa_align_pallas_convex(...,
-    emit_node_ids=False)`): codes/sink [B, 1, N], preds [B, P, N] (DP rows,
-    P <= P_CAP), n_nodes [B, 1, 1], seqp [B, D, W], seq_len [B, 1, D]; numpy
-    arrays or tensors of any integer dtype. ring: ring rows (0 = full
-    history).
+                     ring: int = 0, device="cuda", node_id=None):
+    """K6 then K6w on the JAX package's layouts (`poa_align_pallas_convex`):
+    codes/sink [B, 1, N], preds [B, P, N] (DP rows, P <= P_CAP), n_nodes
+    [B, 1, 1], seqp [B, D, W], seq_len [B, 1, D]; numpy arrays or tensors
+    of any integer dtype. ring: ring rows (0 = full history). node_id
+    [B, 1, N]: pn holds these node ids (`emit_node_ids=True`), not DP
+    ranks (without it, as `emit_node_ids=False`).
 
     Returns (pn, pp [B, D, L], count [B, 1, D], score [B, 1, D]), int32
     tensors on `device`; L = 2N + W. `device` is the card unless the caller
-    asks for "cpu" (the plain versions); without a GPU, "cuda" raises."""
+    asks for "cpu" (the plain versions); without a GPU, "cuda" raises. On
+    the card W must be a multiple of 4 (the walk copies its tiles in
+    16-byte pieces), else the walk raises."""
     device = _build.resolve_device(device)
     preds = to_i32(preds, device)
     B, P, N = preds.shape
     _check_p(P)
     seqp = to_i32(seqp, device)
     D, W = seqp.shape[1], seqp.shape[2]
+    nid = None if node_id is None else to_i32(node_id, device).reshape(B, N)
     R = N if ring <= 0 or ring > N else ring
     aux, deg = pack_aux_gap(preds, R)
     dirs, maxi, maxj, score = poa_dp_convex(
@@ -437,5 +445,5 @@ def poa_align_convex(codes, preds, sink, n_nodes, seqp, seq_len, align_type, m, 
         seqp, to_i32(seq_len, device).reshape(B, D),
         align_type, m, x, g, e, q, c, R,
     )
-    pn, pp, count = traceback_walk_convex(dirs, maxi, maxj, align_type, 2 * N + W, P)
+    pn, pp, count = traceback_walk_convex(dirs, maxi, maxj, align_type, 2 * N + W, P, nid)
     return pn, pp, count[:, None, :], score[:, None, :]

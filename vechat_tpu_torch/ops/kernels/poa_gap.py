@@ -3,6 +3,13 @@ aligners share beyond `poa_linear.py`'s input checks and best-cell pick:
 output and ring buffers, and the three-state traceback walk (the plain
 PyTorch version here, the kernel `walk3_kernel` in `csrc/poa_gap.cuh`).
 
+The walk's kernel (K5w / K6w) runs one warp a walk: the warp stages a tile
+of its walk's direction words (64 rows by 32 columns) in
+shared memory with cp.async, steps from it until the walk leaves it through
+its top or left edge, keeps the pair of step k in lane k % 32, writes those
+pairs 32 columns at a time (node ids in pn when given `node_id`), and then
+the -2 columns before them; the wrapper fills nothing.
+
 A direction word is one int32 per DP cell, ``chain << 16 | hcode``:
   hcode  ``prio << DELTA_BITS | delta``, the move that formed H. With K
          gap-channel pairs (affine 1, convex 2) and
@@ -16,12 +23,17 @@ A direction word is one int32 per DP cell, ``chain << 16 | hcode``:
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 from .poa_linear import DELTA_BITS, DMASK, MODES, SMEM_RING_MAX, _check_inputs
 
 CHAIN_BIT = 14  # "the sequence-gap chain continues" flag of the chain halfword
+
+# ctypes argtypes of poa_walk_{affine,convex}_launch
+WALK3_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def dp_buffers(B, N, D, W, R, n_rings, dev, smem_max=SMEM_RING_MAX):
@@ -39,12 +51,13 @@ def dp_buffers(B, N, D, W, R, n_rings, dev, smem_max=SMEM_RING_MAX):
     return dirs, maxi, maxj, score, rings
 
 
-def _walk3_plain(dirs, maxi, maxj, mode, L, P, K):
+def _walk3_plain(dirs, maxi, maxj, mode, L, P, K, node_id=None):
     """Plain PyTorch version of the three-state walk (H / vertical chain /
     sequence-gap chain) for K gap-channel pairs: all B*D walks step
     together, a Python loop over steps. Returns pn, pp [B, D, L] (pairs
     back to front in the last `count` columns, -2 elsewhere; pn holds DP
-    ranks) and count [B, D], all int32.
+    ranks, or with node_id [B, N1-1] their node ids; -1 stays -1) and
+    count [B, D], all int32.
 
     One rule differs from the reference walks: an nw walk ends at cell
     (0, 0) in ANY state, where the reference ends there only in state H. A
@@ -111,39 +124,70 @@ def _walk3_plain(dirs, maxi, maxj, mode, L, P, K):
             active = do & ~((i == 0) | (j == 0))
         step += 1
     cnt = torch.where(started, cnt, 0)
+    if node_id is not None:
+        row = bidx[:, None] * (N1 - 1)
+        ids = node_id.reshape(-1)[(row + pn.clamp_min(0)).reshape(-1)].view(BD, L)
+        pn = torch.where(pn >= 0, ids, pn)
     return pn.view(B, D, L), pp.view(B, D, L), cnt.view(B, D)
 
 
-def walk3(dirs, maxi, maxj, align_type, L, P, K, lib, kernel):
+def walk3(dirs, maxi, maxj, align_type, L, P, K, lib, kernel, node_id=None):
     """The three-state walk over dirs [B, N1, D, W] int32 from maxi/maxj
-    [B, D] int32. CPU tensors take `_walk3_plain`; CUDA tensors launch
-    `lib().<kernel>_launch` (counted under `kernel`) or raise. Returns
-    (pn, pp [B, D, L], count [B, D])."""
+    [B, D] int32; node_id [B, N1-1] int32 or None. CPU tensors take
+    `_walk3_plain`; CUDA tensors launch `lib().<kernel>_launch` (counted
+    under `kernel`) or raise (and need W % 4 == 0). Returns (pn, pp
+    [B, D, L], count [B, D]); pn holds node ids with `node_id`, else DP
+    ranks."""
     if dirs.dim() != 4:
         raise ValueError("dirs must be [B, N1, D, W]")
     B, N1, D, W = dirs.shape
     dev = dirs.device
     if dirs.dtype != torch.int32 or not dirs.is_contiguous():
         raise ValueError("dirs must be a contiguous int32 tensor")
-    for name, t in dict(maxi=maxi, maxj=maxj).items():
-        if tuple(t.shape) != (B, D):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B, D)}")
-    _check_inputs(dict(maxi=maxi, maxj=maxj), torch.int32, dev)
+    ints = dict(maxi=maxi, maxj=maxj)
+    shapes = dict(maxi=(B, D), maxj=(B, D))
+    if node_id is not None:
+        ints["node_id"] = node_id
+        shapes["node_id"] = (B, N1 - 1)
+    for name, t in ints.items():
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
+    _check_inputs(ints, torch.int32, dev)
     if dev.type == "cpu":
-        return _walk3_plain(dirs, maxi, maxj, align_type, L, P, K)
+        return _walk3_plain(dirs, maxi, maxj, align_type, L, P, K, node_id)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    pn = torch.full((B * D, L), -2, dtype=torch.int32, device=dev)
-    pp = torch.full((B * D, L), -2, dtype=torch.int32, device=dev)
-    count = torch.empty((B, D), dtype=torch.int32, device=dev)
+    if W % 4 or dirs.data_ptr() % 16:
+        raise ValueError("dirs rows must start on 16-byte boundaries (W % 4 == 0)")
+    # one allocation: pn, pp and count are views of it
+    n = B * D * L
+    buf = torch.empty(2 * n + B * D, dtype=torch.int32, device=dev)
+    pn, pp, count = buf[:n].view(B, D, L), buf[n : 2 * n].view(B, D, L), buf[2 * n :].view(B, D)
     if B * D == 0:
-        return pn.view(B, D, L), pp.view(B, D, L), count
-    stream = torch.cuda.current_stream(dev).cuda_stream
+        return pn, pp, count
     with torch.cuda.device(dev):
-        rc = getattr(lib(), f"{kernel}_launch")(
-            dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(), pn.data_ptr(), pp.data_ptr(),
-            count.data_ptr(), B, N1, D, W, L, P, MODES[align_type], stream,
-        )
+        rc = launch_walk3(lib, kernel, dirs, maxi, maxj, node_id, (pn, pp, count), align_type,
+                          L, P)
     _build.check(lib(), rc, kernel)
     _build.LAUNCHES[kernel] += 1
-    return pn.view(B, D, L), pp.view(B, D, L), count
+    return pn, pp, count
+
+
+def launch_walk3(lib, kernel, dirs, maxi, maxj, node_id, out, align_type, L, P, tiles=None):
+    """The walk's C launcher `lib().<kernel>_launch` on checked inputs and
+    the buffers `out` = (pn, pp [B, D, L], count [B, D]) int32, on the
+    current stream; node_id [B, N1-1] or None; tiles, a [B, D] int32
+    buffer for the tiles each walk staged, or None. Counts nothing and
+    returns the cudaError_t. The kernel writes every column of pn and pp
+    and every count, so a second launch on the same buffers gives the same
+    outputs: `walk3` calls it once; timing the kernel alone (a CUDA graph
+    of launches) calls it directly."""
+    B, N1, D, W = dirs.shape
+    pn, pp, count = out
+    return getattr(lib(), f"{kernel}_launch")(
+        dirs.data_ptr(), maxi.data_ptr(), maxj.data_ptr(),
+        0 if node_id is None else node_id.data_ptr(), pn.data_ptr(), pp.data_ptr(),
+        count.data_ptr(), 0 if tiles is None else tiles.data_ptr(),
+        B, N1, D, W, L, P, MODES[align_type],
+        torch.cuda.current_stream(dirs.device).cuda_stream,
+    )
