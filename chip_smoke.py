@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
     python3 chip_smoke.py --save-k3 PATH   # also save phase 3c's K3 inputs
+    python3 chip_smoke.py --save-k4 PATH   # also save phase 3d's and every phase-3 K4 launch's inputs
+                                           # (both may be given)
 
 Phases (each raises on failure; the script exits non-zero on any):
   0. the card's name and power limit; build the CUDA kernels with nvcc
@@ -21,10 +23,10 @@ Phases (each raises on failure; the script exits non-zero on any):
      1% apart; 200 reads x 2.5 kb at 8% ONT-profile error) corrected by
      `vechat --backend cuda`; wall time, reads/s, error before and after,
      strain preservation, each kernel's launches in this run, the tallies
-     of K1's launch shapes (B, D, N, W, P, ring in shared or global memory)
-     and K3's (T, BW, NP), the device seconds of K1, K2, the expansion and
-     K3, the batched backend's stages (its decode split into the pairs'
-     fetch and the lists)
+     of K1's launch shapes (B, D, N, W, P, ring in shared or global memory),
+     K3's (T, BW, NP) and K4's (NP, T, W), the device seconds of K1, K2, the
+     expansion, K3 and K4, the batched backend's stages (its decode split
+     into the pairs' fetch and the lists)
  3b. K1 at the main path's own launches: inputs made at the two heaviest
      shapes of that tally (launches x B*D*N*W), held to K1's plain version
      and both timed; then K2 and the expansion on those direction words;
@@ -34,28 +36,34 @@ Phases (each raises on failure; the script exits non-zero on any):
  3c. K3 on exactly the inputs of phase 3's heaviest launch (largest
      NP*T*BW), kept as phase 3 made it, held to its plain version and both
      timed (`--save-k3 PATH` also saves them, for `k1_probe.py time-k3`)
+ 3d. K4 the same way on the inputs of phase 3's heaviest K4 launch (largest
+     NP*T*W), with the kernel alone; it raises if phase 3 launched K4 at no
+     size (`--save-k4 PATH` saves them and those of every K4 launch of phase
+     3, for `k1_probe.py time-k4`)
   4. the spoa path: 32 reads of one 480-base template (8% ONT-profile
      error) through `vechat-spoa-torch --backend cuda` with linear, affine
      and convex scores, in nw/sw/ov and strand-ambiguous runs (the first 12
      reads for sw, ov and both convex runs: their host engine is Python),
      each byte for byte against `--backend host`; wall time, device
      alignments, host routes and each kernel's launches per run
-  5. the scale-out path, on phase 3's community and against its output:
-     (a) both goldens through a backend that shards every window batch over
-     two streams of the card (K1 + the dense walk a shard; the device
-     seconds of both kernels), and the dense walk once more against its
-     plain version on the largest shard this run launched; (b) two
-     processes of the command line on the card, the records all-gathered
-     between the rounds over gloo: rank 0's file is phase 3's, byte for
-     byte; (c) `--stream --resume-dir` in four chunks of 50 reads, byte for
-     byte against the same command on the host engine, then one checkpoint
-     of each round deleted and the command run again
+  5. the scale-out path: (a) both goldens through a backend that shards
+     every window batch over two streams of the card (K1 + the dense walk a
+     shard; the device seconds of both kernels), and the dense walk once
+     more against its plain version on the largest shard this run
+     launched; then, on the first 100 reads of phase 3's community (a cut
+     of depth that keeps the script well inside its time limit), against
+     one reference, `--stream --resume-dir` over those reads on the host
+     engine: (b) two processes of the command line on the card, the
+     records all-gathered between the rounds over gloo, rank 0's file
+     byte for byte; (c) the reference's command on the card, in four
+     chunks of 25 reads, byte for byte, then one checkpoint of each round
+     deleted and the command run again
 
-The phases run one after another. One process runs beside them: 5c's
-reference on the host engine, which needs no card and takes as long as the
-main path. It is started once phase 3 has been timed and is waited for at
-5c, so the walls of phases 4, 5a and 5b are taken with that one process on
-another of the host's cores; those of phases 1 to 3 and 5c with nothing.
+The phases run one after another. One process runs beside them: the
+reference of 5b and 5c on the host engine, which needs no card. It is
+started once phase 3d has ended and is waited for at 5b, so the walls of
+phases 4, 5a and 5b are taken with that one process on another of the
+host's cores; those of phases 1 to 3d and 5c with nothing.
 
 The second-to-last line is {"kernels": [...]} with, per kernel, its launches
 on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; K7:
@@ -63,12 +71,12 @@ the measurement; counts set to 0 just before each), the largest difference
 from its plain version (0: the tolerance is exact), its time, the plain
 version's time and the bound (the least time the card could take for
 the same work), each time the wrapper's by CUDA events (K2, the
-expansion, the dense walk, K5 and K6 also give `kernel_ms`, the kernel alone:
-`walk_expand_rows`, `dense_kernel_ms`, `check_gap_launch`);
+expansion, the dense walk, K4, K5 and K6 also give `kernel_ms`, the kernel
+alone: `walk_expand_rows`, `dense_kernel_ms`, `k4_row`, `check_gap_launch`);
 K1's, K2's and the expansion's are at phase 3b's heaviest
-shape and K3's at 3c's launch, which their entries name (phase 1's rows,
-K3's 256 pairs with its accepted pairs among them, stay lines of their
-own). The last line is {"ok": true,
+shape, K3's at 3c's launch and K4's at 3d's, which their entries name
+(phase 1's rows, K3's 256 pairs with its accepted pairs among them and
+K4's 64 tiles, stay lines of their own). The last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
@@ -818,24 +826,79 @@ def k3_phase(device, rng, T=2560, BW=896, NP=256):
     return {"pairwise_banded": row}
 
 
-def k4_phase(device, rng, T=512, W=512, NP=64):
+K4_ARGS = ("t", "q", "tlen", "qlen")  # tiled_nw's tensors, in order
+
+
+def k4_inputs(rng, device, T=512, W=512, NP=64):
+    """Phase 1's K4 inputs as `tiled_nw`'s arguments on `device`: NP tiles
+    of 80-100% of T at 8% ONT-profile error."""
     from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
 
     tiles = nw_pairs(rng, NP, T * 4 // 5, T - 1, 0.08)
-    t, q, tl, ql = pw.tiled_inputs(*pw.pack_tiles(tiles, T, W), device)
-    NP = t.shape[0]
-    k_out = pw.tiled_nw(t, q, tl, ql)
-    err = _max_err("K4", NW_OUTPUTS, k_out, pw._tiled_plain(t, q, tl, ql))
-    ms = time_ms(lambda: pw.tiled_nw(t, q, tl, ql))
-    pms = time_ms(lambda: pw._tiled_plain(t, q, tl, ql), reps=2)
+    return pw.tiled_inputs(*pw.pack_tiles(tiles, T, W), device)
+
+
+def k4_work(tl, ql, T, W):
+    """(bytes, counted operations) of one K4 launch on this run's data: the
+    real rows' target codes, the real query codes, the lengths, pt/pq
+    (int32) and count/dist; 15 operations a cell the result depends on, the
+    real rows' lanes 0..qlen (the walk starts at (tlen, qlen) and dist reads
+    lane qlen, so no lane past it counts)."""
+    NP = tl.shape[0]
     rows = int(tl.sum())
-    L = T + W
-    nbytes = rows * 4 + NP * W * 4 + NP * 8 + NP * L * 4 * 2 + NP * 8
-    b_ms, b_by = bound_ms(nbytes, rows * W * NW_OPS_CELL)
-    row = dict(kernel="pairwise_tiled", shape=f"{NP} tiles T={T} W={W}", ms=ms,
-               plain_ms=pms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+    nbytes = rows * 4 + int(ql.sum()) * 4 + NP * 8 + NP * (T + W) * 4 * 2 + NP * 8
+    return nbytes, int((tl.long() * (ql.long() + 1)).sum()) * NW_OPS_CELL
+
+
+def k4_kernel_fn(args):
+    """A callable that launches K4 alone through its C launcher on `args`
+    (`tiled_nw`'s tensors) and buffers made once, for `kernel_ms`."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
+
+    t, q, tl, ql = args
+    (NP, T), W = t.shape, q.shape[1]
+    lib = pw._lib()
+    dev = t.device
+    scratch = torch.empty(NP * lib.tiled_scratch_bytes(T, W), dtype=torch.uint8, device=dev)
+    pt, pq = (torch.empty((NP, T + W), dtype=torch.int32, device=dev) for _ in range(2))
+    count, dist = (torch.empty(NP, dtype=torch.int32, device=dev) for _ in range(2))
+
+    def launch(_r=0):
+        rc = lib.tiled_launch(t.data_ptr(), q.data_ptr(), tl.data_ptr(), ql.data_ptr(),
+                              scratch.data_ptr(), pt.data_ptr(), pq.data_ptr(),
+                              count.data_ptr(), dist.data_ptr(), NP, T, W,
+                              torch.cuda.current_stream(dev).cuda_stream)  # the capture's
+        _build.check(lib, rc, "pairwise_tiled")
+
+    return launch
+
+
+def k4_row(args, label, **extra):
+    """K4 on `args` against its plain version (exact), the wrapper's and the
+    plain version's CUDA-event times, the kernel alone (`kernel_ms`) and the
+    bound. Logs and returns the row."""
+    from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
+
+    t, q, tl, ql = args
+    (NP, T), W = t.shape, q.shape[1]
+    k_out = pw.tiled_nw(*args)
+    err = _max_err(f"K4 {label}", NW_OUTPUTS, k_out, pw._tiled_plain(*args))
+    ms = time_ms(lambda: pw.tiled_nw(*args))
+    kms = kernel_ms(k4_kernel_fn(args))
+    pms = time_ms(lambda: pw._tiled_plain(*args), reps=2)
+    b_ms, b_by = bound_ms(*k4_work(tl, ql, T, W))
+    row = dict(kernel="pairwise_tiled", **extra, shape=f"{NP} tiles T={T} W={W}{label}", ms=ms,
+               kernel_ms=kms, plain_ms=pms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               rows=int(tl.sum()), steps=int(k_out[2].sum()))
     log_row(row)
-    return {"pairwise_tiled": row}
+    return row
+
+
+def k4_phase(device, rng, T=512, W=512, NP=64):
+    return {"pairwise_tiled": k4_row(k4_inputs(rng, device, T, W, NP), "")}
 
 
 def _max_err(label, names, k_out, p_out, again=None):
@@ -952,7 +1015,6 @@ def main_path_phase(tmp, made, backend_name="cuda"):
     import torch
 
     from vechat_tpu_torch.cli.vechat_main import build_parser, run
-    from vechat_tpu_torch.io.fastx import write_fasta
     from vechat_tpu_torch.ops.encode import encode
     from vechat_tpu_torch.ops.kernels import _build
     from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
@@ -964,10 +1026,11 @@ def main_path_phase(tmp, made, backend_name="cuda"):
     args = build_parser().parse_args(
         [path, "-o", out_path, "--platform", "ont", "--backend", backend_name]
     )
-    # K3's heaviest launch of the run (largest NP*T*BW, the first of equals):
-    # its inputs, kept for phase 3c
-    heaviest = {}
-    banded_nw = pw.banded_nw
+    # K3's and K4's heaviest launches of the run (largest NP*T*BW and
+    # NP*T*W, the first of equals): their inputs, kept for phases 3c and 3d;
+    # and every K4 launch's, which 3d may save
+    heaviest, heaviest_k4 = {}, {"launches": []}
+    banded_nw, tiled_nw = pw.banded_nw, pw.tiled_nw
 
     def keep_heaviest(t, ext, tlen, qlen, lo, BW):
         size = t.shape[0] * t.shape[1] * BW
@@ -975,8 +1038,15 @@ def main_path_phase(tmp, made, backend_name="cuda"):
             heaviest.update(size=size, args=(t, ext, tlen, qlen, lo), BW=BW)
         return banded_nw(t, ext, tlen, qlen, lo, BW)
 
+    def keep_heaviest_k4(t, q, tlen, qlen):
+        size = t.shape[0] * t.shape[1] * q.shape[1]
+        if size > heaviest_k4.get("size", 0):
+            heaviest_k4.update(size=size, args=(t, q, tlen, qlen))
+        heaviest_k4["launches"].append((t, q, tlen, qlen))
+        return tiled_nw(t, q, tlen, qlen)
+
     _build.reset_launches()
-    pw.banded_nw = keep_heaviest
+    pw.banded_nw, pw.tiled_nw = keep_heaviest, keep_heaviest_k4
     try:
         # device activity only: CUPTI records every kernel and copy on the card
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -985,14 +1055,14 @@ def main_path_phase(tmp, made, backend_name="cuda"):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        pw.banded_nw = banded_nw
+        pw.banded_nw, pw.tiled_nw = banded_nw, tiled_nw
     launches = dict(_build.LAUNCHES)
     heaviest["k3_shapes"] = dict(_build.K3_SHAPES)
+    heaviest_k4["k4_shapes"] = dict(_build.K4_SHAPES)
     # K1's launch shapes in this run, the heaviest (launches x B*D*N*W) first
     k1_shapes = sorted(({"B": B, "D": D, "N": N, "W": W, "P": P, "ring": ring, "launches": n}
                         for (B, D, N, W, P, ring), n in _build.K1_SHAPES.items()),
                        key=lambda r: -r["launches"] * r["B"] * r["D"] * r["N"] * r["W"])
-    write_fasta(corrected, out_path)  # what phase 5 is held against
     counters = backend.counters() if hasattr(backend, "counters") else {}
     device_ms = device_times(prof)
     busy_s = sum(device_ms.values()) / 1e3
@@ -1001,6 +1071,7 @@ def main_path_phase(tmp, made, backend_name="cuda"):
     # its device time summed over them
     k1_device_s = sum(v for k, v in device_ms.items() if "poa_dp_kernel<" in k) / 1e3
     k3_device_s = sum(v for k, v in device_ms.items() if "banded_kernel" in k) / 1e3
+    k4_device_s = sum(v for k, v in device_ms.items() if "tiled_kernel" in k) / 1e3
     walk_device_s = {k: sum(v for name, v in device_ms.items() if k in name) / 1e3
                      for k in ("poa_walk_kernel", "poa_expand_kernel")}
     stages = {}
@@ -1038,13 +1109,16 @@ def main_path_phase(tmp, made, backend_name="cuda"):
              launches=launches, counters=counters, stages_s=stages,
              device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
              poa_dp_kernel_device_s=k1_device_s, banded_kernel_device_s=k3_device_s,
+             tiled_kernel_device_s=k4_device_s,
              poa_walk_kernel_device_s=walk_device_s["poa_walk_kernel"],
              poa_expand_kernel_device_s=walk_device_s["poa_expand_kernel"],
              device_ms_top={k: v for k, v in top}, k1_shapes=k1_shapes,
              k3_shapes=[{"T": T, "BW": BW, "NP": NP, "launches": n}
-                        for (T, BW, NP), n in sorted(_build.K3_SHAPES.items())]))
+                        for (T, BW, NP), n in sorted(_build.K3_SHAPES.items())],
+             k4_shapes=[{"NP": NP, "T": T, "W": W, "launches": n}
+                        for (NP, T, W), n in sorted(_build.K4_SHAPES.items())]))
     if backend_name != "cuda":  # a rehearsal on the CPU
-        return launches, out_path, k1_shapes, heaviest
+        return launches, k1_shapes, heaviest, heaviest_k4
     for k in MAIN_PATH_KERNELS:
         if launches[k] == 0:
             raise RuntimeError(f"kernel {k} was not launched on the main path")
@@ -1052,7 +1126,7 @@ def main_path_phase(tmp, made, backend_name="cuda"):
         raise RuntimeError(f"host routes dominate: {counters}")
     if not corrected or reduction < 4:
         raise RuntimeError(f"error fell only {reduction:.2f}x (floor 4x)")
-    return launches, out_path, k1_shapes, heaviest
+    return launches, k1_shapes, heaviest, heaviest_k4
 
 
 def k1_path_phase(device, k1_shapes, n_shapes=2):
@@ -1180,6 +1254,29 @@ def k3_path_phase(heaviest, save_path=None):
     return row
 
 
+def k4_path_phase(heaviest, save_path=None):
+    """Phase 3d: K4 on exactly the inputs of the main path's heaviest launch
+    (`main_path_phase` kept them), held to its plain version and both
+    timed, with the kernel alone; with `save_path`, the inputs are also
+    saved there (npz, `K4_ARGS`), and those of every K4 launch of phase 3
+    (`launch{i}_` before each name), for `k1_probe.py time-k4 --inputs`.
+    Raises if phase 3 launched K4 at no size: the community's longest
+    overlaps are meant to pass the banded bucket. Returns the row."""
+    if "args" not in heaviest:
+        raise RuntimeError("phase 3 launched K4 (the tiled route) at no size")
+    args = heaviest["args"]
+    NP, T = args[0].shape
+    W = args[1].shape[1]
+    if save_path:
+        arrays = {k: a.cpu().numpy() for k, a in zip(K4_ARGS, args)}
+        for i, launch in enumerate(heaviest["launches"]):
+            arrays.update({f"launch{i}_{k}": a.cpu().numpy() for k, a in zip(K4_ARGS, launch)})
+        np.savez_compressed(save_path, **arrays)
+    return k4_row(args, " (the main path's heaviest launch)", phase="3d",
+                  launches_in_phase_3=heaviest["k4_shapes"][(NP, T, W)],
+                  launches_in_phase_3_all_shapes=sum(heaviest["k4_shapes"].values()))
+
+
 # ------------------------------------------------ phase 4: the spoa path
 
 MAIN_PATH_KERNELS = ("poa_dp", "poa_walk", "poa_expand", "pairwise_banded", "pairwise_tiled")
@@ -1281,6 +1378,8 @@ def spoa_phase(tmp, reads, backend_name="cuda"):
 # --------------------------------------------- phase 5: the scale-out path
 
 SHARD_DEVICES = ["cuda:0", "cuda:0"]  # two shards, two streams, one card
+# 5b and 5c run on the first reads of phase 3's community, in 4 chunks for 5c
+SCALE_OUT_READS = 100
 
 
 def _free_port():
@@ -1375,17 +1474,43 @@ def stream_argv(tmp, community_path, n_reads, backend):
             "--resume-dir", os.path.join(tmp, f"ck_{backend}"), "--backend", backend]
 
 
-def start_stream_host(tmp, community_path, n_reads=200):
-    """Start 5c's reference, the same command on the host engine, as a
-    process of its own: (process, its stderr log)."""
+def head_reads(tmp, community_path, n_reads):
+    """The first `n_reads` records of `community_path`, written to a FASTQ
+    of their own: the input of 5b and 5c."""
+    from vechat_tpu_torch.io.fastx import read_fastx, write_fastx
+
+    path = os.path.join(tmp, f"community_first{n_reads}.fq")
+    write_fastx(read_fastx(community_path)[:n_reads], path, fmt="fq")
+    return path
+
+
+def start_stream_host(tmp, reads_path, n_reads):
+    """Start the reference of 5b and 5c, 5c's command on the host engine
+    over `reads_path` (`n_reads` reads), as a process of its own: (process,
+    its stderr log)."""
     log_path = os.path.join(tmp, "stream_host.log")
     with open(log_path, "w") as err:
         proc = subprocess.Popen(
             [sys.executable, "-m", "vechat_tpu_torch.cli.vechat_main",
-             *stream_argv(tmp, community_path, n_reads, "host")],
+             *stream_argv(tmp, reads_path, n_reads, "host")],
             cwd=REPO, stdout=subprocess.DEVNULL, stderr=err,
             env=dict(os.environ, PYTHONPATH=REPO))
     return proc, log_path
+
+
+def wait_stream_host(stream_host, timeout=600):
+    """Wait for the process `start_stream_host` started: the seconds its
+    command line reported. Raises with the end of its log if it failed."""
+    proc, log_path = stream_host
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = "timeout"
+    with open(log_path) as fh:
+        text = fh.read()
+    if rc != 0:
+        raise RuntimeError(f"the host reference of 5b and 5c ended with {rc}:\n{text[-3000:]}")
+    return float(text.rsplit("total = ", 1)[1].split()[0])  # its last line: "total = <s> s"
 
 
 def dense_walk_at(device, arrays, mode, scores, ring):
@@ -1428,12 +1553,14 @@ def dense_walk_at(device, arrays, mode, scores, ring):
     return row
 
 
-def scale_out_phase(tmp, community_path, corrected_path, stream_host, n_reads=200,
-                    backend_name="cuda", goldens=GOLDENS):
-    """The scale-out path on the card (see the module docstring, phase 5).
-    `stream_host` is what `start_stream_host` returned. Returns the kernels' launches of 5a, the sharded route's run, and the
-    dense walk's row at the largest shard 5a launched. With another
-    `backend_name` it is a rehearsal on the CPU."""
+def scale_out_phase(tmp, reads_path, stream_host, n_reads, backend_name="cuda",
+                    goldens=GOLDENS):
+    """The scale-out path on the card (see the module docstring, phase 5):
+    5b and 5c on `reads_path`, the first `n_reads` reads of phase 3's
+    community, against `stream_host`, what `start_stream_host` returned
+    for them. Returns the kernels' launches of 5a, the sharded route's
+    run, and the dense walk's row at the largest shard 5a launched. With
+    another `backend_name` it is a rehearsal on the CPU."""
     import torch
 
     from vechat_tpu_torch.cli.vechat_main import build_parser, main, run
@@ -1501,49 +1628,42 @@ def scale_out_phase(tmp, community_path, corrected_path, stream_host, n_reads=20
                               tuple(a[:per] for a in largest["arrays"]),
                               largest["mode"], largest["scores"], largest["ring"])
 
-    # 5b: two processes on the card, all-gather between the rounds
+    # 5b: two processes on the card, all-gather between the rounds, held to
+    # the host reference, which is 5c's too
     out_5b = os.path.join(tmp, "two_process.fa")
     wall_5b, rank_logs = run_ranks(
-        tmp, [community_path, "-o", out_5b, "--platform", "ont", "--backend", backend_name],
+        tmp, [reads_path, "-o", out_5b, "--platform", "ont", "--backend", backend_name],
         2, 600, VECHAT_DIST_INIT="1", MASTER_ADDR="localhost", MASTER_PORT=_free_port())
-    same = _same_bytes(out_5b, corrected_path)
+    host_total = wait_stream_host(stream_host)
+    host_out, host_dir = os.path.join(tmp, "stream_host.fa"), os.path.join(tmp, "ck_host")
+    same = _same_bytes(out_5b, host_out)
     per_rank = [_last_counters(path) for path in rank_logs]
     left = [f for f in os.listdir(tmp) if ".shard" in f or ".exit" in f]
-    log(dict(phase="scale_out", run="5b two processes on cuda:0, gloo all-gather",
-             byte_identical_to_phase_3=same, wall_s=wall_5b, reads_per_s=n_reads / wall_5b,
+    log(dict(phase="scale_out", run=f"5b two processes on cuda:0, gloo all-gather, {n_reads} reads",
+             byte_identical_to_host=same, wall_s=wall_5b, reads_per_s=n_reads / wall_5b,
              per_rank=[dict(device_alignments=c.get("device_alignments"),
                             fallbacks=c.get("fallbacks"),
                             launches={k[9:]: v for k, v in c.items()
                                       if k.startswith("launches_") and v})
                        for c in per_rank],
-             exchange_files_left=left, device_busy_s="not measured"))
+             exchange_files_left=left, device_busy_s="not measured",
+             host_total_s_beside_phases_4_to_5b=host_total))
     if not same:
-        raise RuntimeError("5b: rank 0's output differs from the single-process run's")
+        raise RuntimeError("5b: rank 0's output differs from the host engine's")
     if left or (on_card and any(not c.get("launches_poa_dp") for c in per_rank)):
         raise RuntimeError(f"5b: files left {left} or a rank that launched no kernel: {per_rank}")
 
     # 5c: bounded memory and restart
-    host_proc, host_log = stream_host
-    try:
-        rc = host_proc.wait(timeout=600)
-    except subprocess.TimeoutExpired:
-        rc = "timeout"
-    if rc != 0:
-        with open(host_log) as fh:
-            raise RuntimeError(f"5c: the host reference ended with {rc}:\n{fh.read()[-3000:]}")
-    with open(host_log) as fh:  # the command line's own last line: "total = <seconds> s"
-        host_total = float(fh.read().rsplit("total = ", 1)[1].split()[0])
-    host_out, host_dir = os.path.join(tmp, "stream_host.fa"), os.path.join(tmp, "ck_host")
-    argv = stream_argv(tmp, community_path, n_reads, backend_name)
+    argv = stream_argv(tmp, reads_path, n_reads, backend_name)
     cuda_out, cuda_dir = argv[7], argv[9]
     _build.reset_launches()
     _, wall_full, busy_full = _profiled(lambda: main(argv), on_card)
     full = dict(_build.LAUNCHES)
     same = _same_bytes(cuda_out, host_out)
     ckpts = sorted(os.listdir(cuda_dir))
-    log(dict(phase="scale_out", run="5c --stream --resume-dir, 4 chunks of 50 reads",
+    log(dict(phase="scale_out", run=f"5c --stream --resume-dir, 4 chunks of {n_reads // 4} reads",
              byte_identical_to_host=same, wall_s=wall_full, reads_per_s=n_reads / wall_full,
-             host_total_s_beside_phases_4_to_5b=host_total, device_busy_s=busy_full,
+             device_busy_s=busy_full,
              checkpoints=ckpts, launches={k: v for k, v in full.items() if v}))
     if not same or ckpts != sorted(os.listdir(host_dir)) or len(ckpts) != 8:
         raise RuntimeError(f"5c: --backend {backend_name} differs from --backend host "
@@ -1567,6 +1687,7 @@ def scale_out_phase(tmp, community_path, corrected_path, stream_host, n_reads=20
     walls, busy = walls + wall_full + wall_re, busy + busy_full + busy_re
     # 5b's processes are not under this process's profiler
     log(dict(phase="scale_out_total", wall_s=time.perf_counter() - t_phase, wall_s_5a_5c=walls,
+             wall_s_5b=wall_5b, wall_s_5c=wall_full + wall_re,
              device_busy_s_5a_5c=busy, device_idle_share_5a_5c=1 - busy / walls,
              poa_walk_dense_kernel_device_s_5a=dense_s, launches_5a=launches_5a))
     return launches_5a, dense_row
@@ -1613,10 +1734,10 @@ def gpu_ecc():
 
 
 def main(argv=()):
-    # --save-k3 PATH: also save the inputs of phase 3c (npz)
-    save_k3 = argv[1] if len(argv) == 2 and argv[0] == "--save-k3" else None
-    if argv and not save_k3:
-        print("usage: python3 chip_smoke.py [--save-k3 PATH]", file=sys.stderr)
+    # --save-k3 PATH, --save-k4 PATH: also save the inputs of phase 3c, 3d (npz)
+    saves = dict(zip(argv[::2], argv[1::2]))
+    if len(argv) % 2 or set(saves) - {"--save-k3", "--save-k4"}:
+        print("usage: python3 chip_smoke.py [--save-k3 PATH] [--save-k4 PATH]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -1673,20 +1794,23 @@ def main(argv=()):
         goldens_phase(tmp)
         lap("phase 2")
         made = community(rng, tmp)
-        launches, corrected_path, k1_shapes, k3_heaviest = main_path_phase(tmp, made)
+        launches, k1_shapes, k3_heaviest, k4_heaviest = main_path_phase(tmp, made)
         lap("phase 3")
-        # K1's and K3's rows in the kernels line are the ones at the main
-        # path's heaviest launches; phase 1's rows stay as lines of their own
+        # K1's, K3's and K4's rows in the kernels line are the ones at the
+        # main path's heaviest launches; phase 1's rows stay as lines of their own
         rows.update(k1_path_phase(device, k1_shapes)[0])
         lap("phase 3b")
-        rows["pairwise_banded"] = k3_path_phase(k3_heaviest, save_k3)
+        rows["pairwise_banded"] = k3_path_phase(k3_heaviest, saves.get("--save-k3"))
         lap("phase 3c")
-        stream_host = start_stream_host(tmp, made[0])
+        rows["pairwise_tiled"] = k4_path_phase(k4_heaviest, saves.get("--save-k4"))
+        lap("phase 3d")
+        part = head_reads(tmp, made[0], SCALE_OUT_READS)
+        stream_host = start_stream_host(tmp, part, SCALE_OUT_READS)
         try:
             spoa_launches = spoa_phase(tmp, reads)
             lap("phase 4")
-            scale_out_launches, dense_row = scale_out_phase(tmp, made[0], corrected_path,
-                                                            stream_host)
+            scale_out_launches, dense_row = scale_out_phase(tmp, part, stream_host,
+                                                            SCALE_OUT_READS)
         finally:  # no process outlives the script
             if stream_host[0].poll() is None:
                 stream_host[0].kill()
@@ -1709,7 +1833,7 @@ def main(argv=()):
                             launches=launches[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
-        if name in ("poa_dp", "poa_walk", "poa_expand", "pairwise_banded"):
+        if name in ("poa_dp", "poa_walk", "poa_expand", "pairwise_banded", "pairwise_tiled"):
             kernels[-1]["shape"] = r["shape"]
         if "kernel_ms" in r:
             kernels[-1]["kernel_ms"] = r["kernel_ms"]

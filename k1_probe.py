@@ -7,6 +7,7 @@ three-state walk, on one NVIDIA GPU (the timing) or on the output of
 
     python3 k1_probe.py time DIR [DIR ...]   # DIR: the root of a checkout
     python3 k1_probe.py time-k3 [--inputs NPZ] DIR [DIR ...]
+    python3 k1_probe.py time-k4 [--inputs NPZ] DIR [DIR ...]
     python3 k1_probe.py time-k2 DIR [DIR ...]
     python3 k1_probe.py time-dense DIR [DIR ...]
     python3 k1_probe.py time-k5 DIR [DIR ...]
@@ -42,6 +43,23 @@ timed twice: the kernel as built, and a build of the same source whose
 kernel stops after the DP rows (-DK3_ROWS_ONLY; for a source without that
 switch, the earlier kernel with a thread per band lane, its walk cut by a
 patch of the text), so the walk's share is the difference.
+
+`time-k4` does the same for K4, the tiled NW kernel, on chip_smoke.py's
+phase 1 tiles (64 tiles at T=W=512, drawn as that script draws them) and,
+with --inputs, on the launches that `chip_smoke.py --save-k4 NPZ` kept:
+the main path's heaviest, and every K4 launch of its phase 3 as one case.
+Builds: the kernel as built, rows only, and for the present design (4
+warps of 4 lanes a thread at W = 512) its other layout, one warp of 16
+lanes a thread with no block barrier, by a patch of the text. Each build
+is held to the plain version first (rows only excepted), then its wrapper
+(`ms`, the CUDA-event median of 20 calls; `wrapper_host_us`, the host's
+microseconds a call over 50 calls queued without a wait) and the kernel
+alone through its C launcher on buffers made once (`kernel_ms`,
+chip_smoke.py's `kernel_ms`: 24 launches in a CUDA graph), each summed
+over the case's launches, with the rows, the walks' steps and
+chip_smoke.py's bound, and ptxas's registers and spills of the kernel's
+instantiations. For the earlier kernel (a thread per lane, a direction
+byte a cell) the rows-only build cuts its walk by a patch of the text.
 
 `time-k2` runs K2, the run-length walk, of each DIR's package in a process
 of its own, in the order given, on the direction words of K1 at `time`'s
@@ -125,6 +143,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from collections import Counter
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -567,27 +586,90 @@ def _repeat_k7(n):
                           gpu=torch.cuda.get_device_name(0))), flush=True)
 
 
-def _rows_only_lib(_build):
-    """DIR's pairwise_nw.cu built with its K3 kernel stopping after the DP
-    rows, loaded with ctypes."""
+# for a source without the rows-only switch: the earlier kernel with a thread
+# per lane, whose thread 0 walks after this line (K3) or these (K4)
+_EARLIER_WALK = {
+    "K3": "  if (l != 0) return;\n  const int ls = lq - lt - lod;",
+    "K4": "  if (j != 0) return;\n  dist[p] = -((lq >= 0 && lq < W) ? Hs[lq] : kNeg);",
+}
+
+
+def _patched_lib(_build, patches, *flags):
+    """DIR's pairwise_nw.cu built with `flags` after `patches`, {file of
+    csrc: [(old, new), ...]}, each old text found exactly once (None if one
+    is not), the patched files written beside the copy of the source, where
+    its includes find them first; loaded with ctypes."""
     import ctypes
     import tempfile
 
-    with open(os.path.join(_build.CSRC, "pairwise_nw.cu")) as f:
-        text = f.read()
-    if "K3_ROWS_ONLY" not in text:
-        # the earlier kernel, a thread per lane: thread 0 walks after `if (l != 0) return;`
-        cut = "  if (l != 0) return;\n  const int ls = lq - lt - lod;"
-        assert text.count(cut) == 1, "unknown K3 source"
-        text = text.replace(cut, "  return;\n" + cut)
     tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
-    src = os.path.join(tmp, "pairwise_nw_rows.cu")
-    with open(src, "w") as f:
-        f.write(text)
-    lib = os.path.join(tmp, "libpairwise_nw_rows.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DK3_ROWS_ONLY", "-I", _build.CSRC,
-                    "-o", lib, src], check=True, capture_output=True)
+    for name in {"pairwise_nw.cu", *patches}:
+        with open(os.path.join(_build.CSRC, name)) as f:
+            text = f.read()
+        for old, new in patches.get(name, ()):
+            if text.count(old) != 1:
+                return None
+            text = text.replace(old, new)
+        with open(os.path.join(tmp, name), "w") as f:
+            f.write(text)
+    lib = os.path.join(tmp, "libpairwise_nw_patched.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", _build.CSRC, "-o", lib,
+                    os.path.join(tmp, "pairwise_nw.cu")], check=True, capture_output=True)
     return ctypes.CDLL(lib)
+
+
+def _rows_only_lib(_build, kernel="K3"):
+    """DIR's pairwise_nw.cu built with its `kernel` (K3 or K4) stopping
+    after the DP rows (-DK3_ROWS_ONLY, -DK4_ROWS_ONLY), loaded with ctypes."""
+    with open(os.path.join(_build.CSRC, "pairwise_nw.cu")) as f:
+        switch = f"{kernel}_ROWS_ONLY" in f.read()
+    cut = _EARLIER_WALK[kernel]
+    lib = _patched_lib(_build, {} if switch else {"pairwise_nw.cu": [(cut, "  return;\n" + cut)]},
+                       f"-D{kernel}_ROWS_ONLY")
+    assert lib is not None, f"unknown {kernel} source"
+    return lib
+
+
+# K4's other layout at W = 512, for `time-k4` to time against the one built:
+# a tile one warp of 16 lanes a thread, with no block barrier and no carry
+# between warps (4 rows of 32 bits a 16-byte piece; the shift register's
+# funnel shift clamped, so that a shift by 32 moves a whole word)
+_K4_ONE_WARP = {
+    "nw_rows.cuh": [
+        ("return lpt <= 4 ? 16 : 8;", "return lpt <= 4 ? 16 : (lpt <= 8 ? 8 : 4);"),
+        ("""    r0 = __funnelshift_r(r0, r1, SB);
+    r1 = __funnelshift_r(r1, r2, SB);
+    r2 = __funnelshift_r(r2, r3, SB);
+    r3 = __funnelshift_r(r3, bits, SB);""", """    r0 = __funnelshift_rc(r0, r1, SB);
+    r1 = __funnelshift_rc(r1, r2, SB);
+    r2 = __funnelshift_rc(r2, r3, SB);
+    r3 = __funnelshift_rc(r3, bits, SB);"""),
+    ],
+    "pairwise_nw.cu": [
+        ("""      const int wtot = __reduce_max_sync(kFull, tot);
+      int* xb = xs + (r & 1) * 32;
+      if (lane == 0) xb[w] = wtot;
+      __syncthreads();  // the row's one barrier: xb is read below, rewritten two rows on
+      const int carry = wc.before(xb);  // also the previous warp's last lane's x in this row
+""", """      int carry = kLow;
+      if constexpr (LPT != 16) {
+        const int wtot = __reduce_max_sync(kFull, tot);
+        int* xb = xs + (r & 1) * 32;
+        if (lane == 0) xb[w] = wtot;
+        __syncthreads();
+        carry = wc.before(xb);
+      }
+"""),
+        ("long long tiled_scratch_bytes(int T, int W) { return banded_scratch_bytes(T, W); }",
+         """long long tiled_scratch_bytes(int T, int W) {
+  const int lpt = W == 512 ? 16 : k3_lanes(W);
+  return (long long)(T / nw::chunk_rows(lpt) + 1) * (W / lpt) * (long long)sizeof(uint4);
+}"""),
+        ("  const int lpt = k3_lanes(W);\n", "  const int lpt = W == 512 ? 16 : k3_lanes(W);\n"),
+        ("    default: return k4_launch<8>(a, NP, st);",
+         "    case 16: return k4_launch<16>(a, NP, st);\n    default: return k4_launch<8>(a, NP, st);"),
+    ],
+}
 
 
 def _time_k3(pkg_dir, inputs_path):
@@ -625,6 +707,81 @@ def _time_k3(pkg_dir, inputs_path):
             b_ms, b_by = cs.bound_ms(*cs.k3_work(args[2], T, BW))
             print(json.dumps(dict(pkg=pkg_dir, shape=f"{label}: NP={NP} T={T} BW={BW}",
                                   build=build, ms=ms, bound_ms=b_ms, bound_by=b_by)),
+                  flush=True)
+        _build._libs["pairwise_nw"] = whole
+
+
+def _time_k4(pkg_dir, inputs_path):
+    """Time K4 of the package under pkg_dir, whole, rows only and, for the
+    present design, in its other layout: the wrapper, its host microseconds
+    a call and the kernel alone, each summed over a case's launches; prints
+    one JSON line a (case, build) with its bound, and ptxas's registers and
+    spills of its instantiations."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, pkg_dir)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
+
+    assert pw.__file__.startswith(os.path.abspath(pkg_dir)), pw.__file__
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(cs.SEED)
+    cs.window_inputs(rng, B=16, N=640, P=8, W=576, D=32)  # phase 1's draws before K4's
+    cs.k3_inputs(rng, dev)
+    cases = [("phase 1", [cs.k4_inputs(rng, dev)])]
+    if inputs_path:
+        z = np.load(inputs_path)
+        arrays = lambda pre: tuple(torch.from_numpy(z[pre + k]).to(dev)  # noqa: E731
+                                   for k in cs.K4_ARGS)
+        cases.append(("main path's heaviest", [arrays("")]))
+        n = sum(1 for k in z.files if k.endswith("_qlen"))
+        if n:
+            cases.append((f"phase 3's {n} launches", [arrays(f"launch{i}_") for i in range(n)]))
+    whole = pw._lib()
+    for fn, use in _build.ptxas_usage("pairwise_nw").items():
+        if "tiled_kernel" in fn:
+            print(json.dumps(dict(pkg=pkg_dir, kernel=fn, **use)), flush=True)
+    builds = [("whole", whole), ("rows only", _rows_only_lib(_build, "K4"))]
+    one_warp = _patched_lib(_build, _K4_ONE_WARP)  # None before the present design
+    if one_warp is not None:
+        builds.append(("one warp of 16 lanes", one_warp))
+    for label, launches in cases:
+        wants = [pw._tiled_plain(*args) for args in launches]
+        for build, lib in builds:
+            if not hasattr(lib, "tiled_scratch_bytes"):  # a direction byte a cell
+                lib.tiled_scratch_bytes = lambda T, W: (T + 1) * W
+            _build._libs["pairwise_nw"] = lib
+            pw._lib()  # sets the argument types of a fresh library
+            sums = dict(ms=0.0, kernel_ms=0.0, wrapper_host_us=0.0, bound_ms=0.0)
+            for args, want in zip(launches, wants):
+                (NP, T), W = args[0].shape, args[1].shape[1]
+                if "rows only" not in build:  # exact before it is timed
+                    got = pw.tiled_nw(*args)
+                    for name, g, w in zip(cs.NW_OUTPUTS, got, want):
+                        assert torch.equal(g, w), f"{build} {label}: {name} differs from plain"
+                sums["ms"] += cs.time_ms(lambda: pw.tiled_nw(*args), warmup=2, reps=20)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    pw.tiled_nw(*args)
+                sums["wrapper_host_us"] += (time.perf_counter() - t0) / 50 * 1e6
+                torch.cuda.synchronize()
+                sums["kernel_ms"] += cs.kernel_ms(cs.k4_kernel_fn(args))
+                b_ms, b_by = cs.bound_ms(*cs.k4_work(args[2], args[3], T, W))
+                sums["bound_ms"] += b_ms
+            tiles = sum(args[0].shape[0] for args in launches)
+            print(json.dumps(dict(pkg=pkg_dir, shape=f"{label}: {tiles} tiles T={T} W={W}",
+                                  build=build, launches=len(launches), **sums, bound_by=b_by,
+                                  rows=sum(int(args[2].sum()) for args in launches),
+                                  longest_tile_rows=max(int(args[2].max()) for args in launches),
+                                  steps=sum(int(want[2].sum()) for want in wants),
+                                  longest_walk=max(int(want[2].max()) for want in wants))),
                   flush=True)
         _build._libs["pairwise_nw"] = whole
 
@@ -724,6 +881,25 @@ def main(argv):
         return 0
     if len(argv) == 3 and argv[0] == "_time_k3":
         _time_k3(argv[1], argv[2])
+        return 0
+    if len(argv) >= 2 and argv[0] == "time-k4":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        inputs = ""
+        dirs = argv[1:]
+        if dirs[0] == "--inputs":
+            inputs, dirs = os.path.abspath(dirs[1]), dirs[2:]
+        for d in dirs:
+            rc = subprocess.run([sys.executable, __file__, "_time_k4", os.path.abspath(d),
+                                 inputs]).returncode
+            if rc:
+                return rc
+        return 0
+    if len(argv) == 3 and argv[0] == "_time_k4":
+        _time_k4(argv[1], argv[2])
         return 0
     if len(argv) >= 2 and argv[0] == "time-k2":
         import torch

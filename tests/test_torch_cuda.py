@@ -1428,3 +1428,84 @@ def test_wrappers_raise_on_wrong_inputs(cuda):
         pw.tiled_nw(t, q, n.cpu(), n)  # mixed devices
     with pytest.raises(ValueError):
         pw.tiled_nw(t, torch.zeros((2, 40), dtype=torch.int32, device=cuda), n, n)  # W % 32
+
+
+def _sized(rng, codes, n):
+    return np.concatenate([codes[:n], _codes(rng, max(0, n - len(codes)))])
+
+
+def k4_case(name):
+    """(query, target) tiles of one K4 case at the aligner's 512x512 bucket
+    (as `tests/test_torch_pairwise_tiles.py` models them on the CPU)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "target lengths":
+        return [(_sized(rng, encode(mutate(rng, rand_seq(rng, n), 0.08)), min(511, n + 3)),
+                 _codes(rng, n)) for n in (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 510)]
+    if name == "query lengths":
+        out = []
+        for n in (1, 31, 32, 33, 127, 128, 129, 510, 511):
+            t = rand_seq(rng, max(1, min(511, n + int(rng.integers(-5, 6)))))
+            out.append((_sized(rng, encode(mutate(rng, t, 0.08)), n), encode(t)))
+        return out
+    if name == "query much longer":
+        return [(_codes(rng, 500), _codes(rng, n)) for n in (1, 5, 40, 130)]
+    if name == "target much longer":
+        return [(_codes(rng, n), _codes(rng, 505)) for n in (1, 5, 40, 130)]
+    if name == "identical":
+        t = _codes(rng, 511)
+        return [(t, t), (t[:300], t[:300]), (t[:64], t[:64]), (t[:1], t[:1])]
+    if name == "unrelated codes":
+        return [(_codes(rng, int(rng.integers(1, 512))), _codes(rng, int(rng.integers(1, 512))))
+                for _ in range(8)] + [(_codes(rng, 3), _codes(rng, 511))]
+    if name in ("NP 1", "NP 64", "NP 512"):
+        return [(q[:511], t) for q, t in _noisy_pairs(rng, int(name.split()[1]), 400, 510)]
+    raise ValueError(name)
+
+
+K4_CASES = ("target lengths", "query lengths", "query much longer", "target much longer",
+            "identical", "unrelated codes", "NP 1", "NP 64", "NP 512")
+
+
+@pytest.mark.parametrize("case", K4_CASES)
+def test_tiled_kernel_cases_match_plain(cuda, case):
+    """K4 against its plain version at T = W = 512, all four outputs whole:
+    target lengths on both sides of a chunk, a fetch batch and a walk stage,
+    query lengths on both sides of a warp's lanes, one length far beyond the
+    other, identical and unrelated sequences, pack_tiles' padding slots, and
+    1, 64 and 512 tiles (the aligner's TILES_PER_LAUNCH) a launch."""
+    tiles = k4_case(case)
+    args = pw.tiled_inputs(*pw.pack_tiles(tiles, 512, 512), cuda)
+    if case.startswith("NP"):  # exactly that many tiles: no padding slots
+        args = tuple(a[: len(tiles)].contiguous() for a in args)
+    want = pw._tiled_plain(*args)
+    before = _build.LAUNCHES["pairwise_tiled"]
+    got = pw.tiled_nw(*args)
+    assert _build.LAUNCHES["pairwise_tiled"] == before + 1
+    for name, g, w in zip(("pt", "pq", "count", "dist"), got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("W", [32, 64, 96, 1024])
+def test_tiled_kernel_widths_match_plain(cuda, W):
+    """K4 at other tile widths: one warp of 1 or 2 lanes a thread, 3 warps,
+    and 8 lanes a thread."""
+    rng = np.random.default_rng(W)
+    tiles = [(_codes(rng, W - 1), _codes(rng, W // 2 + 1))] + [
+        (q[: W - 1], t) for q, t in _noisy_pairs(rng, 5, max(2, W // 3), W - 2)]
+    args = pw.tiled_inputs(*pw.pack_tiles(tiles, W + 8, W), cuda)
+    for name, g, w in zip(("pt", "pq", "count", "dist"), pw.tiled_nw(*args), pw._tiled_plain(*args)):
+        assert torch.equal(g, w), name
+
+
+def test_device_aligner_tiled_route_matches_cpu(cuda):
+    """`DevicePairwiseAligner` on pairs of 3-6 kb, past the banded buckets:
+    the anchor-tiled route through K4 gives the CIGARs of the same aligner
+    on "cpu" (the plain version)."""
+    pairs = _pairs(8, 4, 3000, 6000, rate=0.08)
+    gpu, cpu = pw.DevicePairwiseAligner(device=cuda), pw.DevicePairwiseAligner(device="cpu")
+    before = _build.LAUNCHES["pairwise_tiled"]
+    got = gpu.edit_align_batch(pairs)
+    assert _build.LAUNCHES["pairwise_tiled"] == before + 1
+    assert gpu.device_tiles > len(pairs) and gpu.exact_pairs == 0
+    assert got == cpu.edit_align_batch(pairs)
+    assert gpu.device_tiles == cpu.device_tiles

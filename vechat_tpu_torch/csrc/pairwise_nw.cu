@@ -9,6 +9,11 @@
 // I). The plain PyTorch versions in ops/kernels/pairwise_nw.py compute the
 // same outputs.
 //
+// Both kernels keep a thread's LPT lanes of a row in registers, a row's
+// values as x = H + lane, one block barrier a row, 2-bit direction codes in
+// a scratch buffer of their own layout and a traceback walk fed from shared
+// memory: the machinery they share is csrc/nw_rows.cuh.
+//
 // K3, banded_kernel: one block per pair, 4 warps when BW is a multiple of
 // 128 (both production buckets; BW / 128 band lanes a thread, 7 at BW 896),
 // else BW / LPT threads for LPT 2 or 1; thread t owns lanes [t*LPT,
@@ -29,50 +34,31 @@
 // shuffle. Rows whose lanes all lie inside the DP matrix (1 <= j <= qlen)
 // skip the band-edge selects (a choice per warp). After the rows the block
 // stages the direction rows the walk needs into shared memory, 64 rows at
-// a time, double-buffered
-// with cp.async, and thread 0 walks them with the current 16-byte piece in
-// registers; the block then fills pt/pq's unused head with -2. What bounds
+// a time, double-buffered with cp.async, and thread 0 walks them with the
+// current 16-byte piece in registers; the block then fills pt/pq's unused
+// head with -2. What bounds
 // it is latency: a row's chain of dependent steps (shuffle, ballots, the
 // barrier, the carry's shared-memory load) at one or two warps to a
 // scheduler, and the walk's dependent steps in one thread (k1_probe.py
 // time-k3 times the rows alone; PERF.md).
 //
-// K4 is described above its kernel.
+// K4, tiled_kernel: the full NW of one 512x512 tile (lane j = query
+// position j - 1), K3's structure without the band edges; described above
+// its kernel.
 
-#include <climits>
-
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
-#include "block_scan.cuh"
+#include "nw_rows.cuh"
 
 namespace {
 
 constexpr int kNeg = -(1 << 28);
-constexpr unsigned kFull = 0xffffffffu;
-// below every x value a row can hold (kNeg - 2 at the least)
-constexpr int kLow = -(1 << 30);
+using nw::kFull;
+using nw::kLow;  // below every x value a row can hold (kNeg - 2 at the least)
 
 template <bool B>
 struct Flag {
   static constexpr bool value = B;
-};
-
-// The direction codes of a thread's LPT lanes, 2*LPT bits a row, fill a
-// slot of SB bits (8 up to LPT 4, else 16: 14 of them used at LPT 7); a
-// 16-byte piece holds CR = 128 / SB rows (a chunk). Scratch layout, private
-// to the kernel: [pair][chunk][thread] pieces, row k of a chunk at bit k *
-// SB of the piece (word k / RPW), lane j of the thread 2 bits above. A walk
-// stage holds 64 rows.
-constexpr int k3_chunk_rows(int lpt) { return lpt <= 4 ? 16 : 8; }
-
-template <int LPT>
-struct K3Layout {
-  static constexpr int CR = k3_chunk_rows(LPT);
-  static constexpr int SB = 128 / CR;
-  static constexpr int RPW = 32 / SB;
-  static constexpr int STAGE = 64;
-  static constexpr int MAXW = LPT >= 3 ? 4 : 32;  // warps a block can have
 };
 
 struct K3Args {
@@ -89,13 +75,14 @@ struct K3Args {
   int T, BW, nchunk;
 };
 
+
 // Row r = target position (row 0 the boundary), lane l = diagonal offset,
 // query position j = r + lo + l; the plain version's H[l] is kept as x =
 // H[l] + l, in which the horizontal chain is a plain prefix max and every
 // tie test is unchanged. Rows past the target length are never computed.
 template <int LPT>
 __global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) banded_kernel(const K3Args a) {
-  using Lay = K3Layout<LPT>;
+  using Lay = nw::Layout<LPT>;
   constexpr int SB = Lay::SB, MAXW = Lay::MAXW;
   // per row parity, the warps' totals [0, 32) and their first
   // lanes' x [32, 64); then the walk's state
@@ -129,19 +116,8 @@ __global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) banded_kernel(const K3A
     const int jv = lod + ln;
     nextG = ln >= BW ? kNeg + BW : ((jv >= 0 && jv <= lq) ? -lod : kNeg + ln);
   }
-  // the codes: a 128-bit shift register of SB-bit row slots, the oldest
-  // row lowest; full after CR rows
-  unsigned sr0 = 0, sr1 = 0, sr2 = 0, sr3 = 0;
-  auto push = [&](unsigned bits) {
-    sr0 = __funnelshift_r(sr0, sr1, SB);
-    sr1 = __funnelshift_r(sr1, sr2, SB);
-    sr2 = __funnelshift_r(sr2, sr3, SB);
-    sr3 = __funnelshift_r(sr3, bits, SB);
-  };
-  auto store = [&](int r) {  // the chunk ending at row r
-    dirp[(size_t)(r / Lay::CR) * NT + t] = make_uint4(sr0, sr1, sr2, sr3);
-  };
-  push(0xAAAAAAAAu >> (32 - 2 * LPT));
+  nw::CodeShift<Lay::SB> codes;
+  codes.push(0xAAAAAAAAu >> (32 - 2 * LPT));
 
   // target codes and the query code entering the warp's window, 32 rows a
   // batch: lane k holds row r0 + k's
@@ -154,9 +130,7 @@ __global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) banded_kernel(const K3A
   fetch(0);
 
   int gdown = __shfl_down_sync(kFull, G[0], 1);
-  int cap[MAXW];
-#pragma unroll
-  for (int v = 0; v < MAXW; ++v) cap[v] = v < w ? INT_MAX : kLow;
+  const nw::WarpCarry<MAXW> wc(w);
   int s[LPT], dg[LPT], vt[LPT];
   for (int r0 = 0; r0 < lt; r0 += 32) {
     const int ctc = ntc, cqin = nqin;
@@ -191,15 +165,11 @@ __global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) banded_kernel(const K3A
       };
       if (inner) cand(Flag<false>());
       else cand(Flag<true>());
-      // the horizontal chain across the warp's threads. Within the band
-      // (0 <= j <= qlen) the edit-distance DP keeps x nondecreasing along a
-      // row and each cell at most 1 above its own candidates, so a thread's
-      // prefix from the left is its left neighbour's total T or T + 1: a
-      // carry bit, generated where the neighbour's total is 1 above this
-      // thread's and passed on where they are equal, which two ballots and
-      // one add settle for all 32 threads (lanes outside the matrix are
-      // masked below, whatever their carry). The warp's total goes to the
-      // other warps first, and the carry bits are settled behind the barrier
+      // the horizontal chain across the warp's threads by the carry bit of
+      // nw::carry_excl, which holds within the band (0 <= j <= qlen); lanes
+      // outside the matrix are masked below, whatever their carry. The
+      // warp's total goes to the other warps first, and the carry bits are
+      // settled behind the barrier
       const int tot = s[LPT - 1];
       const int tl = __shfl_up_sync(kFull, tot, 1);
       const int wtot = __reduce_max_sync(kFull, tot);
@@ -209,19 +179,8 @@ __global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) banded_kernel(const K3A
         xb[32 + w] = s[0];
       }
       __syncthreads();  // the row's one barrier: xb is read below, rewritten two rows on
-      const unsigned gen = __ballot_sync(kFull, lane > 0 && tl - tot == 1);
-      const unsigned pro = __ballot_sync(kFull, lane > 0 && tl == tot) | gen;
-      const unsigned cin = (pro + gen) ^ pro ^ gen;  // bit t: the carry into thread t
-      int excl = lane == 0 ? kLow : tl + (int)((cin >> lane) & 1u);
-      // the carry into the warp: the max of the totals of the warps before
-      // it (cap[v] passes warp v's total only for v < w)
-      int carry = kLow;
-#pragma unroll
-      for (int v = 0; v < MAXW; v += 4) {
-        const int4 q = *reinterpret_cast<const int4*>(xb + v);
-        carry = max(carry, max(max(min(q.x, cap[v]), min(q.y, cap[v + 1])),
-                               max(min(q.z, cap[v + 2]), min(q.w, cap[v + 3]))));
-      }
+      int excl = nw::carry_excl(tot, tl, lane);
+      const int carry = wc.before(xb);
       excl = max(excl, carry);
       if (ln < BW) {
         const int jv = r + lod + ln;
@@ -245,8 +204,8 @@ __global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) banded_kernel(const K3A
       if (inner) fin(Flag<false>());
       else fin(Flag<true>());
       gdown = __shfl_down_sync(kFull, G[0], 1);  // the next row's right neighbour
-      push(bits);
-      if (((r + 1) & (Lay::CR - 1)) == 0) store(r);
+      codes.push(bits);
+      if (((r + 1) & (Lay::CR - 1)) == 0) codes.store(dirp + (size_t)(r / Lay::CR) * NT + t);
       // slide the query window: lane l's code at row r+1 is lane l+1's at r
       const int qn = __shfl_down_sync(kFull, qc[0], 1);
 #pragma unroll
@@ -256,8 +215,8 @@ __global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) banded_kernel(const K3A
   }
   // the last, partial chunk
   if (((lt + 1) & (Lay::CR - 1)) != 0) {
-    for (int k = (lt + 1) & (Lay::CR - 1); k < Lay::CR; ++k) push(0);
-    store(lt);
+    for (int k = (lt + 1) & (Lay::CR - 1); k < Lay::CR; ++k) codes.push(0);
+    codes.store(dirp + (size_t)(lt / Lay::CR) * NT + t);
   }
   const int ls = lq - lt - lod;  // lane of (tlen, qlen)
   if (ls < 0 || ls >= BW) {
@@ -273,25 +232,8 @@ __global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) banded_kernel(const K3A
 
   // the walk: diag -> (i-1, l); vert -> (i-1, l+1); horiz -> (i, l-1). The
   // step bound and the clipping stop the walks of pairs that overflow the
-  // band. Rows are staged 64 at a time (SC chunks), the next stage copied
-  // while thread 0 walks the current one
-  __syncthreads();  // every thread's direction rows are in global memory
+  // band
   int* ws = xs + 128;  // the walk's state
-  constexpr int SC = Lay::STAGE / Lay::CR;
-  const int used = lt / Lay::CR + 1;  // chunks holding rows 0..lt
-  auto load = [&](int sg) {
-    if (sg >= 0) {
-      uint4* dst = stage + (size_t)(sg & 1) * SC * NT;
-      for (int c = sg * SC; c < min(sg * SC + SC, used); ++c)
-        __pipeline_memcpy_async(dst + (size_t)(c - sg * SC) * NT + t, dirp + (size_t)c * NT + t,
-                                sizeof(uint4));
-    }
-    __pipeline_commit();
-  };
-  int sg = lt / Lay::STAGE;
-  load(sg);
-  load(sg - 1);
-  __pipeline_wait_prior(1);
   short* ptp = a.pt + (size_t)p * L;
   short* pqp = a.pq + (size_t)p * L;
   const bool started = !(lt == 0 && lq == 0);
@@ -299,15 +241,16 @@ __global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) banded_kernel(const K3A
   short* opt = ptp + L;  // the walk's next pair goes just below these
   short* opq = pqp + L;
   bool ok = started;
-  __syncthreads();
+  nw::Stages<LPT> st(dirp, stage, NT, lt);
   while (true) {
     if (t == 0) {
-      const uint4* sp = stage + (size_t)(sg & 1) * SC * NT;
-      const int base = sg * Lay::STAGE;
+      const uint4* sp = st.pieces();
+      const int base = st.base();
       // the walker's cell: the 16-byte piece holding it, in registers; its
       // word wd, row kr in the word, lane sub of the piece's thread, and bit
       // = kr * SB + 2 * sub. A step inside the piece moves these by
-      // increments; one that leaves it, or a clipped lane, places it anew
+      // increments (a diagonal step keeps the lane); one that leaves it, or
+      // a clipped lane, places it anew
       uint4 pc;
       unsigned word;
       int wd, kr, sub, bit;
@@ -348,103 +291,211 @@ __global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) banded_kernel(const K3A
     }
     __syncthreads();
     if (!ws[0]) break;  // every thread leaves together
-    --sg;               // the walk went up into the stage below
-    load(sg - 1);       // into the buffer just walked
-    __pipeline_wait_prior(1);
-    __syncthreads();
+    st.next();
   }
   // thread 0's state: the walk's length; the rest of pt/pq is -2
-  if (t == 0) {
-    a.count[p] = started ? wk : 0;
-    ws[1] = wk;
-  }
-  __syncthreads();
-  const int fill = L - ws[1];
-  for (int x = t; x < fill; x += blockDim.x) {
-    ptp[x] = -2;
-    pqp[x] = -2;
-  }
+  if (t == 0) a.count[p] = started ? wk : 0;
+  nw::fill_head(ptp, pqp, L, ws + 1, wk);
 }
 
 // lanes a thread of K3 at band width BW: 4 warps a pair where BW is a
 // multiple of 128, else BW / LPT threads in whole warps
 int k3_lanes(int BW) { return BW % 128 == 0 ? BW / 128 : (BW % 64 == 0 ? 2 : 1); }
 
+// two walk stages of NT pieces a chunk: above 48 KB (over 384 threads, at
+// widths that are not multiples of 128) only after opting in
 template <int LPT>
-int k3_launch(const K3Args& a, int NP, cudaStream_t stream) {
-  using Lay = K3Layout<LPT>;
-  const int NT = a.BW / LPT;
-  // two walk stages: above 48 KB (BW / LPT over 384 threads, at widths
-  // that are not multiples of 128) only after opting in
-  const size_t smem = 2 * (size_t)(Lay::STAGE / Lay::CR) * NT * sizeof(uint4);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        banded_kernel<LPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  banded_kernel<LPT><<<NP, NT, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+size_t walk_stage_bytes(int NT) {
+  return 2 * (size_t)nw::Layout<LPT>::SC * NT * sizeof(uint4);
 }
 
-// K4: full NW of one tile, lane j = query position j-1 (lane 0 = the j = 0
-// boundary column). Rows past the target length are never read. One block
-// per tile, one thread per lane: the H row in shared memory, a block-wide
-// max-scan per row (two barriers) and a third barrier, a direction byte a
-// cell in global scratch that one thread walks back. Bound by the row's
-// barriers and the walk's dependent loads; K3's structure would suit it.
-__global__ void tiled_kernel(
-    const int* __restrict__ tcodes,  // [NP, T]
-    const int* __restrict__ qcodes,  // [NP, W] lane j = q[j-1]
-    const int* __restrict__ tlen, const int* __restrict__ qlen,
-    signed char* __restrict__ dir,   // [NP, T+1, W] scratch
-    int* __restrict__ pt, int* __restrict__ pq,  // [NP, T + W] -2-filled
-    int* __restrict__ count, int* __restrict__ dist,
-    int T, int W) {
-  extern __shared__ int smem[];
-  int* warp_buf = smem;
-  int* Hs = smem + 32;  // [W] the current row
-  const int p = blockIdx.x, j = threadIdx.x, L = T + W;
-  const int lt = tlen[p], lq = qlen[p];
-  const int* tc = tcodes + (size_t)p * T;
-  const int qc = qcodes[(size_t)p * W + j];
-  signed char* Dp = dir + (size_t)p * (T + 1) * W;
+template <class Kernel>
+int launch_staged(Kernel kernel, int NP, int NT, size_t smem, cudaStream_t stream,
+                  const void* args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  void* argv[] = {const_cast<void*>(args)};
+  return (int)cudaLaunchKernel((const void*)kernel, dim3(NP), dim3(NT), argv, smem, stream);
+}
 
-  Hs[j] = -j;
-  Dp[j] = 2;
-  __syncthreads();
-  for (int r = 0; r < lt; ++r) {
-    const int prof = qc == tc[r] ? 0 : -1;
-    const int diag = (j == 0 ? kNeg : Hs[j - 1]) + prof;
-    const int vert = Hs[j] - 1;
-    const int val = j == 0 ? vert : max(diag, vert);
-    const int run = vk::block_prefix_max(val + j, warp_buf) - j;
-    // every read of Hs in this row happened before the scan's barriers
-    Hs[j] = run;
-    Dp[(size_t)(r + 1) * W + j] = run == diag ? 0 : (run == vert ? 1 : 2);
-    __syncthreads();
+template <int LPT>
+int k3_launch(const K3Args& a, int NP, cudaStream_t stream) {
+  const int NT = a.BW / LPT;
+  return launch_staged(banded_kernel<LPT>, NP, NT, walk_stage_bytes<LPT>(NT), stream, &a);
+}
+
+// K4: the full NW of one tile. Lane j = query position j - 1 (lane 0 the
+// j = 0 column, every lane past qlen a cell of the pad 0xFF, which no target
+// code matches); row r = target position r - 1; rows past the target length
+// are never computed. One block a tile, W / LPT threads (4 warps of 4 lanes
+// at W = 512), K3's row machinery without the band edges: x = H + j, so the
+// diagonal is the left lane's previous x + 1 + profile (by __shfl_up_sync,
+// at a warp boundary the carry into the warp of the row before, which is
+// that lane's x), the vertical the lane's own previous x - 1, and the
+// horizontal chain a prefix max: serial over the thread's lanes, the carry
+// bit across the warp (every lane is a cell of an edit-distance DP, so it
+// holds on all of them), the warps' totals behind the row's one barrier.
+// The target codes come 32 rows a batch by shuffle; a lane's query code is
+// fixed. 2-bit codes a cell (68 KB a 512x512 tile in scratch, against a
+// byte a cell before), and the walk from 64-row stages in shared memory, as
+// K3's; the block writes the -2 head. It replaced a thread a lane: the H
+// row in shared memory, a block-wide scan a row (three barriers), a
+// direction byte a cell in global scratch, pt/pq filled with -2 by the
+// wrapper. What bounds it is latency: a row's chain of dependent steps
+// (~0.17 us a row) and the walk's (~0.03 us a step), at one warp to a
+// scheduler (k1_probe.py time-k4; PERF.md). One warp a tile of 16 lanes a
+// thread, without the barrier, took 1.4x as long at 64 tiles and 0.68x at
+// 456, and more launches on the main path carry few tiles (PERF.md).
+struct K4Args {
+  const int* tcodes;  // [NP, T]
+  const int* qcodes;  // [NP, W] lane j = q[j - 1]
+  const int* tlen;
+  const int* qlen;
+  uint4* dir;         // [NP, nchunk, W / LPT] packed direction codes (scratch)
+  int* pt;            // [NP, T + W]
+  int* pq;
+  int* count;         // [NP]
+  int* dist;
+  int T, W, nchunk;
+};
+
+template <int LPT>
+__global__ void __launch_bounds__(LPT >= 3 ? 128 : 1024) tiled_kernel(const K4Args a) {
+  using Lay = nw::Layout<LPT>;
+  // per row parity the warps' totals [0, 32); then the walk's state
+  __shared__ __align__(16) int xs[2 * 32 + 4];
+  extern __shared__ __align__(16) uint4 stage[];  // the walk's two stages
+  const int T = a.T, W = a.W, L = T + W;
+  const int NT = W / LPT;
+  int t = threadIdx.x;
+  asm volatile("" : "+r"(t));  // kept in a register, not re-read from SR_TID in the row loop
+  const int lane = t & 31, w = t >> 5;
+  const int l0 = t * LPT;  // the thread's first lane
+  const int p = blockIdx.x;
+  const int lt = a.tlen[p], lq = a.qlen[p];
+  const int* tc = a.tcodes + (size_t)p * T;
+  uint4* dirp = a.dir + (size_t)p * a.nchunk * NT;
+
+  // row 0: H = -j, so x = 0 on every lane; every code 2
+  int G[LPT], qc[LPT];
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    G[j] = 0;
+    qc[j] = a.qcodes[(size_t)p * W + l0 + j];
   }
-  if (j != 0) return;
-  dist[p] = -((lq >= 0 && lq < W) ? Hs[lq] : kNeg);
-  int* ptp = pt + (size_t)p * L;
-  int* pqp = pq + (size_t)p * L;
+  nw::CodeShift<Lay::SB> codes;
+  codes.push(0xAAAAAAAAu >> (32 - 2 * LPT));
+
+  // target codes 32 rows a batch: lane k holds row r0 + k's
+  int ntc = 0;
+  auto fetch = [&](int r0) { ntc = r0 + lane < lt ? tc[r0 + lane] : 0; };
+  fetch(0);
+
+  // the left lane's previous x: from the thread to the left, and at the
+  // warp's first thread the previous warp's last lane (none for warp 0)
+  int gl = __shfl_up_sync(kFull, G[LPT - 1], 1);
+  int leftw = w == 0 ? kLow : 0;
+  const nw::WarpCarry<Lay::MAXW> wc(w);
+  int s[LPT], dg[LPT];
+  for (int r0 = 0; r0 < lt; r0 += 32) {
+    const int ctc = ntc;
+    if (r0 + 32 < lt) fetch(r0 + 32);
+    const int rows = min(32, lt - r0);
+    for (int k = 0; k < rows; ++k) {
+      const int r = r0 + k + 1;
+      const int code = __shfl_sync(kFull, ctc, k);
+      const int left = lane == 0 ? leftw : gl;
+      // candidates and the serial scan over the thread's lanes
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) {
+        const int dx = (j == 0 ? left : G[j - 1]) + (qc[j] == code ? 1 : 0);
+        const int x = max(dx, G[j] - 1);
+        dg[j] = dx;
+        s[j] = j == 0 ? x : max(s[j - 1], x);
+      }
+      const int tot = s[LPT - 1];
+      const int tl = __shfl_up_sync(kFull, tot, 1);
+      const int wtot = __reduce_max_sync(kFull, tot);
+      int* xb = xs + (r & 1) * 32;
+      if (lane == 0) xb[w] = wtot;
+      __syncthreads();  // the row's one barrier: xb is read below, rewritten two rows on
+      const int carry = wc.before(xb);  // also the previous warp's last lane's x in this row
+      const int excl = max(nw::carry_excl(tot, tl, lane), carry);
+      leftw = carry;
+      // the row's values and direction codes (diagonal > vertical > horizontal)
+      unsigned bits = 0;
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) {
+        const int R = max(s[j], excl);
+        const unsigned c = R == dg[j] ? 0u : (R == G[j] - 1 ? 1u : 2u);
+        bits |= c << (2 * j);
+        G[j] = R;
+      }
+      gl = __shfl_up_sync(kFull, G[LPT - 1], 1);
+      codes.push(bits);
+      if (((r + 1) & (Lay::CR - 1)) == 0) codes.store(dirp + (size_t)(r / Lay::CR) * NT + t);
+    }
+  }
+  // the last, partial chunk
+  if (((lt + 1) & (Lay::CR - 1)) != 0) {
+    for (int k = (lt + 1) & (Lay::CR - 1); k < Lay::CR; ++k) codes.push(0);
+    codes.store(dirp + (size_t)(lt / Lay::CR) * NT + t);
+  }
+  if (lq < 0 || lq >= W) {
+    if (t == 0) a.dist[p] = -kNeg;
+  } else {
+#pragma unroll
+    for (int j = 0; j < LPT; ++j)
+      if (l0 + j == lq) a.dist[p] = lq - G[j];
+  }
+#ifdef K4_ROWS_ONLY
+  return;  // k1_probe.py times the rows alone with this build
+#endif
+
+  // the walk from (tlen, qlen): diag -> (i-1, j-1); vert -> (i-1, j);
+  // horiz -> (i, j-1). It ends at (0, 0), within tlen + qlen < L steps; a
+  // qlen outside the row reads its nearest lane, as the plain version does
+  int* ws = xs + 64;  // the walk's state
+  int* ptp = a.pt + (size_t)p * L;
+  int* pqp = a.pq + (size_t)p * L;
   const bool started = !(lt == 0 && lq == 0);
+  int wi = lt, wl = lq, wk = 0;
+  int* opt = ptp + L;  // the walk's next pair goes just below these
+  int* opq = pqp + L;
   bool ok = started;
-  int i = lt, jj = lq, k = 0;
-  // a walk from (tlen, qlen) ends within tlen + qlen < L steps; the bound
-  // only keeps malformed input inside the buffers
-  while (ok && k < L) {
-    const int dv = Dp[(size_t)i * W + jj];
-    const bool dg = dv == 0, vt = dv == 1;
-    const int pi = (dg || vt) ? i - 1 : i;
-    const int pj = (dg || !vt) ? jj - 1 : jj;
-    ptp[L - 1 - k] = i == pi ? -1 : i - 1;
-    pqp[L - 1 - k] = jj == pj ? -1 : jj - 1;
-    i = pi;
-    jj = pj;
-    ++k;
-    ok = !(i == 0 && jj == 0);
+  nw::Stages<LPT> st(dirp, stage, NT, lt);
+  while (true) {
+    if (t == 0) {
+      const int base = st.base();
+      bool on = ok && wk < L;
+      while (on) {
+        const int dv = st.code(wi - base, min(max(wl, 0), W - 1));
+        const bool up = dv < 2, vtv = dv == 1;  // diagonal or vertical: up a row
+        *--opt = up ? wi - 1 : -1;
+        *--opq = vtv ? -1 : wl - 1;
+        ++wk;
+        wi -= up;
+        wl -= !vtv;  // diagonal or horizontal: a lane left
+        ok = !(wi == 0 && wl == 0);
+        on = ok && wk < L && wi >= base;
+      }
+      ws[0] = ok && wk < L;
+    }
+    __syncthreads();
+    if (!ws[0]) break;  // every thread leaves together
+    st.next();
   }
-  count[p] = started ? k : 0;
+  if (t == 0) a.count[p] = started ? wk : 0;
+  nw::fill_head(ptp, pqp, L, ws + 1, wk);
+}
+
+template <int LPT>
+int k4_launch(const K4Args& a, int NP, cudaStream_t stream) {
+  const int NT = a.W / LPT;
+  return launch_staged(tiled_kernel<LPT>, NP, NT, walk_stage_bytes<LPT>(NT), stream, &a);
 }
 
 }  // namespace
@@ -455,7 +506,7 @@ const char* cuda_error_string(int e) { return cudaGetErrorString((cudaError_t)e)
 
 long long banded_scratch_bytes(int T, int BW) {
   const int lpt = k3_lanes(BW);
-  return (long long)(T / k3_chunk_rows(lpt) + 1) * (BW / lpt) * (long long)sizeof(uint4);
+  return (long long)(T / nw::chunk_rows(lpt) + 1) * (BW / lpt) * (long long)sizeof(uint4);
 }
 
 int banded_launch(const int* tcodes, const int* ext, const int* tlen, const int* qlen,
@@ -464,7 +515,7 @@ int banded_launch(const int* tcodes, const int* ext, const int* tlen, const int*
   if (BW % 32 != 0 || BW < 32 || BW > 1024 || T < 0) return (int)cudaErrorInvalidValue;
   const int lpt = k3_lanes(BW);
   const K3Args a{tcodes, ext, tlen, qlen, lo, static_cast<uint4*>(dir), pt, pq, count, dist,
-                 T, BW, T / k3_chunk_rows(lpt) + 1};
+                 T, BW, T / nw::chunk_rows(lpt) + 1};
   cudaStream_t st = (cudaStream_t)stream;
   switch (lpt) {
     case 1: return k3_launch<1>(a, NP, st);
@@ -478,13 +529,28 @@ int banded_launch(const int* tcodes, const int* ext, const int* tlen, const int*
   }
 }
 
+long long tiled_scratch_bytes(int T, int W) { return banded_scratch_bytes(T, W); }
+
+// K4 takes K3's lanes a thread at W (4 warps of W / 128 lanes where W is a
+// multiple of 128) and so its scratch layout
 int tiled_launch(const int* tcodes, const int* qcodes, const int* tlen, const int* qlen,
-                 signed char* dir, int* pt, int* pq, int* count, int* dist, int NP, int T,
-                 int W, void* stream) {
-  const size_t smem = (32 + (size_t)W) * sizeof(int);
-  tiled_kernel<<<NP, W, smem, (cudaStream_t)stream>>>(
-      tcodes, qcodes, tlen, qlen, dir, pt, pq, count, dist, T, W);
-  return (int)cudaGetLastError();
+                 void* dir, int* pt, int* pq, int* count, int* dist, int NP, int T, int W,
+                 void* stream) {
+  if (W % 32 != 0 || W < 32 || W > 1024 || T < 0) return (int)cudaErrorInvalidValue;
+  const int lpt = k3_lanes(W);
+  const K4Args a{tcodes, qcodes, tlen, qlen, static_cast<uint4*>(dir), pt, pq, count, dist,
+                 T, W, T / nw::chunk_rows(lpt) + 1};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (lpt) {
+    case 1: return k4_launch<1>(a, NP, st);
+    case 2: return k4_launch<2>(a, NP, st);
+    case 3: return k4_launch<3>(a, NP, st);
+    case 4: return k4_launch<4>(a, NP, st);
+    case 5: return k4_launch<5>(a, NP, st);
+    case 6: return k4_launch<6>(a, NP, st);
+    case 7: return k4_launch<7>(a, NP, st);
+    default: return k4_launch<8>(a, NP, st);
+  }
 }
 
 }  // extern "C"

@@ -8,7 +8,7 @@ kept beside its library (`ptxas_usage`). A library is rebuilt when its source (o
 build raises with nvcc's stderr; there is no fallback.
 
 The launch counters live here too: every wrapper adds one to its kernel's
-count where it launches the kernel, and nowhere else; K1's and K3's
+count where it launches the kernel, and nowhere else; K1's, K3's and K4's
 wrappers also tally their launch shapes.
 """
 
@@ -51,6 +51,8 @@ LAUNCHES: Dict[str, int] = {
 K1_SHAPES: Dict[tuple, int] = {}
 # K3's launch shapes since the last reset_launches(): (T, BW, NP) -> launches
 K3_SHAPES: Dict[tuple, int] = {}
+# K4's launch shapes since the last reset_launches(): (NP, T, W) -> launches
+K4_SHAPES: Dict[tuple, int] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -61,6 +63,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
     K1_SHAPES.clear()
     K3_SHAPES.clear()
+    K4_SHAPES.clear()
 
 
 def resolve_device(device) -> "torch.device":

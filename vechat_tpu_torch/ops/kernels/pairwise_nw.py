@@ -8,15 +8,16 @@ Replaces `vechat_tpu/ops/kernels/pairwise_pallas.py`: `_kernel_banded`
 `_pairwise_nw_pallas_impl`). Ties break M > D > I as in the host oracle
 (ops/pairwise.py), so accepted banded CIGARs equal `edit_align`'s.
 
-Both kernels run one thread block per pair. K3 gives a pair 4 warps (BW a
-multiple of 128; BW / 128 band lanes a thread, in registers) and one block
-barrier a row, and writes 2-bit direction codes (about 0.66 MB a pair at
-2560x896) to a scratch buffer in its own layout; the block then stages
-those rows in shared memory, 64 at a time, for one thread's walk. K4 runs
-one thread per lane, a block-wide max-scan a row, an int8 direction matrix
-in global scratch and a walk over it. Both are bound by the latency of a
-row's chain and of the walk's steps, not by bytes or operations; the grid
-fills the card with one block per pair.
+Both kernels run one thread block per pair (K4: per tile) on the same row
+machinery (`csrc/nw_rows.cuh`): 4 warps where the width is a multiple of
+128 (K3: BW / 128 band lanes a thread; K4: W / 128 query lanes, 4 at 512),
+the lanes in registers, one block barrier a row, and 2-bit direction codes
+(about 0.66 MB a pair at 2560x896, 68 KB a 512x512 tile) written to a
+scratch buffer in their own layout; the block then stages those rows in
+shared memory, 64 at a time, for one thread's walk, and writes the -2
+head of pt/pq itself. Both are bound by the latency of a row's chain and
+of the walk's steps, not by bytes or operations; the grid fills the card
+with one block per pair.
 
 The public functions keep the JAX package's layouts ([B, T, 1, S] target
 codes, [B, 1, S] lengths, S pairs per program); the wrappers reshape to one
@@ -53,6 +54,8 @@ def _lib():
         lib.banded_scratch_bytes.restype = ctypes.c_longlong
         lib.tiled_launch.argtypes = _TILED_ARGS
         lib.tiled_launch.restype = ctypes.c_int
+        lib.tiled_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.tiled_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -286,7 +289,7 @@ def tiled_nw(t, q, tlen, qlen):
 
     Returns pt, pq [NP, T+W] int32 (walk pairs right-aligned, -2 padding,
     -1 = gap), count, dist [NP] int32. CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel or raise. Both take 0 <= tlen <= T."""
     NP, T = t.shape
     W = q.shape[1]
     dev = t.device
@@ -299,13 +302,15 @@ def tiled_nw(t, q, tlen, qlen):
     if W % 32 or W > 1024:
         raise ValueError(f"W={W} must be a multiple of 32 and <= 1024")
     L = T + W
-    pt = torch.full((NP, L), -2, dtype=torch.int32, device=dev)
-    pq = torch.full((NP, L), -2, dtype=torch.int32, device=dev)
+    # the kernel writes every element: the walk's pairs and the -2 before them
+    pt = torch.empty((NP, L), dtype=torch.int32, device=dev)
+    pq = torch.empty((NP, L), dtype=torch.int32, device=dev)
     count = torch.empty(NP, dtype=torch.int32, device=dev)
     dist = torch.empty(NP, dtype=torch.int32, device=dev)
     if NP == 0:
         return pt, pq, count, dist
-    scratch = torch.empty((NP, T + 1, W), dtype=torch.int8, device=dev)
+    # the 2-bit direction codes, in the kernel's own layout
+    scratch = torch.empty(NP * _lib().tiled_scratch_bytes(T, W), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().tiled_launch(
             t.data_ptr(), q.data_ptr(), tlen.data_ptr(), qlen.data_ptr(), scratch.data_ptr(),
@@ -314,6 +319,7 @@ def tiled_nw(t, q, tlen, qlen):
         )
     _build.check(_lib(), rc, "pairwise_tiled")
     _build.LAUNCHES["pairwise_tiled"] += 1
+    _build.K4_SHAPES[(NP, T, W)] = _build.K4_SHAPES.get((NP, T, W), 0) + 1
     return pt, pq, count, dist
 
 
