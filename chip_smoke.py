@@ -58,23 +58,35 @@ Phases (each raises on failure; the script exits non-zero on any):
      byte for byte; (c) the reference's command on the card, in four
      chunks of 25 reads, byte for byte, then one checkpoint of each round
      deleted and the command run again
+  6. the device prune cycle (VECHAT_DEVICE_CYCLE=1: round 1's prune,
+     realign and emit cycle on the card, G1 and G2 with K1 and the dense
+     walk): (a) both goldens through `vechat --backend cuda`, byte for byte
+     against the committed goldens; (b) the first 100 reads of phase 3's
+     community, byte for byte against the host run of 5b and 5c; the
+     windows on the card and on the host route by reason, dispatches, the
+     cycle's pack/device/fetch seconds, cc_min_labels' rounds, and the
+     launches and device seconds of K1, the dense walk, G1 and G2; then G1
+     and G2 on the inputs of their heaviest launches, each held to its plain
+     version and timed (wrapper, kernel alone, plain)
 
 The phases run one after another. One process runs beside them: the
-reference of 5b and 5c on the host engine, which needs no card. It is
+reference of 5b, 5c and 6b on the host engine, which needs no card. It is
 started once phase 3d has ended and is waited for at 5b, so the walls of
 phases 4, 5a and 5b are taken with that one process on another of the
-host's cores; those of phases 1 to 3d and 5c with nothing.
+host's cores; those of phases 1 to 3d, 5c and 6 with nothing.
 
 The second-to-last line is {"kernels": [...]} with, per kernel, its launches
-on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; K7:
-the measurement; counts set to 0 just before each), the largest difference
+on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; G1
+and G2: phase 6; K7: the measurement; counts set to 0 just before each), the
+largest difference
 from its plain version (0: the tolerance is exact), its time, the plain
 version's time and the bound (the least time the card could take for
 the same work), each time the wrapper's by CUDA events (K2, the
 expansion, the dense walk, K4, K5 and K6 also give `kernel_ms`, the kernel
-alone: `walk_expand_rows`, `dense_kernel_ms`, `k4_row`, `check_gap_launch`);
-K1's, K2's and the expansion's are at phase 3b's heaviest
-shape, K3's at 3c's launch and K4's at 3d's, which their entries name
+alone: `walk_expand_rows`, `dense_kernel_ms`, `k4_row`, `check_gap_launch`,
+`graph_kernel_row`); K1's, K2's and the expansion's are at phase 3b's heaviest
+shape, K3's at 3c's launch, K4's at 3d's and G1's and G2's at phase 6's
+heaviest launches, which their entries name
 (phase 1's rows, K3's 256 pairs with its accepted pairs among them and
 K4's 64 tiles, stay lines of their own). The last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout, it exits
@@ -1431,7 +1443,8 @@ def _last_counters(log_path):
                 line = ln
     if line is None:
         return {}
-    return {k: int(v) for k, v in (kv.split("=") for kv in line.split("counters:")[1].split())}
+    return {k: float(v) if "." in v else int(v)
+            for k, v in (kv.split("=") for kv in line.split("counters:")[1].split())}
 
 
 def _same_bytes(a, b):
@@ -1693,6 +1706,174 @@ def scale_out_phase(tmp, reads_path, stream_host, n_reads, backend_name="cuda",
     return launches_5a, dense_row
 
 
+# ------------------------------------------ phase 6: the device prune cycle
+
+# a step of G1 or G2, counted at the function's work: the top's frame from
+# the stack, the degree, a slot's node and its bit (4 loads), 3 compares and
+# the ballot's pick (first or last set bit), and lane 0's 4 stores (frame,
+# bit, id or rank, stack)
+GRAPH_OPS_STEP = 12
+CYCLE_KERNELS = ("graph_dfs", "graph_topo")
+
+
+def graph_work(name, args, got):
+    """(bytes, counted operations) of one G1 or G2 launch on this run's data
+    (`args` its inputs, `got` its outputs): 2 steps a node of each window's
+    component (G1: its discovery and its pop; G2: its push or rooting and its
+    emit); of those nodes' rows (adjacency or in-slots) only the slots below
+    their degree, and the degree, read once; G1 reads the component mask at
+    the root alone, and the root, G2 reads n_sub; both [B, N] int32 outputs
+    and G1's n_sub written once."""
+    import torch
+
+    B, N, _ = args[0].shape
+    if name == "graph_dfs":
+        kept = got[0] >= 0
+        nbytes_in = B + B * 4
+        out_bytes = 2 * B * N * 4 + B * 4
+    else:
+        kept = torch.arange(N, device=args[0].device)[None, :] < args[2].reshape(B, 1)
+        nbytes_in = B * 4
+        out_bytes = 2 * B * N * 4
+    nodes, slots = int(kept.sum()), int(args[1][kept].sum())
+    return 4 * (slots + nodes) + nbytes_in + out_bytes, 2 * nodes * GRAPH_OPS_STEP
+
+
+def graph_kernel_row(name, args):
+    """G1 or G2 on the inputs of phase 6's heaviest launch (`args`, as the
+    cycle gave them to the wrapper): held to its plain version (exact), the
+    wrapper and the plain version by CUDA events, the kernel alone
+    (`kernel_ms()`, on one copy of the inputs: on the path the torch ops
+    have just written them, so they are in the L2), and the bound."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import graph_cycle as gc
+
+    wrapper, plain, launch, names = {
+        "graph_dfs": (gc.dfs_preorder, gc._dfs_plain, gc.launch_dfs, ("new_id", "order", "n_sub")),
+        "graph_topo": (gc.topo_ranks, gc._topo_plain, gc.launch_topo, ("rank_of", "rank_to_node")),
+    }[name]
+    B, N, K = args[0].shape
+    shape = f"B={B} N={N} {'A' if name == 'graph_dfs' else 'P'}={K} (phase 6's heaviest launch)"
+    got = wrapper(*args)
+    err = _max_err(f"{name} {shape}", names, got, plain(*args), again=lambda: wrapper(*args))
+    ms = time_ms(lambda: wrapper(*args))
+    if name == "graph_dfs":
+        ins = (args[0].to(torch.int32).contiguous(), args[1].to(torch.int32).contiguous(),
+               args[2].to(torch.uint8).contiguous(), args[3].to(torch.int32).contiguous())
+        n_sub = got[2]
+    else:
+        ins = tuple(a.to(torch.int32).contiguous() for a in args)
+        n_sub = args[2]
+    outs = tuple(torch.empty_like(t) for t in got)
+    kms = kernel_ms(lambda r: launch(*ins, *outs))
+    if not all(torch.equal(a, b) for a, b in zip(outs, got)):
+        raise RuntimeError(f"{name} {shape}: the timed launches differ from the wrapper's")
+    pms = time_ms(lambda: plain(*args), warmup=0, reps=2)
+    nbytes, ops = graph_work(name, args, got)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    row = dict(kernel=name, shape=shape, ms=ms, kernel_ms=kms, plain_ms=pms, max_abs_err=err,
+               bound_ms=b_ms, bound_by=b_by, component_nodes=int(n_sub.sum()),
+               steps=2 * int(n_sub.sum()))
+    log_row(row)
+    return row
+
+
+def device_cycle_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GOLDENS):
+    """Phase 6, the device prune cycle (VECHAT_DEVICE_CYCLE=1): (a) both
+    goldens through the command line's `run`, byte for byte against the
+    committed goldens; (b) `reads_path`, the first `n_reads` reads of phase
+    3's community, byte for byte against the host engine's run of 5b and 5c
+    (its output must exist). Each run: the windows on the card and on the
+    host route by reason, dispatches, the cycle's pack/device/fetch seconds,
+    cc_min_labels' rounds, and the launches and device seconds of K1, the
+    dense walk, G1 and G2. Then G1 and G2 on the inputs of their heaviest
+    launches (`graph_kernel_row`). Returns (the kernels' launches in the
+    phase, {G1, G2: row}). With another `backend_name` it is a rehearsal on
+    the CPU."""
+    import torch
+
+    from vechat_tpu_torch.cli.vechat_main import build_parser, run
+    from vechat_tpu_torch.io.fastx import write_fasta
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels import graph_cycle as gc
+    from vechat_tpu_torch.utils.logger import Logger
+
+    on_card = backend_name == "cuda"
+    t_phase = time.perf_counter()
+    # every launch's inputs as the cycle gave them, with its component nodes
+    # left on the device: the heaviest (most nodes, then B*N) is picked once
+    # the runs have ended, so the runs make no sync of their own for it
+    kept = {name: [] for name in CYCLE_KERNELS}
+    dfs, topo = gc.dfs_preorder, gc.topo_ranks
+
+    def keep(name, fn, nodes):
+        def launch(*args):
+            out = fn(*args)
+            kept[name].append((nodes(args, out).sum(), args[0].shape[0] * args[0].shape[1], args))
+            return out
+
+        return launch
+
+    host_out = os.path.join(tmp, "stream_host.fa")
+    runs = [(os.path.basename(r), r, e, x) for r, e, x in goldens]
+    runs.append((f"first {n_reads} reads of the community", reads_path, host_out,
+                 ["--platform", "ont"]))
+    _build.reset_launches()
+    gc.dfs_preorder = keep("graph_dfs", dfs, lambda a, o: o[2])
+    gc.topo_ranks = keep("graph_topo", topo, lambda a, o: a[2])
+    os.environ["VECHAT_DEVICE_CYCLE"] = "1"
+    walls = busy = 0.0
+    try:
+        for label, reads, expected, extra in runs:
+            out = os.path.join(tmp, "cycle_" + os.path.basename(expected))
+            args = build_parser().parse_args([reads, "-o", out, "--backend", backend_name, *extra])
+            before = dict(_build.LAUNCHES)
+            dev_ms = {}
+            (corrected, backend), wall, busy_s = _profiled(lambda: run(args, Logger()), on_card,
+                                                           dev_ms)
+            write_fasta(corrected, out)
+            same = _same_bytes(out, expected)
+            c = backend.counters()
+            log(dict(phase="device_cycle", run=label, byte_identical=same,
+                     wall_s=wall, device_busy_s=busy_s,
+                     windows_on_card=c["n_cycle_windows"], windows_to_host=c["n_cycle_host"],
+                     host_routes={k[11:]: v for k, v in c.items() if k.startswith("cycle_host_")},
+                     dispatches=c["n_cycle_dispatches"], pack_s=c["t_cycle_pack"],
+                     device_s=c["t_cycle_device"], fetch_s=c["t_cycle_fetch"],
+                     cc_min_labels_rounds=c["cycle_cc_rounds"],
+                     device_s_by_kernel={k: kernel_device_s(dev_ms, k) for k in (
+                         "poa_dp_kernel", "poa_walk_dense_kernel", "graph_dfs_kernel",
+                         "graph_topo_kernel")},
+                     launches={k: v - before[k] for k, v in _build.LAUNCHES.items()
+                               if v != before[k]}))
+            if not same:
+                raise RuntimeError(f"6: {label} does not reproduce {expected}")
+            if not c["n_cycle_windows"]:
+                raise RuntimeError(f"6: no window of {reads} took the device cycle")
+            walls, busy = walls + wall, busy + busy_s
+    finally:
+        del os.environ["VECHAT_DEVICE_CYCLE"]
+        gc.dfs_preorder, gc.topo_ranks = dfs, topo
+    launches = dict(_build.LAUNCHES)
+    if on_card:
+        for k in ("poa_dp", "poa_walk_dense", *CYCLE_KERNELS):
+            if launches[k] == 0:
+                raise RuntimeError(f"6: kernel {k} was not launched by the device cycle")
+    rows = {}
+    for name in CYCLE_KERNELS:
+        nodes = torch.stack([n for n, _, _ in kept[name]]).tolist() if kept[name] else []
+        heaviest = max(range(len(nodes)), key=lambda i: (nodes[i], kept[name][i][1]))
+        args = kept[name][heaviest][2]
+        kept[name] = None
+        rows[name] = graph_kernel_row(name, args) if on_card else {}
+    log(dict(phase="device_cycle_total", wall_s=time.perf_counter() - t_phase,
+             wall_s_runs=walls, device_busy_s=busy,
+             device_idle_share=1 - busy / walls if on_card else "not measured",
+             launches={k: v for k, v in launches.items() if v}))
+    return launches, rows
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1717,6 +1898,10 @@ REPLACES = {
     "poa_walk_dense": ("vechat_tpu_torch/csrc/poa_linear.cu",
                        "vechat_tpu/ops/kernels/poa_pallas.py:350"),
     "mix_peak": ("vechat_tpu_torch/csrc/mix_peak.cu", "scripts/roofline.py:119"),
+    "graph_dfs": ("vechat_tpu_torch/csrc/graph_cycle.cu",
+                  "vechat_tpu/ops/kernels/graph_cycle.py:268"),
+    "graph_topo": ("vechat_tpu_torch/csrc/graph_cycle.cu",
+                   "vechat_tpu/ops/kernels/graph_cycle.py:443"),
 }
 
 
@@ -1811,6 +1996,9 @@ def main(argv=()):
             lap("phase 4")
             scale_out_launches, dense_row = scale_out_phase(tmp, part, stream_host,
                                                             SCALE_OUT_READS)
+            lap("phase 5")
+            cycle_launches, cycle_rows = device_cycle_phase(tmp, part, SCALE_OUT_READS)
+            lap("phase 6")
         finally:  # no process outlives the script
             if stream_host[0].poll() is None:
                 stream_host[0].kill()
@@ -1822,6 +2010,9 @@ def main(argv=()):
         launches[k] = spoa_launches[k]
     launches["poa_walk_dense"] = scale_out_launches["poa_walk_dense"]
     launches["mix_peak"] = rows["mix_peak"]["launches"]
+    rows.update(cycle_rows)
+    for k in CYCLE_KERNELS:
+        launches[k] = cycle_launches[k]
     for k, v in launches.items():
         if k in REPLACES and v == 0:
             raise RuntimeError(f"kernel {k} was launched on no path")
@@ -1833,7 +2024,8 @@ def main(argv=()):
                             launches=launches[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
-        if name in ("poa_dp", "poa_walk", "poa_expand", "pairwise_banded", "pairwise_tiled"):
+        if name in ("poa_dp", "poa_walk", "poa_expand", "pairwise_banded", "pairwise_tiled",
+                    *CYCLE_KERNELS):
             kernels[-1]["shape"] = r["shape"]
         if "kernel_ms" in r:
             kernels[-1]["kernel_ms"] = r["kernel_ms"]

@@ -14,6 +14,7 @@ import torch
 
 from vechat_tpu_torch.ops.encode import encode
 from vechat_tpu_torch.ops.kernels import _build
+from vechat_tpu_torch.ops.kernels import graph_cycle as gc
 from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
 from vechat_tpu_torch.ops.kernels import poa_affine as pa
 from vechat_tpu_torch.ops.kernels import poa_convex as pc
@@ -1509,3 +1510,102 @@ def test_device_aligner_tiled_route_matches_cpu(cuda):
     assert gpu.device_tiles > len(pairs) and gpu.exact_pairs == 0
     assert got == cpu.edit_align_batch(pairs)
     assert gpu.device_tiles == cpu.device_tiles
+
+
+def graph_batch(seed, B, N):
+    """B random POA-like DAGs of up to N nodes and 2N edges: a chain through
+    every node plus forward skip edges of up to 40 nodes, inserted in a
+    random order; the prune cycle's inputs of G1 (with every edge kept) and
+    of G2 (the renumbered component)."""
+    rng = np.random.default_rng(seed)
+    E = 2 * N
+    tails = np.zeros((B, E), np.int64)
+    heads = np.zeros((B, E), np.int64)
+    n_nodes = rng.integers(N // 2, N + 1, size=B)
+    n_edges = np.zeros(B, np.int64)
+    for b in range(B):
+        n = int(n_nodes[b])
+        s = rng.integers(0, n - 1, size=n)
+        t = np.minimum(s + rng.integers(2, 41, size=n), n - 1)
+        pairs = sorted({(i, i + 1) for i in range(n - 1)} | {(int(a), int(c)) for a, c in zip(s, t) if a < c})
+        pairs = [pairs[k] for k in rng.permutation(len(pairs))][:E]
+        n_edges[b] = len(pairs)
+        tails[b, : len(pairs)], heads[b, : len(pairs)] = zip(*pairs)
+    t, h = torch.from_numpy(tails), torch.from_numpy(heads)
+    valid = torch.from_numpy(np.arange(E)[None, :] < n_edges[:, None])
+    alive = torch.from_numpy(np.arange(N)[None, :] < n_nodes[:, None])
+    comp, root = gc.select_component(gc.cc_min_labels(t, h, valid, alive), alive)
+    adj, deg, _ = gc.build_undirected_adjacency(t, h, valid, N, 32)
+    new_id, order, n_sub = gc.dfs_preorder(adj, deg, comp, root)
+    codes = torch.from_numpy(rng.integers(0, 4, size=(B, N)))
+    t2, h2, _, v2, _, _ = gc.renumber_subgraph(t, h, valid, new_id, order, codes)
+    in_nbr, indeg, _, _ = gc.build_in_slots(t2, h2, v2, N, 16)
+    return (adj, deg, comp, root), (in_nbr, indeg, n_sub)
+
+
+@pytest.mark.parametrize("N", [256, 1152, 2048])
+def test_graph_dfs_and_topo_kernels_match_plain(cuda, N):
+    """G1 and G2 at the cycle's batch (B = 64) and node ladder: the kernels
+    on the card against the plain machines on the same inputs."""
+    g1_in, g2_in = graph_batch(N, 64, N)
+    before = dict(_build.LAUNCHES)
+    got = gc.dfs_preorder(*(a.to(cuda) for a in g1_in))
+    assert _build.LAUNCHES["graph_dfs"] == before["graph_dfs"] + 1
+    for name, g, w in zip(("new_id", "order", "n_sub"), got, gc._dfs_plain(*(a.to(cuda) for a in g1_in))):
+        assert torch.equal(g.long(), w.long()), name
+    got = gc.topo_ranks(*(a.to(cuda) for a in g2_in))
+    assert _build.LAUNCHES["graph_topo"] == before["graph_topo"] + 1
+    for name, g, w in zip(("rank_of", "rank_to_node"), got, gc._topo_plain(*(a.to(cuda) for a in g2_in))):
+        assert torch.equal(g.long(), w.long()), name
+
+
+def test_graph_kernels_empty_batch_and_wrong_inputs(cuda):
+    g1_in, g2_in = graph_batch(1, 2, 64)
+    out = gc.dfs_preorder(*(a[:0].to(cuda) for a in g1_in))
+    assert [tuple(o.shape) for o in out] == [(0, 64), (0, 64), (0,)]
+    adj, deg, comp, root = (a.to(cuda) for a in g1_in)
+    with pytest.raises(ValueError):
+        gc.dfs_preorder(torch.zeros((2, 64, 33), dtype=torch.int32, device=cuda), deg, comp, root)
+    in_nbr, indeg, n_sub = (a.to(cuda) for a in g2_in)
+    with pytest.raises(ValueError):
+        gc.topo_ranks(torch.zeros((2, 64, 33), dtype=torch.int32, device=cuda), indeg, n_sub)
+
+
+def test_haplotype_cycle_on_the_card_matches_cpu(cuda):
+    """One window batch through the whole prune cycle on the card (G1, G2,
+    K1, the dense walk and the torch ops) and on the CPU (the plain
+    versions): every output equal."""
+    rng = np.random.default_rng(8)
+    B, N, D, S = 12, 256, 8, 128
+    E = 2 * N
+    arrays = dict(tails=np.zeros((B, E), np.int32), heads=np.zeros((B, E), np.int32),
+                  weights=np.zeros((B, E), np.int32), n_edges=np.zeros(B, np.int32),
+                  codes=np.zeros((B, N), np.int32), n_nodes=np.zeros(B, np.int32))
+    seqs = np.full((B, D, S), 0xFF, np.int32)
+    slen = np.ones((B, D), np.int32)
+    is_sw = np.zeros((B, D), bool)
+    d_used = rng.integers(3, D + 1, size=B).astype(np.int32)
+    for b in range(B):
+        base = rand_seq(rng, 100)
+        g = make_graph()
+        for k in range(int(d_used[b])):
+            c = encode(mutate(rng, base))[: S - 4]
+            aln = g.align_host(c, "nw", 3, -5, -4) if g.num_nodes() else []
+            g.add_alignment(aln, c, np.ones(len(c), np.uint32))
+            seqs[b, k, : len(c)] = c
+            slen[b, k] = len(c)
+            is_sw[b, k] = k % 3 == 2
+        ed = gc.graph_to_edges(g, N, E)
+        for key in arrays:
+            arrays[key][b] = ed[key]
+    avg = (2.0 * slen.sum(1) / slen[:, 0]).astype(np.float32)
+    args = [arrays[k] for k in ("tails", "heads", "weights", "n_edges", "codes", "n_nodes")]
+    args += [avg, seqs, slen, np.ones((B, D, S), np.int32), is_sw, d_used]
+    before = dict(_build.LAUNCHES)
+    got = gc.haplotype_cycle(*(torch.from_numpy(a).to(cuda) for a in args), 0.2, 0.2, 3, 3, -5, -4)
+    for k in ("graph_dfs", "graph_topo", "poa_dp", "poa_walk_dense"):
+        assert _build.LAUNCHES[k] >= before[k] + 3, k
+    want = gc.haplotype_cycle(*(torch.from_numpy(a) for a in args), 0.2, 0.2, 3, 3, -5, -4)
+    for name, g, w in zip(("corrected", "out_len", "overflow", "n_sub"), got, want):
+        assert torch.equal(g.cpu().long(), w.long()), name
+    assert (want[1] > 50).all() and not want[2].any()

@@ -26,7 +26,7 @@ from typing import Dict, Sequence
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG_ROOT, "csrc")
 BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
-SOURCES = ("poa_linear", "pairwise_nw", "poa_affine", "poa_convex", "mix_peak")
+SOURCES = ("poa_linear", "pairwise_nw", "poa_affine", "poa_convex", "mix_peak", "graph_cycle")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +45,8 @@ LAUNCHES: Dict[str, int] = {
     "poa_walk_convex": 0,
     "poa_walk_dense": 0,
     "mix_peak": 0,
+    "graph_dfs": 0,
+    "graph_topo": 0,
 }
 # K1's launch shapes since the last reset_launches(): (B, D, N, W, P, ring
 # in "shared" or "global" memory) -> launches

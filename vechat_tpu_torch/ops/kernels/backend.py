@@ -86,7 +86,11 @@ def pack_windows(dense_seqs, nb: int, pb: int, wb: int, B: int = 0):
 
 
 class TorchAlignerBackend:
-    """Drop-in batch aligner running the POA kernels on `device`."""
+    """Drop-in batch aligner running the POA kernels on `device`. With
+    VECHAT_DEVICE_CYCLE=1 round 1's prune cycle runs on `self.device` too
+    (`pipeline/device_cycle.py`); its counts are in `counters()`."""
+
+    supports_graph_cycle = True
 
     def __init__(self, match: int, mismatch: int, gap: int, device="cuda", devices=None):
         self.match = match
@@ -118,10 +122,23 @@ class TorchAlignerBackend:
         self.n_calls = 0
         self._dense_cache: Dict[Tuple[int, int, int], Optional[dict]] = {}
         self._pairwise = None
+        # the device prune cycle: seconds packing, in the cycle's program and
+        # waiting for and fetching its results; windows on the card, windows
+        # sent to the host and dispatches; cc_min_labels' rounds; the host
+        # routes by reason (a shape past the ladders, the edge or node caps,
+        # scores past int16, all three before packing, and the cycle's
+        # overflow bits, graph_cycle.OVF_BITS; a
+        # window past several of the cycle's capacities counts under each)
+        self.t_cycle_pack = self.t_cycle_device = self.t_cycle_fetch = 0.0
+        self.n_cycle_windows = self.n_cycle_host = self.n_cycle_dispatches = 0
+        self.cycle_cc_rounds = 0
+        self.cycle_host = dict.fromkeys(
+            ("ladder", "edges_cap", "int16", "a_cap", "p_cap", "new_edges", "ring"), 0)
 
-    def counters(self) -> Dict[str, int]:
-        """Device and host-route counts of this backend, and the launches
-        of every kernel in this process."""
+    def counters(self) -> Dict[str, float]:
+        """Device and host-route counts of this backend, the device prune
+        cycle's counts and seconds (`t_cycle_*`), and the launches of every
+        kernel in this process."""
         pw = self._pairwise
         out = dict(
             device_alignments=self.device_alignments,
@@ -133,7 +150,15 @@ class TorchAlignerBackend:
             exact_rejects=pw.exact_rejects if pw else 0,
             device_tiles=pw.device_tiles if pw else 0,
             pairwise_host_fallbacks=pw.host_fallbacks if pw else 0,
+            n_cycle_windows=self.n_cycle_windows,
+            n_cycle_host=self.n_cycle_host,
+            n_cycle_dispatches=self.n_cycle_dispatches,
+            cycle_cc_rounds=self.cycle_cc_rounds,
+            t_cycle_pack=round(self.t_cycle_pack, 3),
+            t_cycle_device=round(self.t_cycle_device, 3),
+            t_cycle_fetch=round(self.t_cycle_fetch, 3),
         )
+        out.update({f"cycle_host_{k}": v for k, v in self.cycle_host.items()})
         out.update({f"launches_{k}": v for k, v in _build.LAUNCHES.items()})
         return out
 

@@ -322,14 +322,28 @@ def generate_consensus_haplotype(
         progress=progress,
     )
 
+    # the device prune cycle: the whole prune -> realign x2 -> emit cycle on
+    # the backend's device, one dispatch a window batch; the windows it does
+    # not take (capacity routes, counted) take the host cycle below
+    from .device_cycle import _window_avg_weight, run_device_cycle, use_device_cycle
+
+    if use_device_cycle(backend):
+        handled = run_device_cycle(
+            active, graphs, totals, orders, backend,
+            min_confidence, min_support, num_prune, progress=progress,
+        )
+        remaining = [i for i, h in enumerate(handled) if not h]
+        if not remaining:
+            return
+        active = [active[i] for i in remaining]
+        graphs = [graphs[i] for i in remaining]
+        totals = [totals[i] for i in remaining]
+        orders = [orders[i] for i in remaining]
+
     # prune the original POA graph (src/window.cpp:300-321)
     def prune_one(arg):
         w, g, total = arg
-        window_len = np.uint16(len(w.backbone_codes))  # uint16 per reference
-        if w.if_fasta:
-            average_weight = 2.0 * total / int(window_len)
-        else:
-            average_weight = 2.0 * total / int(window_len) * 1000.0
+        average_weight = _window_avg_weight(w, total)
         g.prune_graph(0, min_confidence, min_support, average_weight)
         w._average_weight = average_weight  # reused every re-prune round
         return g.largest_subgraph()
