@@ -50,43 +50,57 @@ Phases (each raises on failure; the script exits non-zero on any):
      every window batch over two streams of the card (K1 + the dense walk a
      shard; the device seconds of both kernels), and the dense walk once
      more against its plain version on the largest shard this run
-     launched; then, on the first 100 reads of phase 3's community (a cut
+     launched; then, on the first 64 reads of phase 3's community (a cut
      of depth that keeps the script well inside its time limit), against
      one reference, `--stream --resume-dir` over those reads on the host
      engine: (b) two processes of the command line on the card, the
      records all-gathered between the rounds over gloo, rank 0's file
      byte for byte; (c) the reference's command on the card, in four
-     chunks of 25 reads, byte for byte, then one checkpoint of each round
+     chunks of 16 reads, byte for byte, then one checkpoint of each round
      deleted and the command run again
   6. the device prune cycle (VECHAT_DEVICE_CYCLE=1: round 1's prune,
      realign and emit cycle on the card, G1 and G2 with K1 and the dense
-     walk): (a) both goldens through `vechat --backend cuda`, byte for byte
-     against the committed goldens; (b) the first 100 reads of phase 3's
-     community, byte for byte against the host run of 5b and 5c; the
-     windows on the card and on the host route by reason, dispatches, the
+     walk): both goldens through `vechat --backend cuda`, byte for byte
+     against the committed goldens (the community's reads take the device
+     cycle in 7b); the windows on the card and on the
+     host route by reason, dispatches, the
      cycle's pack/device/fetch seconds, cc_min_labels' rounds, and the
      launches and device seconds of K1, the dense walk, G1 and G2; then G1
      and G2 on the inputs of their heaviest launches, each held to its plain
      version and timed (wrapper, kernel alone, plain)
+  7. the device build (VECHAT_DEVICE_BUILD=1: round 1's incremental build
+     and prune cycle on the card, G3, G4 and G5 with K1 and the dense walk,
+     then G1 and G2): (a) both goldens through `vechat --backend cuda`,
+     byte for byte against the committed goldens; (b) the first 64 reads
+     of phase 3's community with VECHAT_DEVICE_CYCLE=1 as well, byte for
+     byte against the host run of 5b and 5c; the windows built on the card
+     and the host routes by reason, dispatches, layer steps, the build's
+     pack/device/fetch seconds, and the launches of G3, G4, G5, K1, the
+     dense walk, G1 and G2 (in 7b, under the profiler, their device
+     seconds too); then G3, G4 and G5 on the inputs of their heaviest
+     launches, each held to its plain version and timed (wrapper, kernel
+     alone, plain)
 
 The phases run one after another. One process runs beside them: the
-reference of 5b, 5c and 6b on the host engine, which needs no card. It is
-started once phase 3d has ended and is waited for at 5b, so the walls of
+reference of 5b, 5c and 7b on the host engine, which needs no card. It
+is started once phase 3d has ended and is waited for at 5b, so the walls of
 phases 4, 5a and 5b are taken with that one process on another of the
-host's cores; those of phases 1 to 3d, 5c and 6 with nothing.
+host's cores; those of phases 1 to 3d, 5c, 6 and 7 with nothing.
 
 The second-to-last line is {"kernels": [...]} with, per kernel, its launches
 on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; G1
-and G2: phase 6; K7: the measurement; counts set to 0 just before each), the
+and G2: phase 6; G3-G5: phase 7; K7: the measurement; counts set to 0 just
+before each), the
 largest difference
 from its plain version (0: the tolerance is exact), its time, the plain
 version's time and the bound (the least time the card could take for
 the same work), each time the wrapper's by CUDA events (K2, the
 expansion, the dense walk, K4, K5 and K6 also give `kernel_ms`, the kernel
 alone: `walk_expand_rows`, `dense_kernel_ms`, `k4_row`, `check_gap_launch`,
-`graph_kernel_row`); K1's, K2's and the expansion's are at phase 3b's heaviest
-shape, K3's at 3c's launch, K4's at 3d's and G1's and G2's at phase 6's
-heaviest launches, which their entries name
+`graph_kernel_row`, `build_kernel_row`); K1's, K2's and the expansion's are
+at phase 3b's heaviest shape, K3's at 3c's launch, K4's at 3d's, G1's and
+G2's at phase 6's and G3's, G4's and G5's at phase 7's heaviest launches,
+which their entries name
 (phase 1's rows, K3's 256 pairs with its accepted pairs among them and
 K4's 64 tiles, stay lines of their own). The last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout, it exits
@@ -1390,8 +1404,9 @@ def spoa_phase(tmp, reads, backend_name="cuda"):
 # --------------------------------------------- phase 5: the scale-out path
 
 SHARD_DEVICES = ["cuda:0", "cuda:0"]  # two shards, two streams, one card
-# 5b and 5c run on the first reads of phase 3's community, in 4 chunks for 5c
-SCALE_OUT_READS = 100
+# 5b, 5c and 7b run on the first reads of phase 3's community, in 4 chunks
+# for 5c (a cut of depth: 64 keep the script near its aim of 700 s)
+SCALE_OUT_READS = 64
 
 
 def _free_port():
@@ -1779,13 +1794,11 @@ def graph_kernel_row(name, args):
     return row
 
 
-def device_cycle_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GOLDENS):
-    """Phase 6, the device prune cycle (VECHAT_DEVICE_CYCLE=1): (a) both
-    goldens through the command line's `run`, byte for byte against the
-    committed goldens; (b) `reads_path`, the first `n_reads` reads of phase
-    3's community, byte for byte against the host engine's run of 5b and 5c
-    (its output must exist). Each run: the windows on the card and on the
-    host route by reason, dispatches, the cycle's pack/device/fetch seconds,
+def device_cycle_phase(tmp, backend_name="cuda", goldens=GOLDENS):
+    """Phase 6, the device prune cycle (VECHAT_DEVICE_CYCLE=1): both goldens
+    through the command line's `run`, byte for byte against the committed
+    goldens. Each run: the windows on the card and on the host route by
+    reason, dispatches, the cycle's pack/device/fetch seconds,
     cc_min_labels' rounds, and the launches and device seconds of K1, the
     dense walk, G1 and G2. Then G1 and G2 on the inputs of their heaviest
     launches (`graph_kernel_row`). Returns (the kernels' launches in the
@@ -1815,10 +1828,7 @@ def device_cycle_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
 
         return launch
 
-    host_out = os.path.join(tmp, "stream_host.fa")
     runs = [(os.path.basename(r), r, e, x) for r, e, x in goldens]
-    runs.append((f"first {n_reads} reads of the community", reads_path, host_out,
-                 ["--platform", "ont"]))
     _build.reset_launches()
     gc.dfs_preorder = keep("graph_dfs", dfs, lambda a, o: o[2])
     gc.topo_ranks = keep("graph_topo", topo, lambda a, o: a[2])
@@ -1874,6 +1884,290 @@ def device_cycle_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
     return launches, rows
 
 
+# ---------------------------------------------- phase 7: the device build
+
+BUILD_KERNELS = ("graph_topo_bundled", "graph_fuse", "graph_reach")
+# counted at the function's work. G3: a step as G1's and G2's (GRAPH_OPS_STEP),
+# 2 steps a node. G5: a kept node's pop and its CSR bounds (6); an in-edge
+# or ring slot of it: its load, 2 compares, the claim and the push (5). G4:
+# a sequence position or pair: its fields and code, the node or ring test,
+# the node's id, the edge lookup by (tail, head) and its update (20)
+REACH_OPS_NODE, REACH_OPS_SLOT = 6, 5
+FUSE_OPS_STEP = 20
+
+
+def _keep_heaviest(best, work, args):
+    """Keep in `best`, a dict keyed by the launch's shapes, the inputs of the
+    launch with the most `work` (a tensor on the card) among those of one
+    shape, chosen on the card: the runs make no host read of their own."""
+    import torch
+
+    key = tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a for a in args)
+    if key in best:
+        w0, a0 = best[key]
+        more = work > w0
+        work = torch.where(more, work, w0)
+        args = tuple(torch.where(more, a, b) if torch.is_tensor(a) else a
+                     for a, b in zip(args, a0))
+    best[key] = (work, args)
+
+
+def build_work(name, args, got):
+    """(bytes, counted operations) of one G3, G4 or G5 launch on this run's
+    data (`args` its inputs, `got` its outputs), each input read once and
+    each output written once. G3: the slots below each real node's
+    in-degree and ring count, both counts, n_nodes; the two [B, N] int32
+    outputs. G5: of the windows that cut a subgraph, the (tail, head) of
+    every valid edge into a kept node and the ring slots and count of each
+    kept node; begin, end, use_full and n_nodes; the [B, N] bytes written.
+    G4, of the active windows: the pairs of the alignment and the
+    sequence's codes and weights (8 bytes each), a weight read and written
+    for each edge update (one a position), the tail and head of each
+    appended edge, the code of each new node, and with labels both words
+    of each edge touched; the counts and the overflow word."""
+    import torch
+
+    if name == "graph_topo_bundled":
+        in_nbr, indeg, aligned, acount, n_nodes = args
+        B, N, P = in_nbr.shape
+        real = torch.arange(N, device=in_nbr.device)[None, :] < n_nodes.reshape(B, 1)
+        slots = indeg.clamp_max(P) + acount.clamp_max(aligned.shape[2]) + 2
+        nodes = int(real.sum())
+        return 4 * int(slots[real].sum()) + 4 * B + 8 * B * N, 2 * nodes * GRAPH_OPS_STEP
+    if name == "graph_reach":
+        tails, heads, n_edges, aligned, acount, begin, end, use_full, n_nodes = args
+        B, E = tails.shape
+        N, R = aligned.shape[1], aligned.shape[2]
+        cut = (~use_full.bool())[:, None]
+        kept = got & cut
+        valid = torch.arange(E, device=tails.device)[None, :] < n_edges.reshape(B, 1)
+        into = valid & torch.gather(kept, 1, heads.long()) & cut
+        ring = int(torch.where(kept, acount.clamp_max(R), 0).sum())
+        nk, ne = int(kept.sum()), int(into.sum())
+        nbytes = 8 * ne + 4 * (ring + nk) + 13 * B + B * N
+        return nbytes, nk * REACH_OPS_NODE + (ne + ring) * REACH_OPS_SLOT
+    codes, n_nodes, n_edges = args[0], args[4], args[5]
+    count, seq_len, active = args[9], args[12], args[13].bool()
+    B = codes.shape[0]
+    act = lambda t: int(torch.where(active, t.long(), 0).sum())  # noqa: E731
+    positions, pairs = act(seq_len), act(count)
+    new_nodes, new_edges = act(got[4] - n_nodes), act(got[5] - n_edges)
+    labels = 8 * positions if args[14] is not None else 0
+    nbytes = 8 * (pairs + positions) + 8 * positions + 8 * new_edges + 4 * new_nodes + labels
+    return nbytes + 16 * B, (pairs + positions) * FUSE_OPS_STEP
+
+
+def build_kernel_row(name, args):
+    """G3, G4 or G5 on the inputs of phase 7's heaviest launch (`args`, as the
+    build gave them to the wrapper): held to its plain version (exact), the
+    wrapper (median of 5) and the plain version (once) by CUDA events, the
+    kernel alone (`kernel_ms()` on one copy of the inputs: on the path the
+    torch ops have just written them, so they are in the L2) and the
+    bound. G4
+    updates its graph in place, so each of its timed launches first copies
+    the graph back: its kernel alone is that time less the copies'."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import graph_build as gb
+
+    wrapper, plain = {
+        "graph_topo_bundled": (gb.topo_ranks_bundled, gb._topo_bundled_plain),
+        "graph_fuse": (gb.fuse_walk, gb._fuse_plain),
+        "graph_reach": (gb.reach_keep, gb._reach_plain),
+    }[name]
+    if name == "graph_fuse":
+        names = ("codes", "tails", "heads", "weights", "n_nodes", "n_edges", "aligned", "acount",
+                 "overflow", "lab_lo", "lab_hi")
+    elif name == "graph_reach":
+        names = ("keep",)
+    else:
+        names = ("rank_of", "rank_to_node")
+    B, N = args[0].shape[0], (args[3] if name == "graph_reach" else args[0]).shape[1]
+    shape = f"B={B} N={N} (phase 7's heaviest launch)"
+
+    def outs(o):
+        return o if isinstance(o, tuple) else (o,)
+
+    got = outs(wrapper(*args))
+    # the plain version is timed once, on the run the comparison uses: a
+    # run takes seconds (a torch step a machine step)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = outs(plain(*args))
+    end.record()
+    end.synchronize()
+    pms = start.elapsed_time(end)
+    err = _max_err(f"{name} {shape}", names, got, want, again=lambda: outs(wrapper(*args)))
+    ms = time_ms(lambda: wrapper(*args))
+    i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+    extra = {}
+    if name == "graph_topo_bundled":
+        ins = tuple(i32(a) for a in args)
+        res = tuple(torch.empty_like(t) for t in got)
+        kms = kernel_ms(lambda r: gb.launch_topo_bundled(*ins, *res))
+        same = all(torch.equal(a, b) for a, b in zip(res, got))
+    elif name == "graph_reach":
+        off, csr = gb.in_edge_csr(args[0], args[1], args[2], N)
+        ins = (off, csr, *(i32(a) for a in args[3:7]), args[7].to(torch.uint8).contiguous(),
+               i32(args[8]))
+        res = torch.empty_like(got[0])
+        kms = kernel_ms(lambda r: gb.launch_reach(*ins, res))
+        same = torch.equal(res, got[0])
+    else:
+        track = args[14] is not None
+        state0 = [i32(a) for a in args[:8]] + ([i32(args[14]), i32(args[15])] if track else [])
+        work = [torch.empty_like(t) for t in state0]
+        labs = work[8:] if track else [None, None]
+        bits = [i32(args[16]), i32(args[17])] if track else [None, None]
+        ins = [i32(a) for a in args[8:13]]
+        act = args[13].to(torch.uint8).contiguous()
+        ovf = torch.empty((B,), dtype=torch.int32, device=act.device)
+
+        def copy(r):
+            for w, s in zip(work, state0):
+                w.copy_(s)
+
+        def run(r):
+            copy(r)
+            gb.launch_fuse(*work[:8], *labs, *bits, *ins, act, ovf)
+
+        copies = kernel_ms(copy)
+        with_copies = kernel_ms(run)
+        kms = with_copies - copies
+        extra = dict(kernel_with_copies_ms=with_copies, copies_ms=copies)
+        same = (all(torch.equal(a, b) for a, b in zip(work[:8], got[:8]))
+                and torch.equal(ovf, got[8]))
+    if not same:
+        raise RuntimeError(f"{name} {shape}: the timed launches differ from the wrapper's")
+    nbytes, ops = build_work(name, args, got[0] if name == "graph_reach" else got)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    row = dict(kernel=name, shape=shape, ms=ms, kernel_ms=kms, plain_ms=pms, max_abs_err=err,
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops, **extra)
+    log_row(row)
+    return row
+
+
+def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GOLDENS):
+    """Phase 7, the device build (VECHAT_DEVICE_BUILD=1): (a) both goldens
+    through the command line's `run`, byte for byte against the committed
+    goldens; (b) `reads_path`, the first `n_reads` reads of phase 3's
+    community, with VECHAT_DEVICE_CYCLE=1 as well (the windows the build
+    sends to the host take the host build, then the device cycle), byte
+    for byte against the host engine's run of 5b and 5c (its output must
+    exist). Each run: the windows built on the card and the host routes by
+    reason, dispatches, layer steps, the build's pack/device/fetch seconds
+    and the launches of G3, G4, G5, K1, the dense walk, G1 and G2; 7b also
+    their device seconds and the device's idle share (7b alone runs under
+    the profiler). Then G3, G4 and G5 on the inputs of their heaviest launches
+    (`build_kernel_row`). Returns (the kernels' launches in the phase,
+    {G3, G4, G5: row}). With another `backend_name` it is a rehearsal on the
+    CPU."""
+    import torch
+
+    from vechat_tpu_torch.cli.vechat_main import build_parser, run
+    from vechat_tpu_torch.io.fastx import write_fasta
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels import graph_build as gb
+    from vechat_tpu_torch.utils.logger import Logger
+
+    on_card = backend_name == "cuda"
+    t_phase = time.perf_counter()
+    wrapped = {"graph_topo_bundled": "topo_ranks_bundled", "graph_fuse": "fuse_walk",
+               "graph_reach": "reach_keep"}
+    originals = {k: getattr(gb, fn) for k, fn in wrapped.items()}
+    best = {k: {} for k in BUILD_KERNELS}
+
+    def work_of(name, args, out):
+        if name == "graph_topo_bundled":
+            return args[4].long().clamp_max(args[0].shape[1]).sum()
+        if name == "graph_reach":  # the nodes its traversal keeps
+            return (out & ~args[7].bool()[:, None]).sum()
+        return torch.where(args[13].bool(), args[9].long() + args[12].long(), 0).sum()
+
+    def keep(name):
+        def launch(*args):
+            out = originals[name](*args)
+            _keep_heaviest(best[name], work_of(name, args, out), args)
+            return out
+
+        return launch
+
+    host_out = os.path.join(tmp, "stream_host.fa")
+    runs = [(os.path.basename(r), r, e, x, False) for r, e, x in goldens]
+    runs.append((f"first {n_reads} reads of the community, with the device cycle", reads_path,
+                 host_out, ["--platform", "ont"], True))
+    _build.reset_launches()
+    for k, fn in wrapped.items():
+        setattr(gb, fn, keep(k))
+    os.environ["VECHAT_DEVICE_BUILD"] = "1"
+    walls = busy = 0.0
+    try:
+        for label, reads, expected, extra, cycle in runs:
+            if cycle:
+                os.environ["VECHAT_DEVICE_CYCLE"] = "1"
+            out = os.path.join(tmp, "build_" + os.path.basename(expected))
+            args = build_parser().parse_args([reads, "-o", out, "--backend", backend_name, *extra])
+            before = dict(_build.LAUNCHES)
+            dev_ms = {}
+            # only 7b runs under the profiler: processing its trace takes
+            # twice the run's wall, and 7a's device seconds add little
+            profiled = on_card and cycle
+            t_run = time.perf_counter()
+            try:
+                (corrected, backend), wall, busy_s = _profiled(lambda: run(args, Logger()),
+                                                               profiled, dev_ms)
+            finally:
+                os.environ.pop("VECHAT_DEVICE_CYCLE", None)
+            # the profiler's own seconds after the run: its trace's processing
+            profile_s = time.perf_counter() - t_run - wall
+            write_fasta(corrected, out)
+            same = _same_bytes(out, expected)
+            c = backend.counters()
+            log(dict(phase="device_build", run=label, byte_identical=same,
+                     wall_s=wall, profile_s=profile_s,
+                     device_busy_s=busy_s if profiled else "not measured",
+                     windows_built_on_card=c["n_build_windows"],
+                     windows_to_host_build=c["n_build_host"],
+                     host_routes={k[11:]: v for k, v in c.items() if k.startswith("build_host_")},
+                     dispatches=c["n_build_dispatches"], layer_steps=c["build_layer_steps"],
+                     pack_s=c["t_build_pack"], device_s=c["t_build_device"],
+                     fetch_s=c["t_build_fetch"],
+                     device_cycle_windows=c["n_cycle_windows"],
+                     device_s_by_kernel={k: kernel_device_s(dev_ms, k) for k in (
+                         "graph_topo_bundled_kernel", "graph_fuse_kernel", "graph_reach_kernel",
+                         "poa_dp_kernel", "poa_walk_dense_kernel", "graph_dfs_kernel",
+                         "graph_topo_kernel")} if profiled else "not measured",
+                     launches={k: v - before[k] for k, v in _build.LAUNCHES.items()
+                               if v != before[k]}))
+            if not same:
+                raise RuntimeError(f"7: {label} does not reproduce {expected}")
+            if not c["n_build_windows"]:
+                raise RuntimeError(f"7: no window of {reads} was built on the device")
+            if profiled:
+                walls, busy = walls + wall, busy + busy_s
+    finally:
+        del os.environ["VECHAT_DEVICE_BUILD"]
+        for k, fn in wrapped.items():
+            setattr(gb, fn, originals[k])
+    launches = dict(_build.LAUNCHES)
+    if on_card:
+        for k in ("poa_dp", "poa_walk_dense", *BUILD_KERNELS):
+            if launches[k] == 0:
+                raise RuntimeError(f"7: kernel {k} was not launched by the device build")
+    rows = {}
+    for name in BUILD_KERNELS:
+        entries = list(best[name].values())
+        works = torch.stack([w for w, _ in entries]).tolist()
+        args = entries[max(range(len(works)), key=lambda i: works[i])][1]
+        best[name] = None
+        rows[name] = build_kernel_row(name, args) if on_card else {}
+    log(dict(phase="device_build_total", wall_s=time.perf_counter() - t_phase,
+             wall_s_7b=walls, device_busy_s_7b=busy,
+             device_idle_share=1 - busy / walls if on_card else "not measured",
+             launches={k: v for k, v in launches.items() if v}))
+    return launches, rows
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1902,6 +2196,13 @@ REPLACES = {
                   "vechat_tpu/ops/kernels/graph_cycle.py:268"),
     "graph_topo": ("vechat_tpu_torch/csrc/graph_cycle.cu",
                    "vechat_tpu/ops/kernels/graph_cycle.py:443"),
+    "graph_topo_bundled": ("vechat_tpu_torch/csrc/graph_build.cu",
+                           "vechat_tpu/ops/kernels/graph_build.py:50"),
+    "graph_fuse": ("vechat_tpu_torch/csrc/graph_build.cu",
+                   "vechat_tpu/ops/kernels/graph_build.py:180"),
+    # the fixpoint loop of positional_subgraph (:446), :484-507
+    "graph_reach": ("vechat_tpu_torch/csrc/graph_build.cu",
+                    "vechat_tpu/ops/kernels/graph_build.py:484"),
 }
 
 
@@ -1997,8 +2298,10 @@ def main(argv=()):
             scale_out_launches, dense_row = scale_out_phase(tmp, part, stream_host,
                                                             SCALE_OUT_READS)
             lap("phase 5")
-            cycle_launches, cycle_rows = device_cycle_phase(tmp, part, SCALE_OUT_READS)
+            cycle_launches, cycle_rows = device_cycle_phase(tmp)
             lap("phase 6")
+            build_launches, build_rows = device_build_phase(tmp, part, SCALE_OUT_READS)
+            lap("phase 7")
         finally:  # no process outlives the script
             if stream_host[0].poll() is None:
                 stream_host[0].kill()
@@ -2013,6 +2316,9 @@ def main(argv=()):
     rows.update(cycle_rows)
     for k in CYCLE_KERNELS:
         launches[k] = cycle_launches[k]
+    rows.update(build_rows)
+    for k in BUILD_KERNELS:
+        launches[k] = build_launches[k]
     for k, v in launches.items():
         if k in REPLACES and v == 0:
             raise RuntimeError(f"kernel {k} was launched on no path")
@@ -2025,7 +2331,7 @@ def main(argv=()):
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
         if name in ("poa_dp", "poa_walk", "poa_expand", "pairwise_banded", "pairwise_tiled",
-                    *CYCLE_KERNELS):
+                    *CYCLE_KERNELS, *BUILD_KERNELS):
             kernels[-1]["shape"] = r["shape"]
         if "kernel_ms" in r:
             kernels[-1]["kernel_ms"] = r["kernel_ms"]

@@ -14,6 +14,7 @@ import torch
 
 from vechat_tpu_torch.ops.encode import encode
 from vechat_tpu_torch.ops.kernels import _build
+from vechat_tpu_torch.ops.kernels import graph_build as gb
 from vechat_tpu_torch.ops.kernels import graph_cycle as gc
 from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
 from vechat_tpu_torch.ops.kernels import poa_affine as pa
@@ -1609,3 +1610,219 @@ def test_haplotype_cycle_on_the_card_matches_cpu(cuda):
     for name, g, w in zip(("corrected", "out_len", "overflow", "n_sub"), got, want):
         assert torch.equal(g.cpu().long(), w.long()), name
     assert (want[1] > 50).all() and not want[2].any()
+
+
+# ------------------------------------------- the device build: G3, G4, G5
+
+
+def build_state(seed, B, N, R=8, ring_over=False):
+    """B random graph states as the device build keeps them: a chain through
+    every node plus forward skip edges (graph_batch's DAGs, E = 2N), and
+    columns of 2-4 nearby nodes aligned to each other (every member's ring
+    the other members, in a random order), over up to N nodes. With
+    `ring_over`, some ring counts pass R (the rings cut at R slots)."""
+    rng = np.random.default_rng(seed)
+    E = 2 * N
+    tails = np.zeros((B, E), np.int32)
+    heads = np.zeros((B, E), np.int32)
+    n_nodes = rng.integers(N // 2, N + 1, size=B).astype(np.int32)
+    n_edges = np.zeros(B, np.int32)
+    aligned = np.zeros((B, N, R), np.int32)
+    acount = np.zeros((B, N), np.int32)
+    for b in range(B):
+        n = int(n_nodes[b])
+        s = rng.integers(0, n - 1, size=n)
+        t = np.minimum(s + rng.integers(2, 41, size=n), n - 1)
+        pairs = sorted({(i, i + 1) for i in range(n - 1)} | {(int(a), int(c)) for a, c in zip(s, t) if a < c})
+        pairs = [pairs[k] for k in rng.permutation(len(pairs))][:E]
+        n_edges[b] = len(pairs)
+        tails[b, : len(pairs)], heads[b, : len(pairs)] = zip(*pairs)
+        v = int(rng.integers(0, 4))
+        while v < n - 4:
+            col = list(range(v, v + int(rng.integers(2, 5)), 1))
+            for m in col:
+                ring = [x for x in col if x != m]
+                rng.shuffle(ring)
+                aligned[b, m, : len(ring)] = ring
+                acount[b, m] = len(ring)
+            v += len(col) + int(rng.integers(3, 12))
+        if ring_over:
+            acount[b, rng.integers(0, n, size=4)] = R + 2
+    codes = rng.integers(0, 4, size=(B, N)).astype(np.int32)
+    return dict(codes=codes, tails=tails, heads=heads, weights=rng.integers(1, 9, size=(B, E)).astype(np.int32),
+                n_nodes=n_nodes, n_edges=n_edges, aligned=aligned, acount=acount)
+
+
+def _t(d, keys, device):
+    return [torch.from_numpy(np.ascontiguousarray(d[k])).to(device) for k in keys]
+
+
+@pytest.mark.parametrize("N", [256, 1152, 2048])
+def test_graph_topo_bundled_kernel_matches_plain(cuda, N):
+    """G3 at the build's batch (B = 64) and node ladder, in-slots whole (P =
+    16) and cut short (P = 2), rings within R and past it."""
+    st = build_state(N, 64, N, ring_over=N == 1152)
+    t, h, ne = (torch.from_numpy(st[k]) for k in ("tails", "heads", "n_edges"))
+    valid = torch.arange(2 * N)[None, :] < ne.long()[:, None]
+    for p_cap in (16, 2):
+        in_nbr, indeg, _, _ = gc.build_in_slots(t, h, valid, N, p_cap)
+        args = [in_nbr, indeg, torch.from_numpy(st["aligned"]), torch.from_numpy(st["acount"]),
+                torch.from_numpy(st["n_nodes"])]
+        before = _build.LAUNCHES["graph_topo_bundled"]
+        got = gb.topo_ranks_bundled(*(a.to(cuda) for a in args))
+        assert _build.LAUNCHES["graph_topo_bundled"] == before + 1
+        want = gb._topo_bundled_plain(*(a.to(cuda) for a in args))
+        for name, g, w in zip(("rank_of", "rank_to_node"), got, want):
+            assert torch.equal(g.long(), w.long()), (name, p_cap)
+
+
+@pytest.mark.parametrize("N", [256, 1152, 2048])
+def test_graph_reach_kernel_matches_plain(cuda, N):
+    """G5 at B = 64: spans inside the graph, end < begin, end past the
+    nodes, full-span windows."""
+    st = build_state(N + 1, 64, N)
+    rng = np.random.default_rng(N)
+    n = st["n_nodes"]
+    begin = rng.integers(0, n // 2).astype(np.int32)
+    end = (n - 1 - rng.integers(0, 20, size=64)).astype(np.int32)
+    end[::9] = begin[::9] - 1
+    end[1::9] = n[1::9] + 2
+    use_full = rng.random(64) < 0.2
+    args = _t(st, ("tails", "heads", "n_edges", "aligned", "acount"), cuda)
+    args += [torch.from_numpy(a).to(cuda) for a in (begin, end, use_full)]
+    args.append(torch.from_numpy(n).to(cuda))
+    before = _build.LAUNCHES["graph_reach"]
+    got = gb.reach_keep(*args)
+    assert _build.LAUNCHES["graph_reach"] == before + 1
+    want = gb._reach_plain(*args)
+    assert torch.equal(got, want) and int(want.sum()) > 0
+
+
+def fuse_inputs(st, seed, L, W, labels, crowd=False):
+    """Random pair streams over the graph states (node ids of the graph or
+    -1, positions in order with deletions; unaligned runs at both ends of
+    every other window), one window with count 0 and one inactive; with
+    `crowd` every window starts 10 nodes short of N (nodes overflow)."""
+    rng = np.random.default_rng(seed)
+    B, N = st["codes"].shape
+    E = st["tails"].shape[1]
+    pairs = np.full((B, L, 2), -2, np.int32)
+    count = np.zeros(B, np.int32)
+    seq = np.full((B, W), 0xFF, np.int32)
+    seq_w = rng.integers(0, 40, size=(B, W)).astype(np.int32)
+    seq_len = rng.integers(W // 2, W - 8, size=B).astype(np.int32)
+    for b in range(B):
+        sl = int(seq_len[b])
+        seq[b, :sl] = rng.integers(0, 4, size=sl)
+        lo, hi = (int(rng.integers(1, 6)), sl - int(rng.integers(1, 6))) if b % 2 else (0, sl)
+        rows = []
+        for p in range(lo, hi):
+            if rng.random() < 0.1:
+                rows.append((int(rng.integers(0, st["n_nodes"][b])), -1))
+            rows.append((int(rng.integers(0, st["n_nodes"][b])) if rng.random() < 0.85 else -1, p))
+        rows = rows[:L]
+        pairs[b, L - len(rows) :] = rows
+        count[b] = len(rows)
+    count[4] = 0
+    active = np.ones(B, bool)
+    active[5] = False
+    n_nodes = np.maximum(st["n_nodes"], N - 10) if crowd else st["n_nodes"]
+    g = [st["codes"], st["tails"], st["heads"], st["weights"], n_nodes, st["n_edges"],
+         st["aligned"], np.minimum(st["acount"], st["aligned"].shape[2])]
+    out = g + [pairs, count, seq, seq_w, seq_len, active]
+    if labels:
+        out += [rng.integers(-2**31, 2**31, size=(B, E)).astype(np.int32) for _ in range(2)]
+        out += [np.full(B, -2**31, np.int32), np.full(B, 1 << 7, np.int32)]
+    return out
+
+
+@pytest.mark.parametrize("labels", [False, True], ids=["plain", "labels"])
+@pytest.mark.parametrize("N", [256, 1152, 2048])
+def test_graph_fuse_kernel_matches_plain(cuda, N, labels):
+    """G4 at B = 64 and the build's shapes (L = N + 577, W = 576): every
+    output of every window equal to the plain walk, flagged ones included;
+    at N = 1152 every window starts 10 nodes short of N, so nodes overflow,
+    and at N = 256 the edge table is nearly full, so edges overflow."""
+    st = build_state(N + 2, 64, N)
+    if N == 256:
+        st["n_edges"] = np.full(64, 2 * N - 20, np.int32)
+    args = fuse_inputs(st, N, N + 577, 576, labels, crowd=N == 1152)
+    dev_args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in args]
+    before = _build.LAUNCHES["graph_fuse"]
+    got = gb.fuse_walk(*dev_args)
+    assert _build.LAUNCHES["graph_fuse"] == before + 1
+    want = gb._fuse_plain(*dev_args)
+    names = ("codes", "tails", "heads", "weights", "n_nodes", "n_edges", "aligned", "acount",
+             "overflow", "lab_lo", "lab_hi")
+    for name, g, w in zip(names, got, want):
+        assert torch.equal(g.long(), w.long()), name
+    if N != 2048:
+        assert (got[8] != 0).any()
+    # the inputs were not written
+    assert torch.equal(dev_args[0].cpu(), torch.from_numpy(args[0]))
+
+
+def test_build_kernels_empty_batch_and_wrong_inputs(cuda):
+    st = build_state(3, 8, 64)
+    t, h, ne = (torch.from_numpy(st[k]) for k in ("tails", "heads", "n_edges"))
+    in_nbr, indeg, _, _ = gc.build_in_slots(t, h, torch.arange(128)[None, :] < ne.long()[:, None], 64, 16)
+    topo = [in_nbr, indeg] + [torch.from_numpy(st[k]) for k in ("aligned", "acount", "n_nodes")]
+    out = gb.topo_ranks_bundled(*(a[:0].to(cuda) for a in topo))
+    assert [tuple(o.shape) for o in out] == [(0, 64), (0, 64)]
+    with pytest.raises(ValueError):  # P + R past a warp
+        gb.topo_ranks_bundled(torch.zeros((8, 64, 30), dtype=torch.int32, device=cuda),
+                              *(a.to(cuda) for a in topo[1:]))
+    reach = _t(st, ("tails", "heads", "n_edges", "aligned", "acount"), cuda)
+    reach += [torch.zeros(8, dtype=torch.int32, device=cuda), torch.full((8,), 5, dtype=torch.int32, device=cuda),
+              torch.zeros(8, dtype=torch.bool, device=cuda), torch.from_numpy(st["n_nodes"]).to(cuda)]
+    assert tuple(gb.reach_keep(*(a[:0] for a in reach)).shape) == (0, 64)
+    with pytest.raises(ValueError):  # begin of the wrong shape
+        gb.reach_keep(*reach[:5], reach[5][:1], *reach[6:])
+    fuse = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in fuse_inputs(st, 1, 96, 32, False)]
+    out = gb.fuse_walk(*(a[:0] for a in fuse))
+    assert [tuple(o.shape) for o in out[:2]] == [(0, 64), (0, 128)]
+    with pytest.raises(ValueError):  # pairs without their two columns
+        gb.fuse_walk(*fuse[:8], fuse[8][:, :, :1].contiguous(), *fuse[9:])
+
+
+def test_device_build_and_cycle_on_the_card_match_cpu(cuda):
+    """`run_device_polish` on one window batch on the card (G3, G4, G5, K1,
+    the dense walk, then the cycle's G1 and G2) and on the CPU (the plain
+    versions): the same windows handled, the same consensus, the same
+    counts."""
+    from vechat_tpu_torch.pipeline.device_cycle import run_device_polish
+    from vechat_tpu_torch.pipeline.windows import Window
+
+    def windows():
+        rng = np.random.default_rng(14)
+        out = []
+        for k in range(12):
+            base = rand_seq(rng, 110)
+            bb = encode(mutate(rng, base))
+            w = Window(target_id=0, rank=k, window_type=1, backbone_codes=bb,
+                       backbone_quality=None, if_fasta=True)
+            blen = len(bb)
+            for j in range(int(rng.integers(4, 9))):
+                b0 = int(rng.integers(0, 12)) if j % 3 else 0
+                e0 = blen - 1 - (int(rng.integers(0, 12)) if j % 3 else 0)
+                codes = encode(mutate(rng, base[b0 : e0 + 1]))
+                if len(codes) and b0 < e0:
+                    w.add_layer(codes, None, b0, e0)
+            out.append(w)
+        return out
+
+    results = []
+    for device in (cuda, "cpu"):
+        be = TorchAlignerBackend(3, -5, -4, device=device)
+        wins = windows()
+        before = dict(_build.LAUNCHES)
+        handled = run_device_polish(wins, be, 0.2, 0.2, 3)
+        results.append((handled, [None if w.consensus_codes is None else list(w.consensus_codes)
+                                  for w in wins],
+                        {k: v for k, v in be.counters().items() if k.startswith(("n_build", "build_"))}))
+        if device == cuda:
+            for k in ("graph_topo_bundled", "graph_fuse", "graph_reach", "poa_dp", "poa_walk_dense",
+                      "graph_dfs", "graph_topo"):
+                assert _build.LAUNCHES[k] > before[k], k
+    assert results[0] == results[1]
+    assert sum(results[1][0]) >= 10

@@ -26,7 +26,8 @@ from typing import Dict, Sequence
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG_ROOT, "csrc")
 BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
-SOURCES = ("poa_linear", "pairwise_nw", "poa_affine", "poa_convex", "mix_peak", "graph_cycle")
+SOURCES = ("poa_linear", "pairwise_nw", "poa_affine", "poa_convex", "mix_peak", "graph_cycle",
+           "graph_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,6 +48,9 @@ LAUNCHES: Dict[str, int] = {
     "mix_peak": 0,
     "graph_dfs": 0,
     "graph_topo": 0,
+    "graph_topo_bundled": 0,
+    "graph_fuse": 0,
+    "graph_reach": 0,
 }
 # K1's launch shapes since the last reset_launches(): (B, D, N, W, P, ring
 # in "shared" or "global" memory) -> launches

@@ -87,8 +87,9 @@ def pack_windows(dense_seqs, nb: int, pb: int, wb: int, B: int = 0):
 
 class TorchAlignerBackend:
     """Drop-in batch aligner running the POA kernels on `device`. With
-    VECHAT_DEVICE_CYCLE=1 round 1's prune cycle runs on `self.device` too
-    (`pipeline/device_cycle.py`); its counts are in `counters()`."""
+    VECHAT_DEVICE_CYCLE=1 round 1's prune cycle runs on `self.device` too,
+    with VECHAT_DEVICE_BUILD=1 round 1's build and prune cycle
+    (`pipeline/device_cycle.py`); their counts are in `counters()`."""
 
     supports_graph_cycle = True
 
@@ -134,11 +135,24 @@ class TorchAlignerBackend:
         self.cycle_cc_rounds = 0
         self.cycle_host = dict.fromkeys(
             ("ladder", "edges_cap", "int16", "a_cap", "p_cap", "new_edges", "ring"), 0)
+        # the device build (VECHAT_DEVICE_BUILD=1, build and prune cycle on
+        # the device): seconds packing, in the build's and the cycle's
+        # programs and fetching; windows on the card, windows sent to the
+        # host build and dispatches; layer steps run; the host routes by
+        # reason (a shape past the ladders, scores past int16, both before
+        # packing; the build's overflow bits, graph_build.BUILD_OVF_BITS;
+        # then, for a window the build kept, the cycle's, as cycle_<bit>)
+        self.t_build_pack = self.t_build_device = self.t_build_fetch = 0.0
+        self.n_build_windows = self.n_build_host = self.n_build_dispatches = 0
+        self.build_layer_steps = 0
+        self.build_host = dict.fromkeys(
+            ("ladder", "int16", "n_cap", "e_cap", "r_cap", "p_cap", "ring", "cycle_a_cap",
+             "cycle_p_cap", "cycle_new_edges", "cycle_ring"), 0)
 
     def counters(self) -> Dict[str, float]:
         """Device and host-route counts of this backend, the device prune
-        cycle's counts and seconds (`t_cycle_*`), and the launches of every
-        kernel in this process."""
+        cycle's and the device build's counts and seconds (`t_cycle_*`,
+        `t_build_*`), and the launches of every kernel in this process."""
         pw = self._pairwise
         out = dict(
             device_alignments=self.device_alignments,
@@ -157,8 +171,16 @@ class TorchAlignerBackend:
             t_cycle_pack=round(self.t_cycle_pack, 3),
             t_cycle_device=round(self.t_cycle_device, 3),
             t_cycle_fetch=round(self.t_cycle_fetch, 3),
+            n_build_windows=self.n_build_windows,
+            n_build_host=self.n_build_host,
+            n_build_dispatches=self.n_build_dispatches,
+            build_layer_steps=self.build_layer_steps,
+            t_build_pack=round(self.t_build_pack, 3),
+            t_build_device=round(self.t_build_device, 3),
+            t_build_fetch=round(self.t_build_fetch, 3),
         )
         out.update({f"cycle_host_{k}": v for k, v in self.cycle_host.items()})
+        out.update({f"build_host_{k}": v for k, v in self.build_host.items()})
         out.update({f"launches_{k}": v for k, v in _build.LAUNCHES.items()})
         return out
 

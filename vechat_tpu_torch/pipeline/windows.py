@@ -317,6 +317,21 @@ def generate_consensus_haplotype(
     if not active:
         return
 
+    # the device build: the incremental build and the prune cycle on the
+    # backend's device, the graphs never on the host; the windows it does
+    # not take (capacity routes, counted) take the host build below, then
+    # the device cycle if it is on, else the host cycle
+    from .device_cycle import run_device_polish, use_device_build
+
+    if use_device_build(backend):
+        handled = run_device_polish(
+            active, backend, min_confidence, min_support, num_prune,
+            progress=progress,
+        )
+        active = [w for w, h in zip(active, handled) if not h]
+        if not active:
+            return
+
     graphs, totals, orders = _build_phase(
         active, backend, collect_weight=True, threads=threads,
         progress=progress,
