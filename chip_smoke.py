@@ -80,27 +80,39 @@ Phases (each raises on failure; the script exits non-zero on any):
      seconds too); then G3, G4 and G5 on the inputs of their heaviest
      launches, each held to its plain version and timed (wrapper, kernel
      alone, plain)
+  8. the device round-2 consensus (VECHAT_DEVICE_LINEAR=1: round 2's build,
+     heaviest bundle with branch completion, coverage and trim on the card,
+     G3, G4, G5, K1, the dense walk and G6): (a) both goldens through
+     `vechat --backend cuda`, byte for byte against the committed goldens;
+     (b) the first 64 reads of phase 3's community with
+     VECHAT_DEVICE_BUILD=1 and VECHAT_DEVICE_CYCLE=1 as well, so that both
+     rounds' window consensus runs on the card, byte for byte against the
+     host run of 5b and 5c; the windows of round 2 on the card and the host
+     routes by reason, dispatches, the program's pack/device/fetch seconds
+     and every kernel's launches (no profiler); then G6 on the inputs of
+     its heaviest launch, held to its plain version and timed (wrapper,
+     kernel alone, plain)
 
 The phases run one after another. One process runs beside them: the
 reference of 5b, 5c and 7b on the host engine, which needs no card. It
 is started once phase 3d has ended and is waited for at 5b, so the walls of
 phases 4, 5a and 5b are taken with that one process on another of the
-host's cores; those of phases 1 to 3d, 5c, 6 and 7 with nothing.
+host's cores; those of phases 1 to 3d, 5c, 6, 7 and 8 with nothing.
 
 The second-to-last line is {"kernels": [...]} with, per kernel, its launches
 on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; G1
-and G2: phase 6; G3-G5: phase 7; K7: the measurement; counts set to 0 just
-before each), the
+and G2: phase 6; G3-G5: phase 7; G6: phase 8; K7: the measurement; counts
+set to 0 just before each), the
 largest difference
 from its plain version (0: the tolerance is exact), its time, the plain
 version's time and the bound (the least time the card could take for
 the same work), each time the wrapper's by CUDA events (K2, the
 expansion, the dense walk, K4, K5 and K6 also give `kernel_ms`, the kernel
 alone: `walk_expand_rows`, `dense_kernel_ms`, `k4_row`, `check_gap_launch`,
-`graph_kernel_row`, `build_kernel_row`); K1's, K2's and the expansion's are
-at phase 3b's heaviest shape, K3's at 3c's launch, K4's at 3d's, G1's and
-G2's at phase 6's and G3's, G4's and G5's at phase 7's heaviest launches,
-which their entries name
+`graph_kernel_row`, `build_kernel_row`, `bundle_kernel_row`); K1's, K2's
+and the expansion's are at phase 3b's heaviest shape, K3's at 3c's launch,
+K4's at 3d's, G1's and G2's at phase 6's, G3's, G4's and G5's at phase 7's
+and G6's at phase 8's heaviest launches, which their entries name
 (phase 1's rows, K3's 256 pairs with its accepted pairs among them and
 K4's 64 tiles, stay lines of their own). The last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout, it exits
@@ -1404,7 +1416,7 @@ def spoa_phase(tmp, reads, backend_name="cuda"):
 # --------------------------------------------- phase 5: the scale-out path
 
 SHARD_DEVICES = ["cuda:0", "cuda:0"]  # two shards, two streams, one card
-# 5b, 5c and 7b run on the first reads of phase 3's community, in 4 chunks
+# 5b, 5c, 7b and 8b run on the first reads of phase 3's community, in 4 chunks
 # for 5c (a cut of depth: 64 keep the script near its aim of 700 s)
 SCALE_OUT_READS = 64
 
@@ -2168,6 +2180,169 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
     return launches, rows
 
 
+# ------------------------------------- phase 8: the device round-2 consensus
+
+# a rank step of G6, counted at the function's work: the node, its
+# in-degree, a slot's tail and weight and the tail's score (5 loads), the
+# slot and skip tests (2), the two maxima and the ballot's last lane (3),
+# the score's sum and the running maximum's compare (2), lane 0's two
+# stores (2)
+BUNDLE_OPS_STEP = 14
+LINEAR_KERNELS = ("graph_bundle",)
+
+
+def bundle_work(args, stats):
+    """(bytes, counted operations) of one G6 launch on this run's data
+    (`args` its inputs, `stats` its plain version's counts on them): each
+    real node's in-slots below its in-degree (tail and weight), its
+    in-degree and its rank_to_node entry, read once, and n_nodes; each
+    branch-completion pass's start (its out-degree, rank and out-slots, at
+    most 16 of them, counted at 2 words); the [B, N] path and the two [B]
+    words written once. Operations: every rank step of every pass
+    (`bundle_steps`), BUNDLE_OPS_STEP each."""
+    import torch
+
+    in_nbr, indeg, n_nodes = args[0], args[2], args[7]
+    B, N, P = in_nbr.shape
+    real = torch.arange(N, device=in_nbr.device)[None, :] < n_nodes.reshape(B, 1)
+    slots = int(torch.where(real, indeg.long().clamp_max(P), 0).sum())
+    nbytes = 8 * slots + 8 * int(real.sum()) + 4 * B + 8 * stats["branch_passes"]
+    return nbytes + 4 * B * N + 8 * B, stats["bundle_steps"] * BUNDLE_OPS_STEP
+
+
+def bundle_kernel_row(args):
+    """G6 on the inputs of phase 8's heaviest launch (`args`, as the program
+    gave them to the wrapper): held to its plain version (exact), the
+    wrapper (median of 5) and the plain version (once, with its counts) by
+    CUDA events, the kernel alone (`kernel_ms()` on one copy of the inputs:
+    on the path the torch ops have just written them, so they are in the
+    L2), and the bound."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import graph_consensus as gcs
+
+    B, N, P = args[0].shape
+    shape = f"B={B} N={N} P={P} Q={args[3].shape[2]} (phase 8's heaviest launch)"
+    got = gcs.heaviest_bundle(*args)
+    stats = {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = gcs._heaviest_bundle_plain(*args, stats=stats)
+    end.record()
+    end.synchronize()
+    pms = start.elapsed_time(end)
+    err = _max_err(f"graph_bundle {shape}", ("cons", "cons_len", "overflow"), got, want,
+                   again=lambda: gcs.heaviest_bundle(*args))
+    ms = time_ms(lambda: gcs.heaviest_bundle(*args))
+    ins = tuple(a.to(torch.int32).contiguous() for a in args)
+    res = (torch.empty_like(got[0]), torch.empty_like(got[1]), torch.empty_like(got[1]))
+    kms = kernel_ms(lambda r: gcs.launch_bundle(*ins, *res))
+    if not (torch.equal(res[0], got[0]) and torch.equal(res[1], got[1])
+            and torch.equal(res[2] != 0, got[2])):
+        raise RuntimeError(f"graph_bundle {shape}: the timed launches differ from the wrapper's")
+    nbytes, ops = bundle_work(args, stats)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    row = dict(kernel="graph_bundle", shape=shape, ms=ms, kernel_ms=kms, plain_ms=pms,
+               max_abs_err=err, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
+               rank_steps=stats["bundle_steps"], branch_passes=stats["branch_passes"],
+               us_a_step_a_warp=kms * 1e3 * B / max(stats["bundle_steps"], 1))
+    log_row(row)
+    return row
+
+
+def device_linear_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GOLDENS):
+    """Phase 8, the device round-2 consensus (VECHAT_DEVICE_LINEAR=1): (a)
+    both goldens through the command line's `run`, byte for byte against the
+    committed goldens; (b) `reads_path`, the first `n_reads` reads of phase
+    3's community, with VECHAT_DEVICE_BUILD=1 and VECHAT_DEVICE_CYCLE=1 as
+    well, so that both rounds' window consensus runs on the card, byte for
+    byte against the host engine's run of 5b and 5c (its output must
+    exist). Each run: the windows of round 2 on the card and on the host
+    route by reason, dispatches, the program's pack/device/fetch seconds
+    and the launches of every kernel (8b: round 1's build counts too). No
+    run is profiled. Then G6 on the inputs of its heaviest launch
+    (`bundle_kernel_row`). Returns (the kernels' launches in the phase,
+    {G6: row}). With another `backend_name` it is a rehearsal on the CPU."""
+    import torch
+
+    from vechat_tpu_torch.cli.vechat_main import build_parser, run
+    from vechat_tpu_torch.io.fastx import write_fasta
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels import graph_consensus as gcs
+    from vechat_tpu_torch.utils.logger import Logger
+
+    on_card = backend_name == "cuda"
+    t_phase = time.perf_counter()
+    original = gcs.heaviest_bundle
+    best = {}
+
+    def keep(*args, **kw):
+        out = original(*args, **kw)
+        _keep_heaviest(best, args[7].long().clamp_max(args[0].shape[1]).sum(), args)
+        return out
+
+    host_out = os.path.join(tmp, "stream_host.fa")
+    runs = [(os.path.basename(r), r, e, x, False) for r, e, x in goldens]
+    runs.append((f"first {n_reads} reads of the community, both rounds on the card", reads_path,
+                 host_out, ["--platform", "ont"], True))
+    _build.reset_launches()
+    gcs.heaviest_bundle = keep
+    os.environ["VECHAT_DEVICE_LINEAR"] = "1"
+    walls = 0.0
+    try:
+        for label, reads, expected, extra, both in runs:
+            if both:
+                os.environ["VECHAT_DEVICE_BUILD"] = os.environ["VECHAT_DEVICE_CYCLE"] = "1"
+            out = os.path.join(tmp, "linear_" + os.path.basename(expected))
+            args = build_parser().parse_args([reads, "-o", out, "--backend", backend_name, *extra])
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            try:
+                corrected, backend = run(args, Logger())
+            finally:
+                os.environ.pop("VECHAT_DEVICE_BUILD", None)
+                os.environ.pop("VECHAT_DEVICE_CYCLE", None)
+            wall = time.perf_counter() - t0
+            write_fasta(corrected, out)
+            same = _same_bytes(out, expected)
+            c = backend.counters()
+            row = dict(phase="device_linear", run=label, byte_identical=same, wall_s=wall,
+                       windows_on_card=c["n_linear_windows"],
+                       windows_to_host=c["n_linear_host"],
+                       host_routes={k[12:]: v for k, v in c.items()
+                                    if k.startswith("linear_host_")},
+                       dispatches=c["n_linear_dispatches"], pack_s=c["t_linear_pack"],
+                       device_s=c["t_linear_device"], fetch_s=c["t_linear_fetch"],
+                       launches={k: v - before[k] for k, v in _build.LAUNCHES.items()
+                                 if v != before[k]})
+            if both:
+                row.update(round1_windows_built_on_card=c["n_build_windows"],
+                           round1_host_built_windows_on_the_device_cycle=c["n_cycle_windows"])
+            log(row)
+            if not same:
+                raise RuntimeError(f"8: {label} does not reproduce {expected}")
+            if not c["n_linear_windows"]:
+                raise RuntimeError(f"8: no window of {reads} took the device round-2 consensus")
+            walls += wall
+    finally:
+        del os.environ["VECHAT_DEVICE_LINEAR"]
+        gcs.heaviest_bundle = original
+    launches = dict(_build.LAUNCHES)
+    if on_card:
+        for k in ("poa_dp", "poa_walk_dense", "graph_topo_bundled", "graph_fuse", "graph_reach",
+                  *LINEAR_KERNELS):
+            if launches[k] == 0:
+                raise RuntimeError(f"8: kernel {k} was not launched by the device round-2 path")
+    entries = list(best.values())
+    works = torch.stack([w for w, _ in entries]).tolist()
+    args = entries[max(range(len(works)), key=lambda i: works[i])][1]
+    best.clear()
+    rows = {"graph_bundle": bundle_kernel_row(args) if on_card else {}}
+    log(dict(phase="device_linear_total", wall_s=time.perf_counter() - t_phase, wall_s_runs=walls,
+             launches={k: v for k, v in launches.items() if v}))
+    return launches, rows
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2203,6 +2378,9 @@ REPLACES = {
     # the fixpoint loop of positional_subgraph (:446), :484-507
     "graph_reach": ("vechat_tpu_torch/csrc/graph_build.cu",
                     "vechat_tpu/ops/kernels/graph_build.py:484"),
+    # heaviest_bundle (:205) with its _bundle_scan (:130)
+    "graph_bundle": ("vechat_tpu_torch/csrc/graph_consensus.cu",
+                     "vechat_tpu/ops/kernels/graph_consensus.py:205"),
 }
 
 
@@ -2302,6 +2480,8 @@ def main(argv=()):
             lap("phase 6")
             build_launches, build_rows = device_build_phase(tmp, part, SCALE_OUT_READS)
             lap("phase 7")
+            linear_launches, linear_rows = device_linear_phase(tmp, part, SCALE_OUT_READS)
+            lap("phase 8")
         finally:  # no process outlives the script
             if stream_host[0].poll() is None:
                 stream_host[0].kill()
@@ -2319,6 +2499,9 @@ def main(argv=()):
     rows.update(build_rows)
     for k in BUILD_KERNELS:
         launches[k] = build_launches[k]
+    rows.update(linear_rows)
+    for k in LINEAR_KERNELS:
+        launches[k] = linear_launches[k]
     for k, v in launches.items():
         if k in REPLACES and v == 0:
             raise RuntimeError(f"kernel {k} was launched on no path")
@@ -2331,7 +2514,7 @@ def main(argv=()):
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
         if name in ("poa_dp", "poa_walk", "poa_expand", "pairwise_banded", "pairwise_tiled",
-                    *CYCLE_KERNELS, *BUILD_KERNELS):
+                    *CYCLE_KERNELS, *BUILD_KERNELS, *LINEAR_KERNELS):
             kernels[-1]["shape"] = r["shape"]
         if "kernel_ms" in r:
             kernels[-1]["kernel_ms"] = r["kernel_ms"]

@@ -15,6 +15,7 @@ import torch
 from vechat_tpu_torch.ops.encode import encode
 from vechat_tpu_torch.ops.kernels import _build
 from vechat_tpu_torch.ops.kernels import graph_build as gb
+from vechat_tpu_torch.ops.kernels import graph_consensus as gcs
 from vechat_tpu_torch.ops.kernels import graph_cycle as gc
 from vechat_tpu_torch.ops.kernels import pairwise_nw as pw
 from vechat_tpu_torch.ops.kernels import poa_affine as pa
@@ -1826,3 +1827,111 @@ def test_device_build_and_cycle_on_the_card_match_cpu(cuda):
                 assert _build.LAUNCHES[k] > before[k], k
     assert results[0] == results[1]
     assert sum(results[1][0]) >= 10
+
+
+# ------------------------------------- the device round-2 consensus: G6
+
+
+def bundle_inputs(st, seed, P=16):
+    """The heaviest bundle's inputs on build_state's graphs (ids in
+    topological order), weights 1-8 with one in twenty set to 0 (so
+    branch completion runs), in-slots of P, ranked by G3's plain machine
+    without rings; window 3 flagged (no nodes)."""
+    rng = np.random.default_rng(seed)
+    B, E = st["tails"].shape
+    N = st["codes"].shape[1]
+    w = (st["weights"] * (rng.random((B, E)) > 0.05)).astype(np.int32)
+    t, h, ne = (torch.from_numpy(st[k]) for k in ("tails", "heads", "n_edges"))
+    valid = torch.arange(E)[None, :] < ne.long()[:, None]
+    in_nbr, in_w, indeg, _ = gcs.build_in_slots_weighted(t, h, torch.from_numpy(w), valid, N, P)
+    out_nbr, out_deg, _ = gcs.build_out_slots(t, h, valid, N, P)
+    n_nodes = torch.from_numpy(st["n_nodes"]).clone()
+    n_nodes[3] = 0
+    rank_of, r2n = gb.topo_ranks_bundled(in_nbr, indeg, torch.from_numpy(st["aligned"]),
+                                         torch.zeros((B, N), dtype=torch.int32), n_nodes)
+    return [in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, r2n, n_nodes]
+
+
+@pytest.mark.parametrize("N", [256, 1152, 2048])
+def test_graph_bundle_kernel_matches_plain(cuda, N):
+    """G6 at B = 64 and the node ladder, against its plain version on the
+    same inputs: the paths, their lengths and the branch-cap flags, at the
+    default cap (no window flagged) and at a cap of 2 passes (some
+    flagged); the window without nodes gives an empty path."""
+    args = [a.to(cuda) for a in bundle_inputs(build_state(N + 9, 64, N), N)]
+    for cap in (64, 2):
+        before = _build.LAUNCHES["graph_bundle"]
+        got = gcs.heaviest_bundle(*args, max_branch_iters=cap)
+        assert _build.LAUNCHES["graph_bundle"] == before + 1
+        stats = {}
+        want = gcs._heaviest_bundle_plain(*args, max_branch_iters=cap, stats=stats)
+        for name, g, w in zip(("cons", "cons_len", "overflow"), got, want):
+            assert torch.equal(g.long(), w.long()), (name, cap)
+        assert int(got[1][3]) == 0 and stats["branch_passes"] > 0
+        assert bool(got[2].any()) == (cap == 2)
+    assert (want[1] > 10).sum() >= 60
+
+
+def test_graph_bundle_kernel_empty_batch_and_wrong_inputs(cuda):
+    args = [a.to(cuda) for a in bundle_inputs(build_state(5, 8, 64), 5)]
+    out = gcs.heaviest_bundle(*(a[:0] for a in args))
+    assert [tuple(o.shape) for o in out] == [(0, 64), (0,), (0,)]
+    with pytest.raises(ValueError):  # out-slots past a warp
+        gcs.heaviest_bundle(*args[:3], torch.zeros((8, 64, 40), dtype=torch.int32, device=cuda),
+                            *args[4:])
+    with pytest.raises(ValueError):  # n_nodes of the wrong shape
+        gcs.heaviest_bundle(*args[:7], args[7][:1])
+
+
+def test_device_linear_on_the_card_matches_cpu(cuda):
+    """`run_device_linear` on one window batch on the card (G3, G4, G5, K1,
+    the dense walk and G6) and on the CPU (the plain versions), kTGS windows
+    with the trim and NGS ones: the same windows handled, the same
+    consensus, the same counts; and `device_linear` itself on the card
+    against its plain version on the card."""
+    from vechat_tpu_torch.pipeline.device_cycle import run_device_linear
+    from vechat_tpu_torch.pipeline.windows import Window
+
+    def windows():
+        rng = np.random.default_rng(15)
+        out = []
+        for k in range(12):
+            base = rand_seq(rng, 110)
+            bb = encode(mutate(rng, base))
+            w = Window(target_id=0, rank=k, window_type=k % 2, backbone_codes=bb,
+                       backbone_quality=None, if_fasta=True)
+            blen = len(bb)
+            for j in range(int(rng.integers(4, 9))):
+                b0 = int(rng.integers(0, 12)) if j % 3 else 0
+                e0 = blen - 1 - (int(rng.integers(0, 12)) if j % 3 else 0)
+                codes = encode(mutate(rng, base[b0 : e0 + 1]))
+                if len(codes) and b0 < e0:
+                    w.add_layer(codes, None, b0, e0)
+            out.append(w)
+        return out
+
+    results = []
+    for device in (cuda, "cpu"):
+        be = TorchAlignerBackend(3, -5, -4, device=device)
+        wins = windows()
+        before = dict(_build.LAUNCHES)
+        handled = run_device_linear(wins, be, trim=True)
+        results.append((handled, [None if w.consensus_codes is None else list(w.consensus_codes)
+                                  for w in wins],
+                        {k: v for k, v in be.counters().items() if "linear" in k and "t_" not in k}))
+        if device == cuda:
+            for k in ("graph_topo_bundled", "graph_fuse", "graph_reach", "poa_dp", "poa_walk_dense",
+                      "graph_bundle"):
+                assert _build.LAUNCHES[k] > before[k], k
+    assert results[0] == results[1]
+    assert sum(results[1][0]) >= 10
+
+    from vechat_tpu_torch.pipeline.device_cycle import _build_args, _pack_polish
+
+    ps = [_pack_polish(w, 32, 128) for w in windows()]
+    args = _build_args(ps, cuda)[0]
+    do_trim = torch.ones(len(ps), dtype=torch.bool, device=cuda)
+    got = gcs.device_linear(*args, do_trim, 256, 512, 8, 3, -5, -4)
+    want = gcs.device_linear(*(a.cpu() for a in args), do_trim.cpu(), 256, 512, 8, 3, -5, -4)
+    for name, g, w in zip(("out", "out_len", "overflow"), got, want):
+        assert torch.equal(g.cpu(), w), name

@@ -27,7 +27,7 @@ _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 CSRC = os.path.join(_PKG_ROOT, "csrc")
 BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
 SOURCES = ("poa_linear", "pairwise_nw", "poa_affine", "poa_convex", "mix_peak", "graph_cycle",
-           "graph_build")
+           "graph_build", "graph_consensus")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,6 +51,7 @@ LAUNCHES: Dict[str, int] = {
     "graph_topo_bundled": 0,
     "graph_fuse": 0,
     "graph_reach": 0,
+    "graph_bundle": 0,
 }
 # K1's launch shapes since the last reset_launches(): (B, D, N, W, P, ring
 # in "shared" or "global" memory) -> launches

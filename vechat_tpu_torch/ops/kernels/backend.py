@@ -88,7 +88,8 @@ def pack_windows(dense_seqs, nb: int, pb: int, wb: int, B: int = 0):
 class TorchAlignerBackend:
     """Drop-in batch aligner running the POA kernels on `device`. With
     VECHAT_DEVICE_CYCLE=1 round 1's prune cycle runs on `self.device` too,
-    with VECHAT_DEVICE_BUILD=1 round 1's build and prune cycle
+    with VECHAT_DEVICE_BUILD=1 round 1's build and prune cycle, with
+    VECHAT_DEVICE_LINEAR=1 round 2's build and consensus
     (`pipeline/device_cycle.py`); their counts are in `counters()`."""
 
     supports_graph_cycle = True
@@ -148,11 +149,23 @@ class TorchAlignerBackend:
         self.build_host = dict.fromkeys(
             ("ladder", "int16", "n_cap", "e_cap", "r_cap", "p_cap", "ring", "cycle_a_cap",
              "cycle_p_cap", "cycle_new_edges", "cycle_ring"), 0)
+        # the device round-2 consensus (VECHAT_DEVICE_LINEAR=1): seconds
+        # packing, in its program and fetching; windows on the card, windows
+        # sent to the host build and consensus, and dispatches; the host
+        # routes by reason (a shape past the ladders, scores past int16,
+        # both before packing; then the program's overflow bits,
+        # graph_consensus.LINEAR_OVF_BITS: the build's, the slots', the
+        # branch cap's)
+        self.t_linear_pack = self.t_linear_device = self.t_linear_fetch = 0.0
+        self.n_linear_windows = self.n_linear_host = self.n_linear_dispatches = 0
+        self.linear_host = dict.fromkeys(
+            ("ladder", "int16", "n_cap", "e_cap", "r_cap", "p_cap", "ring", "slots", "branch"), 0)
 
     def counters(self) -> Dict[str, float]:
         """Device and host-route counts of this backend, the device prune
-        cycle's and the device build's counts and seconds (`t_cycle_*`,
-        `t_build_*`), and the launches of every kernel in this process."""
+        cycle's, the device build's and the device round-2 consensus's
+        counts and seconds (`t_cycle_*`, `t_build_*`, `t_linear_*`), and the
+        launches of every kernel in this process."""
         pw = self._pairwise
         out = dict(
             device_alignments=self.device_alignments,
@@ -178,9 +191,16 @@ class TorchAlignerBackend:
             t_build_pack=round(self.t_build_pack, 3),
             t_build_device=round(self.t_build_device, 3),
             t_build_fetch=round(self.t_build_fetch, 3),
+            n_linear_windows=self.n_linear_windows,
+            n_linear_host=self.n_linear_host,
+            n_linear_dispatches=self.n_linear_dispatches,
+            t_linear_pack=round(self.t_linear_pack, 3),
+            t_linear_device=round(self.t_linear_device, 3),
+            t_linear_fetch=round(self.t_linear_fetch, 3),
         )
         out.update({f"cycle_host_{k}": v for k, v in self.cycle_host.items()})
         out.update({f"build_host_{k}": v for k, v in self.build_host.items()})
+        out.update({f"linear_host_{k}": v for k, v in self.linear_host.items()})
         out.update({f"launches_{k}": v for k, v in _build.LAUNCHES.items()})
         return out
 
