@@ -50,13 +50,13 @@ Phases (each raises on failure; the script exits non-zero on any):
      every window batch over two streams of the card (K1 + the dense walk a
      shard; the device seconds of both kernels), and the dense walk once
      more against its plain version on the largest shard this run
-     launched; then, on the first 64 reads of phase 3's community (a cut
+     launched; then, on the first 48 reads of phase 3's community (a cut
      of depth that keeps the script well inside its time limit), against
      one reference, `--stream --resume-dir` over those reads on the host
      engine: (b) two processes of the command line on the card, the
      records all-gathered between the rounds over gloo, rank 0's file
      byte for byte; (c) the reference's command on the card, in four
-     chunks of 16 reads, byte for byte, then one checkpoint of each round
+     chunks of 12 reads, byte for byte, then one checkpoint of each round
      deleted and the command run again
   6. the device prune cycle (VECHAT_DEVICE_CYCLE=1: round 1's prune,
      realign and emit cycle on the card, G1 and G2 with K1 and the dense
@@ -71,20 +71,20 @@ Phases (each raises on failure; the script exits non-zero on any):
   7. the device build (VECHAT_DEVICE_BUILD=1: round 1's incremental build
      and prune cycle on the card, G3, G4 and G5 with K1 and the dense walk,
      then G1 and G2): (a) both goldens through `vechat --backend cuda`,
-     byte for byte against the committed goldens; (b) the first 64 reads
+     byte for byte against the committed goldens; (b) the first 48 reads
      of phase 3's community with VECHAT_DEVICE_CYCLE=1 as well, byte for
      byte against the host run of 5b and 5c; the windows built on the card
      and the host routes by reason, dispatches, layer steps, the build's
      pack/device/fetch seconds, and the launches of G3, G4, G5, K1, the
-     dense walk, G1 and G2 (in 7b, under the profiler, their device
-     seconds too); then G3, G4 and G5 on the inputs of their heaviest
+     dense walk, G1 and G2 (in 7b, by CUDA events around each launch,
+     their device seconds too); then G3, G4 and G5 on the inputs of their heaviest
      launches, each held to its plain version and timed (wrapper, kernel
      alone, plain)
   8. the device round-2 consensus (VECHAT_DEVICE_LINEAR=1: round 2's build,
      heaviest bundle with branch completion, coverage and trim on the card,
      G3, G4, G5, K1, the dense walk and G6): (a) both goldens through
      `vechat --backend cuda`, byte for byte against the committed goldens;
-     (b) the first 64 reads of phase 3's community with
+     (b) the first 48 reads of phase 3's community with
      VECHAT_DEVICE_BUILD=1 and VECHAT_DEVICE_CYCLE=1 as well, so that both
      rounds' window consensus runs on the card, byte for byte against the
      host run of 5b and 5c; the windows of round 2 on the card and the host
@@ -92,27 +92,39 @@ Phases (each raises on failure; the script exits non-zero on any):
      and every kernel's launches (no profiler); then G6 on the inputs of
      its heaviest launch, held to its plain version and timed (wrapper,
      kernel alone, plain)
+  9. B10, the full-matrix DP (`--backend full`, F1 and F2 in
+     `csrc/poa_full.cu`): (a) F1 and F2 on a synthesized batch of 64 native
+     window graphs at B10's buckets (N=1024, S=767, P=8) in nw, sw and ov,
+     held to the plain version (F1's H where it writes it; F2's pairs,
+     counts and scores) and timed (wrappers, kernels alone, plain); (b) both
+     goldens through `vechat --backend full`, byte for byte, with the items
+     on the card, the host routes, F1's and F2's launches and F1's tally of
+     (B, N, S, P), then F1 and F2 again on the inputs of the run's heaviest
+     launch; (c) `entry.dryrun_multichip` over two streams of the card,
+     every part equal to the one-device run; (d) `utils/roofline.main`,
+     which prints its ROOFLINE_RESULT line
 
 The phases run one after another. One process runs beside them: the
 reference of 5b, 5c and 7b on the host engine, which needs no card. It
 is started once phase 3d has ended and is waited for at 5b, so the walls of
 phases 4, 5a and 5b are taken with that one process on another of the
-host's cores; those of phases 1 to 3d, 5c, 6, 7 and 8 with nothing.
+host's cores; those of phases 1 to 3d, 5c and 6 to 9 with nothing.
 
 The second-to-last line is {"kernels": [...]} with, per kernel, its launches
 on its path (K1-K4: phase 3; K5-K6w: phase 4; the dense walk: phase 5a; G1
-and G2: phase 6; G3-G5: phase 7; G6: phase 8; K7: the measurement; counts
-set to 0 just before each), the
+and G2: phase 6; G3-G5: phase 7; G6: phase 8; F1 and F2: phase 9b; K7: the
+measurement; counts set to 0 just before each), the
 largest difference
 from its plain version (0: the tolerance is exact), its time, the plain
 version's time and the bound (the least time the card could take for
 the same work), each time the wrapper's by CUDA events (K2, the
 expansion, the dense walk, K4, K5 and K6 also give `kernel_ms`, the kernel
 alone: `walk_expand_rows`, `dense_kernel_ms`, `k4_row`, `check_gap_launch`,
-`graph_kernel_row`, `build_kernel_row`, `bundle_kernel_row`); K1's, K2's
+`graph_kernel_row`, `build_kernel_row`, `bundle_kernel_row`, `full_rows`); K1's, K2's
 and the expansion's are at phase 3b's heaviest shape, K3's at 3c's launch,
-K4's at 3d's, G1's and G2's at phase 6's, G3's, G4's and G5's at phase 7's
-and G6's at phase 8's heaviest launches, which their entries name
+K4's at 3d's, G1's and G2's at phase 6's, G3's, G4's and G5's at phase 7's,
+G6's at phase 8's and F1's and F2's at phase 9b's heaviest launches, which
+their entries name
 (phase 1's rows, K3's 256 pairs with its accepted pairs among them and
 K4's 64 tiles, stay lines of their own). The last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout, it exits
@@ -1417,8 +1429,9 @@ def spoa_phase(tmp, reads, backend_name="cuda"):
 
 SHARD_DEVICES = ["cuda:0", "cuda:0"]  # two shards, two streams, one card
 # 5b, 5c, 7b and 8b run on the first reads of phase 3's community, in 4 chunks
-# for 5c (a cut of depth: 64 keep the script near its aim of 700 s)
-SCALE_OUT_READS = 64
+# for 5c (a cut of depth: 200 -> 100 -> 64 -> 48 reads, to keep the script
+# near its aim of 700 s as phases were added)
+SCALE_OUT_READS = 48
 
 
 def _free_port():
@@ -1497,6 +1510,53 @@ def _profiled(fn, on_card=True, device_ms=None):
     if device_ms is not None:
         device_ms.update(times)
     return out, wall, sum(times.values()) / 1e3
+
+
+def _event_timed(fn, on_card=True):
+    """fn() with every launch of the port's kernels between two CUDA events
+    on its stream: (result, wall s, {kernel: device ms}), a kernel named
+    after its C launcher (`poa_dp_launch` -> `poa_dp_kernel`). Only the
+    launchers' own kernels are timed, not the torch ops or the copies, so
+    there is no busy share; the cost is two event records a launch, where
+    the profiler's processing of a trace took seconds. The launchers of
+    the libraries loaded before the call are wrapped (every one used after
+    phase 6 is)."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    if not on_card:
+        return fn(), time.perf_counter() - t0, {}
+    events, saved = [], []
+    for lib in _build._libs.values():
+        for name, f in list(vars(lib).items()):
+            if not name.endswith("_launch"):
+                continue
+
+            def timed(*a, _f=f, _n=name[: -len("_launch")] + "_kernel"):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                rc = _f(*a)
+                end.record()
+                events.append((_n, start, end))
+                return rc
+
+            timed.argtypes, timed.restype = f.argtypes, f.restype
+            setattr(lib, name, timed)
+            saved.append((lib, name, f))
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for lib, name, f in saved:
+            setattr(lib, name, f)
+    device_ms = {}
+    for name, start, end in events:
+        device_ms[name] = device_ms.get(name, 0.0) + start.elapsed_time(end)
+    return out, wall, device_ms
 
 
 def kernel_device_s(device_ms, kernel):
@@ -2069,8 +2129,8 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
     exist). Each run: the windows built on the card and the host routes by
     reason, dispatches, layer steps, the build's pack/device/fetch seconds
     and the launches of G3, G4, G5, K1, the dense walk, G1 and G2; 7b also
-    their device seconds and the device's idle share (7b alone runs under
-    the profiler). Then G3, G4 and G5 on the inputs of their heaviest launches
+    their device seconds (7b alone, by CUDA events around each launch,
+    `_event_timed`). Then G3, G4 and G5 on the inputs of their heaviest launches
     (`build_kernel_row`). Returns (the kernels' launches in the phase,
     {G3, G4, G5: row}). With another `backend_name` it is a rehearsal on the
     CPU."""
@@ -2120,24 +2180,21 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
             out = os.path.join(tmp, "build_" + os.path.basename(expected))
             args = build_parser().parse_args([reads, "-o", out, "--backend", backend_name, *extra])
             before = dict(_build.LAUNCHES)
-            dev_ms = {}
-            # only 7b runs under the profiler: processing its trace takes
-            # twice the run's wall, and 7a's device seconds add little
-            profiled = on_card and cycle
-            t_run = time.perf_counter()
+            # 7b's kernels are timed by CUDA events (`_event_timed`); the
+            # profiler that did it before took ~16-20 s to process its trace
+            timed = on_card and cycle
             try:
-                (corrected, backend), wall, busy_s = _profiled(lambda: run(args, Logger()),
-                                                               profiled, dev_ms)
+                (corrected, backend), wall, dev_ms = _event_timed(lambda: run(args, Logger()),
+                                                                  timed)
             finally:
                 os.environ.pop("VECHAT_DEVICE_CYCLE", None)
-            # the profiler's own seconds after the run: its trace's processing
-            profile_s = time.perf_counter() - t_run - wall
+            kernels_s = sum(dev_ms.values()) / 1e3
             write_fasta(corrected, out)
             same = _same_bytes(out, expected)
             c = backend.counters()
             log(dict(phase="device_build", run=label, byte_identical=same,
-                     wall_s=wall, profile_s=profile_s,
-                     device_busy_s=busy_s if profiled else "not measured",
+                     wall_s=wall, kernels_device_s=kernels_s if timed else "not measured",
+                     device_busy_s="not measured",
                      windows_built_on_card=c["n_build_windows"],
                      windows_to_host_build=c["n_build_host"],
                      host_routes={k[11:]: v for k, v in c.items() if k.startswith("build_host_")},
@@ -2148,15 +2205,15 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
                      device_s_by_kernel={k: kernel_device_s(dev_ms, k) for k in (
                          "graph_topo_bundled_kernel", "graph_fuse_kernel", "graph_reach_kernel",
                          "poa_dp_kernel", "poa_walk_dense_kernel", "graph_dfs_kernel",
-                         "graph_topo_kernel")} if profiled else "not measured",
+                         "graph_topo_kernel")} if timed else "not measured",
                      launches={k: v - before[k] for k, v in _build.LAUNCHES.items()
                                if v != before[k]}))
             if not same:
                 raise RuntimeError(f"7: {label} does not reproduce {expected}")
             if not c["n_build_windows"]:
                 raise RuntimeError(f"7: no window of {reads} was built on the device")
-            if profiled:
-                walls, busy = walls + wall, busy + busy_s
+            if timed:
+                walls, busy = walls + wall, busy + kernels_s
     finally:
         del os.environ["VECHAT_DEVICE_BUILD"]
         for k, fn in wrapped.items():
@@ -2174,8 +2231,7 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
         best[name] = None
         rows[name] = build_kernel_row(name, args) if on_card else {}
     log(dict(phase="device_build_total", wall_s=time.perf_counter() - t_phase,
-             wall_s_7b=walls, device_busy_s_7b=busy,
-             device_idle_share=1 - busy / walls if on_card else "not measured",
+             wall_s_7b=walls, kernels_device_s_7b=busy,
              launches={k: v for k, v in launches.items() if v}))
     return launches, rows
 
@@ -2343,6 +2399,272 @@ def device_linear_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=G
     return launches, rows
 
 
+# ------------------------------ phase 9: B10, the full-matrix DP (--backend full)
+
+
+FULL_KERNELS = ("poa_full_dp", "poa_full_walk")
+# counted at the function's work. F1, a cell: the profile's compare and
+# select (2), t = H - j*g (1), the prefix max (1, one pass along the row),
+# + j*g (1) and sw's clamp (1); a real in-edge, a cell: the diagonal's and
+# the vertical's adds and two maxes (4). F2, a cell of the best-cell scan:
+# a compare and a select (2); a walk step as K2's (WALK_OPS_STEP)
+FULL_OPS_CELL, FULL_OPS_EDGE, FULL_OPS_SCAN = 6, 4, 2
+
+
+def full_window_inputs(rng, B, N, P, S):
+    """B window graphs built by the port's native graph from a backbone and
+    8%-error layers (as many as keep it within N - 60 nodes and P in-edges),
+    each with one 8%-error read of the window, in B10's layout (codes
+    uint8 [B, N], preds [B, N, P], node_id, is_sink [B, N], n_nodes, seq
+    uint8 [B, S], seq_len)."""
+    from vechat_tpu_torch.ops.encode import encode
+    from vechat_tpu_torch.ops.kernels.dense import graph_to_dense
+    from vechat_tpu_torch.ops.native_graph import make_graph
+
+    codes = np.zeros((B, N), np.uint8)
+    preds = np.zeros((B, N, P), np.int32)
+    nid = np.zeros((B, N), np.int32)
+    sink = np.ones((B, N), bool)
+    nn = np.ones(B, np.int32)
+    seq = np.full((B, S), 0xFF, np.uint8)
+    sl = np.ones(B, np.int32)
+    b = 0
+    while b < B:
+        backbone = rand_seq(rng, min(690, S - 60, N - 300))
+        g = make_graph()
+        c = encode(backbone)
+        g.add_alignment([], c, np.ones(len(c), np.uint32))
+        for _ in range(40):
+            layer = encode(ont_read(rng, backbone, 0.08))
+            g.add_alignment(g.align_host(layer, "nw", 3, -5, -4), layer,
+                            np.ones(len(layer), np.uint32))
+            if g.num_nodes() > N - 60 or g.max_in_degree() >= P:
+                break
+        d = graph_to_dense(g, N, P)
+        if d is None:
+            continue
+        codes[b], preds[b], nid[b], sink[b], nn[b] = (d["codes"], d["preds"], d["node_id"],
+                                                      d["is_sink"], d["n_nodes"])
+        q = encode(ont_read(rng, backbone, 0.08))[:S]
+        seq[b, : len(q)] = q
+        sl[b] = len(q)
+        b += 1
+    return codes, preds, nid, sink, nn, seq, sl
+
+
+def full_work(t, mode, got):
+    """(F1's bytes, F1's operations, F2's bytes, F2's operations) of one
+    launch on this run's data (`t` the seven inputs on the card, `got` F2's
+    outputs): F1 reads each real row's code and in-slots and the sequence
+    once and writes rows 0..n_nodes by columns 0..seq_len of H; its cells
+    and real in-edges as FULL_OPS_*. F2 reads the mode's scanned cells once
+    and, a step, the cell, its node's code, id and in-slots and two H cells
+    a real in-slot (at the window's mean real in-degree), and writes the
+    [L, 2] pairs row whole, the count and the score."""
+    import torch
+
+    codes, preds, nid, sink, nn, seq, sl = t
+    B, N, P = preds.shape
+    dev = preds.device
+    nn64, sl64 = nn.long(), sl.long()
+    real = torch.arange(N, device=dev)[None, :] < nn64[:, None]
+    indeg = ((preds != preds[:, :, :1]).sum(dim=2) + 1) * real
+    edges = indeg.sum(dim=1)
+    rows = nn64.sum()
+    f1_bytes = int(rows * (1 + 4 * P) + sl64.sum() + 8 * B + 4 * ((nn64 + 1) * (sl64 + 1)).sum())
+    f1_ops = int(((nn64 * FULL_OPS_CELL + edges * FULL_OPS_EDGE) * (sl64 + 1)).sum())
+    if mode == "nw":
+        scanned = (sink.bool() & real).sum(dim=1)
+    elif mode == "ov":
+        scanned = (sink.bool() & real).sum(dim=1) * sl64
+    else:
+        scanned = nn64 * sl64
+    steps = got[1].long()
+    mean_deg = edges.double() / nn64.clamp_min(1)
+    step_bytes = (steps.double() * (4 + 1 + 1 + 4 + 4 * P + 8 * mean_deg)).sum()
+    L = got[0].shape[1]
+    f2_bytes = int(4 * scanned.sum() + step_bytes + B * (8 * L + 8))
+    f2_ops = int(FULL_OPS_SCAN * scanned.sum() + WALK_OPS_STEP * steps.sum())
+    return f1_bytes, f1_ops, f2_bytes, f2_ops
+
+
+def full_rows(arrays, mode, scores, label):
+    """F1 and F2 on `arrays` (B10's seven inputs, numpy) in `mode` at
+    `scores`: held to the plain version (F1's H on the rows and columns it
+    writes, F2's pairs, count and score; exact), the wrappers (median of 5),
+    the kernels alone (`kernel_ms()`, 24 launches in a CUDA graph) and the
+    plain versions (once each) by CUDA events, and the bounds. Returns
+    {kernel: row}."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+
+    t = pf._inputs(*arrays, torch.device("cuda"))
+    codes, preds, nid, sink, nn, seq, sl = t
+    B, N, P = preds.shape
+    S = seq.shape[1]
+    shape = f"B={B} N={N} S={S} P={P} {mode}{label}"
+    dp_args = (codes, preds, nn, seq, sl, mode, *scores)
+    H = pf.full_dp(*dp_args)
+    got = pf.full_walk(H, codes, preds, nid, sink, nn, seq, sl, mode, *scores)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    Hp = pf._dp_full_plain(*dp_args)
+    end.record()
+    end.synchronize()
+    pms1 = start.elapsed_time(end)
+    start.record()
+    want = pf._walk_full_plain(Hp, codes, preds, nid, sink, nn, seq, sl, mode, *scores)
+    end.record()
+    end.synchronize()
+    pms2 = start.elapsed_time(end)
+    written = ((torch.arange(N + 1, device=H.device)[None, :, None] <= nn.long()[:, None, None])
+               & (torch.arange(S + 1, device=H.device)[None, None, :]
+                  <= sl.long()[:, None, None]))
+    err1 = _max_err(f"poa_full_dp {shape}", ("H",), (H[written],), (Hp[written],),
+                    again=lambda: (pf.full_dp(*dp_args)[written],))
+    err2 = _max_err(f"poa_full_walk {shape}", ("pairs", "count", "score"), got, want,
+                    again=lambda: pf.full_walk(H, codes, preds, nid, sink, nn, seq, sl, mode,
+                                               *scores))
+    ms1 = time_ms(lambda: pf.full_dp(*dp_args))
+    ms2 = time_ms(lambda: pf.full_walk(H, codes, preds, nid, sink, nn, seq, sl, mode, *scores))
+    ms_both = time_ms(lambda: pf.poa_align_batch_full(*t, mode, *scores, device=H.device))
+    Hk = torch.empty_like(H)
+    res = tuple(torch.empty_like(a) for a in got)
+    kms1 = kernel_ms(lambda r: pf.launch_dp(codes, preds, nn, seq, sl, Hk, mode, *scores))
+    kms2 = kernel_ms(lambda r: pf.launch_walk(H, codes, preds, nid, sink, nn, seq, sl, *res, mode,
+                                              *scores))
+    if not (torch.equal(Hk[written], H[written]) and all(map(torch.equal, res, got))):
+        raise RuntimeError(f"poa_full {shape}: the timed launches differ from the wrapper's")
+    b1, o1, b2, o2 = full_work(t, mode, got)
+    rows = {}
+    steps = int(got[1].sum())
+    for name, ms, kms, pms, nb, ops, err, extra in (
+            ("poa_full_dp", ms1, kms1, pms1, b1, o1, err1,
+             dict(rows=int(nn.sum()), us_a_row=kms1 * 1e3 / int(nn.max()))),
+            ("poa_full_walk", ms2, kms2, pms2, b2, o2, err2,
+             dict(steps=steps, us_a_step=kms2 * 1e3 / max(int(got[1].max()), 1)))):
+        b_ms, b_by = bound_ms(nb, ops)
+        rows[name] = dict(kernel=name, shape=shape, ms=ms, kernel_ms=kms, plain_ms=pms,
+                          max_abs_err=err, bound_ms=b_ms, bound_by=b_by, bytes=nb, ops=ops,
+                          wrapper_both_ms=ms_both, **extra)
+        log_row(rows[name])
+    return rows
+
+
+def full_kernels_phase(rng):
+    """Phase 9a: F1 and F2 on a synthesized batch of 64 native window graphs
+    at B10's buckets (N=1024, S=767, P=8), in nw, sw and ov, each held to
+    the plain version and timed (`full_rows`)."""
+    arrays = full_window_inputs(rng, B=64, N=1024, P=8, S=767)
+    nn, sl = arrays[4], arrays[6]
+    log(f"F1/F2 inputs: 64 windows, nodes {int(nn.min())}-{int(nn.max())}, "
+        f"reads {int(sl.min())}-{int(sl.max())} bases")
+    for mode in ("nw", "sw", "ov"):
+        full_rows(arrays, mode, (3, -5, -4), " (9a)")
+
+
+def full_backend_phase(tmp, device="cuda", goldens=GOLDENS):
+    """Phase 9b: both goldens through the command line's `run` with
+    `--backend full`, byte for byte against the committed goldens; the items
+    on the card, the host routes (`fallbacks`), F1's and F2's launches and
+    F1's tally of (B, N, S, P), every kernel's launches. Then F1 and F2 on
+    the inputs of the run's heaviest launch (the largest B x N x S, the first
+    of equals), held to the plain version and timed (`full_rows`). Returns
+    (the kernels' launches in the phase, {kernel: row}). With device="cpu"
+    it is a rehearsal on the CPU: the backend is made for the CPU (the plain
+    versions) and handed to `run`; no timed rows."""
+    from vechat_tpu_torch.cli.racon_main import make_backend
+    from vechat_tpu_torch.cli.vechat_main import build_parser, run
+    from vechat_tpu_torch.io.fastx import write_fasta
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+    from vechat_tpu_torch.utils.logger import Logger
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    original = pf.poa_align_batch_full
+    heaviest = {}
+
+    def keep(*args, **kw):
+        B, N, P = np.shape(args[1])
+        work = B * N * np.shape(args[5])[1]
+        if work > heaviest.get("work", -1):
+            heaviest.update(work=work, args=args[:7], mode=args[7], scores=args[8:11])
+        return original(*args, **kw)
+
+    _build.reset_launches()
+    pf.poa_align_batch_full = keep
+    try:
+        for reads, expected, extra in goldens:
+            out = os.path.join(tmp, "full_" + os.path.basename(expected))
+            args = build_parser().parse_args([reads, "-o", out, "--backend", "full", *extra])
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            # on the card the command line makes its backend, as for a user
+            backend = None if on_card else make_backend("full", args.match, args.mismatch,
+                                                        args.gap, device=device)
+            corrected, backend = run(args, Logger(), backend=backend)
+            wall = time.perf_counter() - t0
+            write_fasta(corrected, out)
+            same = _same_bytes(out, expected)
+            c = backend.counters()
+            log(dict(phase="full_backend", reads=os.path.basename(reads), byte_identical=same,
+                     wall_s=wall, items_on_card=c["device_alignments"],
+                     fallbacks=c["fallbacks"], dispatches=c["n_dispatches"],
+                     launches={k: v - before[k] for k, v in _build.LAUNCHES.items()
+                               if v != before[k]}))
+            if not same:
+                raise RuntimeError(f"9b: --backend full on {reads} does not reproduce {expected}")
+            if not c["device_alignments"]:
+                raise RuntimeError(f"9b: no item of {reads} went through B10")
+    finally:
+        pf.poa_align_batch_full = original
+    launches = dict(_build.LAUNCHES)
+    tally = sorted(_build.FULL_SHAPES.items(), key=lambda kv: -kv[1])
+    log(dict(phase="full_backend_shapes", launch_shapes_B_N_S_P=[[*k, v] for k, v in tally]))
+    for k in FULL_KERNELS:
+        if on_card and launches[k] == 0:
+            raise RuntimeError(f"9b: kernel {k} was not launched by --backend full")
+    rows = {}
+    if on_card:
+        a = heaviest["args"]
+        rows = full_rows(a, heaviest["mode"], heaviest["scores"], " (9b's heaviest launch)")
+    log(dict(phase="full_backend_total", wall_s=time.perf_counter() - t_phase,
+             launches={k: v for k, v in launches.items() if v}))
+    return launches, rows
+
+
+def dryrun_phase(devices=("cuda:0", "cuda:0")):
+    """Phase 9c: `dryrun_multichip` over `devices` (by default two shards on
+    two streams of the one card) and over the first device alone; every
+    part's outputs byte for byte equal."""
+    import torch
+
+    from vechat_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    many = dryrun_multichip(list(devices))
+    t1 = time.perf_counter()
+    one = dryrun_multichip([devices[0]])
+    t2 = time.perf_counter()
+    equal = {part: all(torch.equal(a, b) for a, b in zip(many[part], one[part]))
+             for part in "abcd"}
+    log(dict(phase="dryrun_multichip", devices=list(devices), totals=many["totals"],
+             equal_to_one_device=equal, wall_s=t1 - t0, wall_s_one_device=t2 - t1))
+    if not all(equal.values()):
+        raise RuntimeError(f"9c: dryrun_multichip over {devices} differs from one device: {equal}")
+
+
+def roofline_phase():
+    """Phase 9d: `utils/roofline.main` (it prints its ROOFLINE_RESULT line)."""
+    from vechat_tpu_torch.utils import roofline as rf
+
+    t0 = time.perf_counter()
+    res = rf.main()
+    log(dict(phase="roofline", wall_s=time.perf_counter() - t0, mix_share=res["mix_share"]))
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2381,6 +2703,10 @@ REPLACES = {
     # heaviest_bundle (:205) with its _bundle_scan (:130)
     "graph_bundle": ("vechat_tpu_torch/csrc/graph_consensus.cu",
                      "vechat_tpu/ops/kernels/graph_consensus.py:205"),
+    # B10's row loop (:135-153), then its best cell and traceback (:155-265)
+    "poa_full_dp": ("vechat_tpu_torch/csrc/poa_full.cu", "vechat_tpu/ops/kernels/poa_jax.py:135"),
+    "poa_full_walk": ("vechat_tpu_torch/csrc/poa_full.cu",
+                      "vechat_tpu/ops/kernels/poa_jax.py:155"),
 }
 
 
@@ -2482,6 +2808,14 @@ def main(argv=()):
             lap("phase 7")
             linear_launches, linear_rows = device_linear_phase(tmp, part, SCALE_OUT_READS)
             lap("phase 8")
+            full_kernels_phase(rng)
+            lap("phase 9a")
+            full_launches, full_rows_9b = full_backend_phase(tmp)
+            lap("phase 9b")
+            dryrun_phase()
+            lap("phase 9c")
+            roofline_phase()
+            lap("phase 9d")
         finally:  # no process outlives the script
             if stream_host[0].poll() is None:
                 stream_host[0].kill()
@@ -2502,6 +2836,9 @@ def main(argv=()):
     rows.update(linear_rows)
     for k in LINEAR_KERNELS:
         launches[k] = linear_launches[k]
+    rows.update(full_rows_9b)
+    for k in FULL_KERNELS:
+        launches[k] = full_launches[k]
     for k, v in launches.items():
         if k in REPLACES and v == 0:
             raise RuntimeError(f"kernel {k} was launched on no path")
@@ -2514,7 +2851,7 @@ def main(argv=()):
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None))
         if name in ("poa_dp", "poa_walk", "poa_expand", "pairwise_banded", "pairwise_tiled",
-                    *CYCLE_KERNELS, *BUILD_KERNELS, *LINEAR_KERNELS):
+                    *CYCLE_KERNELS, *BUILD_KERNELS, *LINEAR_KERNELS, *FULL_KERNELS):
             kernels[-1]["shape"] = r["shape"]
         if "kernel_ms" in r:
             kernels[-1]["kernel_ms"] = r["kernel_ms"]

@@ -1935,3 +1935,149 @@ def test_device_linear_on_the_card_matches_cpu(cuda):
     want = gcs.device_linear(*(a.cpu() for a in args), do_trim.cpu(), 256, 512, 8, 3, -5, -4)
     for name, g, w in zip(("out", "out_len", "overflow"), got, want):
         assert torch.equal(g.cpu(), w), name
+
+
+# ------------------------------------------------------- B10: F1 and F2
+
+
+def full_inputs(seed, B, N, P, S, depth=6, base_len=100):
+    """B native window graphs of mixed sizes packed in B10's layout
+    (`poa_full.poa_align_batch_full`), a query each."""
+    rng = np.random.default_rng(seed)
+    codes = np.zeros((B, N), np.uint8)
+    preds = np.zeros((B, N, P), np.int32)
+    nid = np.zeros((B, N), np.int32)
+    sink = np.ones((B, N), bool)
+    nn = np.ones(B, np.int32)
+    seq = np.full((B, S), 0xFF, np.uint8)
+    sl = np.ones(B, np.int32)
+    b = 0
+    while b < B:
+        base = rand_seq(rng, int(rng.integers(base_len // 2, base_len + 1)))
+        g = make_graph()
+        for s in [mutate(rng, base) for _ in range(depth)]:
+            c = encode(s)
+            aln = g.align_host(c, "nw", 3, -5, -4) if g.num_nodes() else []
+            g.add_alignment(aln, c, np.ones(len(c), np.uint32))
+        d = graph_to_dense(g, N, P)
+        if d is None:
+            continue
+        codes[b], preds[b], nid[b], sink[b], nn[b] = (d["codes"], d["preds"], d["node_id"],
+                                                      d["is_sink"], d["n_nodes"])
+        q = encode(mutate(rng, base, 0.15))[:S]
+        seq[b, : len(q)] = q
+        sl[b] = len(q)
+        b += 1
+    return codes, preds, nid, sink, nn, seq, sl
+
+
+def _full_equal_plain(device, arrs, mode, scores=(3, -5, -4)):
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+
+    t = pf._inputs(*arrs, device)
+    codes, preds, nid, sink, nn, seq, sl = t
+    before = dict(_build.LAUNCHES)
+    H = pf.full_dp(codes, preds, nn, seq, sl, mode, *scores)
+    got = pf.full_walk(H, codes, preds, nid, sink, nn, seq, sl, mode, *scores)
+    assert _build.LAUNCHES["poa_full_dp"] == before["poa_full_dp"] + 1
+    assert _build.LAUNCHES["poa_full_walk"] == before["poa_full_walk"] + 1
+    Hp = pf._dp_full_plain(codes, preds, nn, seq, sl, mode, *scores)
+    want = pf._walk_full_plain(Hp, codes, preds, nid, sink, nn, seq, sl, mode, *scores)
+    # F1 writes rows 0..n_nodes and columns 0..seq_len, every cell a result reads
+    B, N1, W = Hp.shape
+    real = ((torch.arange(N1, device=device)[None, :, None] <= nn.long()[:, None, None])
+            & (torch.arange(W, device=device)[None, None, :] <= sl.long()[:, None, None]))
+    assert torch.equal(H[real], Hp[real])
+    for name, a, b in zip(("pairs", "count", "score"), got, want):
+        assert torch.equal(a, b), name
+    cpu = pf.poa_align_batch_full(*arrs, mode, *scores, device="cpu")
+    for a, b in zip(got, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
+@pytest.mark.parametrize("shape", [(5, 256, 4, 127, 120), (3, 1024, 8, 767, 600)])
+def test_full_dp_and_walk_match_plain(cuda, mode, shape):
+    B, N, P, S, base_len = shape
+    _full_equal_plain(cuda, full_inputs(21, B, N, P, S, base_len=base_len), mode)
+
+
+@pytest.mark.parametrize("S", [63, 95, 1023])
+def test_full_dp_widths_and_other_scores_match_plain(cuda, S):
+    """Widths off a warp multiple and at F1's top (1024 threads), and the
+    CLI's other scores."""
+    arrs = full_inputs(22, 4, 256, 4, S, depth=4, base_len=min(S, 100))
+    for mode in ("nw", "sw", "ov"):
+        _full_equal_plain(cuda, arrs, mode, scores=(5, -4, -8))
+
+
+def test_full_kernels_empty_batch_and_wrong_inputs(cuda):
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+
+    arrs = full_inputs(23, 2, 64, 4, 63, base_len=40)
+    empty = [a[:0] for a in arrs]
+    pairs, count, score = pf.poa_align_batch_full(*empty, "nw", 3, -5, -4, device=cuda)
+    assert pairs.shape == (0, 64 + 63 + 1, 2) and count.shape == (0,)
+    wide = list(arrs)
+    wide[5] = np.full((2, 1024), 0xFF, np.uint8)
+    with pytest.raises(ValueError, match="1024"):
+        pf.poa_align_batch_full(*wide, "nw", 3, -5, -4, device=cuda)
+    many = list(arrs)
+    many[1] = np.repeat(arrs[1][:, :, :1], 33, axis=2)
+    with pytest.raises(ValueError, match="P <= 32"):
+        pf.poa_align_batch_full(*many, "nw", 3, -5, -4, device=cuda)
+    codes, preds, nid, sink, nn, seq, sl = pf._inputs(*arrs, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        pf.full_dp(codes.to(torch.int32), preds, nn, seq, sl, "nw", 3, -5, -4)
+    H = pf.full_dp(codes, preds, nn, seq, sl, "nw", 3, -5, -4)
+    with pytest.raises(ValueError, match="contiguous"):
+        pf.full_walk(H, codes, preds, nid, sink.bool(), nn, seq, sl, "nw", 3, -5, -4)
+    with pytest.raises(ValueError, match="shape"):
+        pf.full_walk(H[:, :-1].contiguous(), codes, preds, nid, sink, nn, seq, sl, "nw", 3, -5, -4)
+
+
+def test_sharded_poa_align_on_one_card(cuda):
+    """B10's shards on two streams of one card: the unsharded call's
+    outputs, F1 and F2 launched once a shard."""
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+    from vechat_tpu_torch.parallel.mesh import make_mesh, sharded_poa_align
+
+    arrs = full_inputs(24, 6, 256, 8, 127, base_len=110)
+    fn = sharded_poa_align(make_mesh(["cuda:0", "cuda:0"]), "sw", 3, -5, -4)
+    before = dict(_build.LAUNCHES)
+    got = fn(*arrs)
+    assert _build.LAUNCHES["poa_full_dp"] == before["poa_full_dp"] + 2
+    assert _build.LAUNCHES["poa_full_walk"] == before["poa_full_walk"] + 2
+    one = pf.poa_align_batch_full(*arrs, "sw", 3, -5, -4, device=cuda)
+    for g, o in zip(got, one):
+        assert g.device.type == "cpu" and torch.equal(g, o.cpu())
+
+
+def test_full_backend_on_the_card_matches_cpu(cuda):
+    from vechat_tpu_torch.ops.kernels.poa_full import FullAlignerBackend
+
+    rng = np.random.default_rng(25)
+    items = []
+    for n in (60, 200, 450):
+        base = rand_seq(rng, n)
+        g = make_graph()
+        for s in [mutate(rng, base) for _ in range(5)]:
+            c = encode(s)
+            aln = g.align_host(c, "nw", 3, -5, -4) if g.num_nodes() else []
+            g.add_alignment(aln, c, np.ones(len(c), np.uint32))
+        items += [(encode(mutate(rng, base)), g, m) for m in ("nw", "sw", "nw")]
+    be = FullAlignerBackend(3, -5, -4)
+    assert be.device.type == "cuda"
+    got = be.align_batch(items)
+    want = FullAlignerBackend(3, -5, -4, device="cpu").align_batch(items)
+    assert got == want and be.fallbacks == 0 and be.device_alignments == len(items)
+    for (codes, g, mode), aln in zip(items, got):
+        assert aln == g.align_host(codes, mode, 3, -5, -4)
+
+
+def test_make_backend_full_raises_without_a_card(monkeypatch):
+    from vechat_tpu_torch.cli.racon_main import make_backend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_backend("full", 3, -5, -4)

@@ -14,7 +14,7 @@ from ..pipeline.polisher import POLISHER_CONTIG, POLISHER_FRAGMENT, Polisher
 from ..utils.logger import Logger
 
 
-BACKENDS = ("cuda", "torch", "host")
+BACKENDS = ("cuda", "torch", "host", "full")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,8 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
         choices=list(BACKENDS),
         default="cuda",
         help="alignment backend: CUDA kernels on the GPU (default; raises "
-        "without one), their plain PyTorch versions on the CPU (torch), or "
-        "the host C++ engine (host)",
+        "without one), their plain PyTorch versions on the CPU (torch), the "
+        "host C++ engine (host), or the full-matrix DP on the GPU (full; the "
+        "reference's --backend jax)",
     )
     return p
 
@@ -57,8 +58,10 @@ def make_backend(name: str, match: int, mismatch: int, gap: int, threads: int = 
     (default "cuda": every visible card, window batches sharded over them
     when there are several) or on the explicit list `devices`, and raises
     when no GPU is present; `torch` runs their plain PyTorch versions on the
-    CPU; `host` runs the C++ engine. There is no silent fallback from one
-    to another."""
+    CPU; `host` runs the C++ engine; `full` runs the full-matrix DP (B10,
+    the reference's `--backend jax`) on `device` (default "cuda", one card;
+    "cpu" its plain versions) with the pairwise alignments on the host.
+    There is no silent fallback from one to another."""
     if name == "host":
         from ..pipeline.windows import HostAlignerBackend
 
@@ -71,6 +74,12 @@ def make_backend(name: str, match: int, mismatch: int, gap: int, threads: int = 
         )
     if name == "torch":
         return TorchAlignerBackend(match, mismatch, gap, device="cpu")
+    if name == "full":
+        from ..ops.kernels.poa_full import FullAlignerBackend
+
+        if devices is not None:
+            raise ValueError("the full backend runs on one device: give `device`")
+        return FullAlignerBackend(match, mismatch, gap, device=device or "cuda")
     raise ValueError(f"unknown backend {name!r}; choose from {BACKENDS}")
 
 

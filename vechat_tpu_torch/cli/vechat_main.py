@@ -7,8 +7,9 @@ Round 2: overlap corrected reads at base level -> keep >=1000 bp, >=0.99
 identity -> linear racon consensus.
 
 The alignments run on the CUDA kernels (`--backend cuda`, the default),
-their plain PyTorch versions on the CPU (`--backend torch`) or the host C++
-engine (`--backend host`).
+their plain PyTorch versions on the CPU (`--backend torch`), the host C++
+engine (`--backend host`) or the full-matrix DP on the GPU (`--backend
+full`, the reference's `--backend jax`).
 
 Scale-out: `--split` corrects the targets a chunk at a time, `--stream`
 also passes the rounds through files so that a chunk holds only its own
@@ -137,7 +138,9 @@ def build_parser() -> argparse.ArgumentParser:
         choices=list(BACKENDS),
         default="cuda",
         help="CUDA kernels on the GPU (default; raises without one), their "
-        "plain PyTorch versions on the CPU (torch), or the host C++ engine",
+        "plain PyTorch versions on the CPU (torch), the host C++ engine "
+        "(host), or the full-matrix DP on one GPU (full; the reference's "
+        "--backend jax; overlap pairs on the host)",
     )
     p.add_argument("--keep-paf", default=None, help="write round-1 overlaps here")
     p.add_argument(
@@ -145,7 +148,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         metavar="DIR",
         help="capture a torch.profiler trace of the run (CPU activity, and "
-        "the GPU's with --backend cuda) into DIR as a Chrome trace "
+        "the GPU's with --backend cuda or full) into DIR as a Chrome trace "
         "(view with chrome://tracing or Perfetto)",
     )
     p.add_argument(
@@ -607,14 +610,15 @@ def run(args, logger: Logger, backend=None, group: Optional[ProcessGroup] = None
 @contextlib.contextmanager
 def _profiled(args, group: ProcessGroup, logger: Logger):
     """--profile DIR: a torch.profiler trace of the run, written into DIR as
-    a Chrome trace; the card's activity is recorded with --backend cuda."""
+    a Chrome trace; the card's activity is recorded with --backend cuda or
+    full."""
     if not args.profile:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if args.backend == "cuda":
+    if args.backend in ("cuda", "full"):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(args.profile, exist_ok=True)
     path = os.path.join(args.profile, f"vechat.rank{group.process_id}.trace.json")

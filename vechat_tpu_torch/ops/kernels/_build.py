@@ -9,7 +9,7 @@ build raises with nvcc's stderr; there is no fallback.
 
 The launch counters live here too: every wrapper adds one to its kernel's
 count where it launches the kernel, and nowhere else; K1's, K3's and K4's
-wrappers also tally their launch shapes.
+wrappers, and F1's, also tally their launch shapes.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 CSRC = os.path.join(_PKG_ROOT, "csrc")
 BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
 SOURCES = ("poa_linear", "pairwise_nw", "poa_affine", "poa_convex", "mix_peak", "graph_cycle",
-           "graph_build", "graph_consensus")
+           "graph_build", "graph_consensus", "poa_full")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,6 +52,8 @@ LAUNCHES: Dict[str, int] = {
     "graph_fuse": 0,
     "graph_reach": 0,
     "graph_bundle": 0,
+    "poa_full_dp": 0,
+    "poa_full_walk": 0,
 }
 # K1's launch shapes since the last reset_launches(): (B, D, N, W, P, ring
 # in "shared" or "global" memory) -> launches
@@ -60,6 +62,8 @@ K1_SHAPES: Dict[tuple, int] = {}
 K3_SHAPES: Dict[tuple, int] = {}
 # K4's launch shapes since the last reset_launches(): (NP, T, W) -> launches
 K4_SHAPES: Dict[tuple, int] = {}
+# F1's launch shapes since the last reset_launches(): (B, N, S, P) -> launches
+FULL_SHAPES: Dict[tuple, int] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -71,6 +75,7 @@ def reset_launches() -> None:
     K1_SHAPES.clear()
     K3_SHAPES.clear()
     K4_SHAPES.clear()
+    FULL_SHAPES.clear()
 
 
 def resolve_device(device) -> "torch.device":
