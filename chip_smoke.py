@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the root of a checkout, one GPU
     python3 chip_smoke.py --save-k3 PATH   # also save phase 3c's K3 inputs
     python3 chip_smoke.py --save-k4 PATH   # also save phase 3d's and every phase-3 K4 launch's inputs
-                                           # (both may be given)
+    python3 chip_smoke.py --save-full PATH # also save phase 9a's inputs and 9b's heaviest launch's
+                                           # (any of the three may be given)
 
 Phases (each raises on failure; the script exits non-zero on any):
   0. the card's name and power limit; build the CUDA kernels with nvcc
@@ -95,12 +96,16 @@ Phases (each raises on failure; the script exits non-zero on any):
   9. B10, the full-matrix DP (`--backend full`, F1 and F2 in
      `csrc/poa_full.cu`): (a) F1 and F2 on a synthesized batch of 64 native
      window graphs at B10's buckets (N=1024, S=767, P=8) in nw, sw and ov,
-     held to the plain version (F1's H where it writes it; F2's pairs,
-     counts and scores) and timed (wrappers, kernels alone, plain); (b) both
-     goldens through `vechat --backend full`, byte for byte, with the items
-     on the card, the host routes, F1's and F2's launches and F1's tally of
-     (B, N, S, P), then F1 and F2 again on the inputs of the run's heaviest
-     launch; (c) `entry.dryrun_multichip` over two streams of the card,
+     held to the plain version (F1's H where it writes it and its best
+     cell; F2's pairs, counts and scores) and timed (wrappers, kernels
+     alone, plain), with the predecessor distances of the batch (the share
+     of F1's row reads that its ring serves) and both kernels' registers
+     and shared memory a block; (b) both goldens through `vechat --backend
+     full`, byte for byte, with the items on the card, the host routes, F1's
+     and F2's launches, F1's tally of (B, N, S, P) and the predecessor
+     distances over all its launches, then F1 and F2 again on the inputs of
+     the run's heaviest launch (`--save-full PATH` saves 9a's inputs and
+     these, for `k1_probe.py time-full`); (c) `entry.dryrun_multichip` over two streams of the card,
      every part equal to the one-device run; (d) `utils/roofline.main`,
      which prints its ROOFLINE_RESULT line
 
@@ -2403,16 +2408,18 @@ def device_linear_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=G
 
 
 FULL_KERNELS = ("poa_full_dp", "poa_full_walk")
+FULL_ARGS = ("codes", "preds", "node_id", "is_sink", "n_nodes", "seq", "seq_len")
 # counted at the function's work. F1, a cell: the profile's compare and
 # select (2), t = H - j*g (1), the prefix max (1, one pass along the row),
 # + j*g (1) and sw's clamp (1); a real in-edge, a cell: the diagonal's and
-# the vertical's adds and two maxes (4). F2, a cell of the best-cell scan:
-# a compare and a select (2); a walk step as K2's (WALK_OPS_STEP)
+# the vertical's adds and two maxes (4); a cell of the mode's best-cell
+# scan: a compare and a select (2). F2, a walk step as K2's (WALK_OPS_STEP)
 FULL_OPS_CELL, FULL_OPS_EDGE, FULL_OPS_SCAN = 6, 4, 2
 
 
-def full_window_inputs(rng, B, N, P, S):
-    """B window graphs built by the port's native graph from a backbone and
+def full_window_inputs(rng, B, N, P, S, backbone_len=None):
+    """B window graphs built by the port's native graph from a backbone
+    (`backbone_len` bases, by default min(690, S - 60, N - 300)) and
     8%-error layers (as many as keep it within N - 60 nodes and P in-edges),
     each with one 8%-error read of the window, in B10's layout (codes
     uint8 [B, N], preds [B, N, P], node_id, is_sink [B, N], n_nodes, seq
@@ -2430,7 +2437,7 @@ def full_window_inputs(rng, B, N, P, S):
     sl = np.ones(B, np.int32)
     b = 0
     while b < B:
-        backbone = rand_seq(rng, min(690, S - 60, N - 300))
+        backbone = rand_seq(rng, backbone_len or min(690, S - 60, N - 300))
         g = make_graph()
         c = encode(backbone)
         g.add_alignment([], c, np.ones(len(c), np.uint32))
@@ -2455,12 +2462,14 @@ def full_window_inputs(rng, B, N, P, S):
 def full_work(t, mode, got):
     """(F1's bytes, F1's operations, F2's bytes, F2's operations) of one
     launch on this run's data (`t` the seven inputs on the card, `got` F2's
-    outputs): F1 reads each real row's code and in-slots and the sequence
-    once and writes rows 0..n_nodes by columns 0..seq_len of H; its cells
-    and real in-edges as FULL_OPS_*. F2 reads the mode's scanned cells once
-    and, a step, the cell, its node's code, id and in-slots and two H cells
-    a real in-slot (at the window's mean real in-degree), and writes the
-    [L, 2] pairs row whole, the count and the score."""
+    outputs): F1 reads each real row's code, sink flag and in-slots and the
+    sequence once and writes rows 0..n_nodes by columns 0..seq_len of H and
+    the best cell; its cells and real in-edges as FULL_OPS_*, and
+    FULL_OPS_SCAN a cell of the mode's best-cell scan. F2 reads the best
+    cell and, a step, the node's in-slots, code and id, the read's code,
+    and two H cells a real in-slot and the horizontal one (at the window's
+    mean real in-degree), and writes the [L, 2] pairs row whole, the count
+    and the score."""
     import torch
 
     codes, preds, nid, sink, nn, seq, sl = t
@@ -2471,30 +2480,72 @@ def full_work(t, mode, got):
     indeg = ((preds != preds[:, :, :1]).sum(dim=2) + 1) * real
     edges = indeg.sum(dim=1)
     rows = nn64.sum()
-    f1_bytes = int(rows * (1 + 4 * P) + sl64.sum() + 8 * B + 4 * ((nn64 + 1) * (sl64 + 1)).sum())
-    f1_ops = int(((nn64 * FULL_OPS_CELL + edges * FULL_OPS_EDGE) * (sl64 + 1)).sum())
     if mode == "nw":
         scanned = (sink.bool() & real).sum(dim=1)
     elif mode == "ov":
         scanned = (sink.bool() & real).sum(dim=1) * sl64
     else:
         scanned = nn64 * sl64
+    f1_bytes = int(rows * (2 + 4 * P) + sl64.sum() + 16 * B
+                   + 4 * ((nn64 + 1) * (sl64 + 1)).sum())
+    f1_ops = int(((nn64 * FULL_OPS_CELL + edges * FULL_OPS_EDGE) * (sl64 + 1)).sum()
+                 + FULL_OPS_SCAN * scanned.sum())
     steps = got[1].long()
     mean_deg = edges.double() / nn64.clamp_min(1)
-    step_bytes = (steps.double() * (4 + 1 + 1 + 4 + 4 * P + 8 * mean_deg)).sum()
+    step_bytes = (steps.double() * (4 * P + 2 + 4 + 4 * (2 * mean_deg + 1))).sum()
     L = got[0].shape[1]
-    f2_bytes = int(4 * scanned.sum() + step_bytes + B * (8 * L + 8))
-    f2_ops = int(FULL_OPS_SCAN * scanned.sum() + WALK_OPS_STEP * steps.sum())
+    f2_bytes = int(step_bytes + B * (8 * L + 16))
+    f2_ops = int(WALK_OPS_STEP * steps.sum())
     return f1_bytes, f1_ops, f2_bytes, f2_ops
+
+
+def pred_distances(preds, nn, ring):
+    """F1's predecessor reads of B10's inputs (numpy preds [B, N, P] and
+    n_nodes [B]): each real row's distinct slots (a repeat of slot 0 is not
+    read), by distance n + 1 - p; row 0 is computed, the row before (1)
+    comes from registers, 2..ring from the ring in shared memory, farther
+    from global memory. Returns {reads, row_0, hist {distance: reads, up
+    to 16, then "17+"}, served_by_ring, global, share_without_global}."""
+    preds = np.asarray(preds)
+    B, N, P = preds.shape
+    real = np.arange(N)[None, :] < np.asarray(nn)[:, None]
+    distinct = np.ones(preds.shape, bool)
+    distinct[:, :, 1:] = preds[:, :, 1:] != preds[:, :, :1]
+    read = distinct & real[:, :, None]
+    dist = (np.arange(N)[None, :, None] + 1) - preds
+    row0 = int((read & (preds == 0)).sum())
+    d = dist[read & (preds > 0)]
+    hist = {str(k): int((d == k).sum()) for k in range(1, 17)}
+    hist["17+"] = int((d > 16).sum())
+    ring_reads = int(((d >= 2) & (d <= ring)).sum())
+    far = int((d > ring).sum())
+    total = int(read.sum())
+    return dict(reads=total, row_0=row0, hist=hist, served_by_ring=ring_reads, ring=ring,
+                **{"global": far}, share_without_global=1 - far / max(total, 1))
+
+
+def full_resources(S, N, P):
+    """F1's and F2's registers a thread, static and dynamic shared memory
+    and threads a block at this shape (cudaFuncGetAttributes, the
+    launchers' plans), in nw (the modes share their layout)."""
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+
+    k = pf.f1_columns(S)
+    threads, smem = pf.dp_plan(N, P, S)
+    warps, wsmem = pf.walk_plan(N, P, S)
+    return dict(poa_full_dp=dict(columns_a_thread=k, threads=threads, dynamic_smem_bytes=smem,
+                                 ring=pf.RING, **pf.kernel_attrs("dp", "nw", S)),
+                poa_full_walk=dict(warps=warps, threads=warps * 32, dynamic_smem_bytes=wsmem,
+                                   **pf.kernel_attrs("walk", "nw")))
 
 
 def full_rows(arrays, mode, scores, label):
     """F1 and F2 on `arrays` (B10's seven inputs, numpy) in `mode` at
     `scores`: held to the plain version (F1's H on the rows and columns it
-    writes, F2's pairs, count and score; exact), the wrappers (median of 5),
-    the kernels alone (`kernel_ms()`, 24 launches in a CUDA graph) and the
-    plain versions (once each) by CUDA events, and the bounds. Returns
-    {kernel: row}."""
+    writes and its best cell, F2's pairs, count and score; exact), the
+    wrappers (median of 5), the kernels alone (`kernel_ms()`, 24 launches
+    in a CUDA graph) and the plain versions (once each) by CUDA events,
+    and the bounds. Returns {kernel: row}."""
     import torch
 
     from vechat_tpu_torch.ops.kernels import poa_full as pf
@@ -2504,12 +2555,13 @@ def full_rows(arrays, mode, scores, label):
     B, N, P = preds.shape
     S = seq.shape[1]
     shape = f"B={B} N={N} S={S} P={P} {mode}{label}"
-    dp_args = (codes, preds, nn, seq, sl, mode, *scores)
-    H = pf.full_dp(*dp_args)
-    got = pf.full_walk(H, codes, preds, nid, sink, nn, seq, sl, mode, *scores)
+    dp_args = (codes, preds, sink, nn, seq, sl, mode, *scores)
+    walk_args = (codes, preds, nid, nn, seq, sl, mode, *scores)
+    H, best = pf.full_dp(*dp_args)
+    got = pf.full_walk(H, best, *walk_args)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    Hp = pf._dp_full_plain(*dp_args)
+    Hp = pf._dp_full_plain(codes, preds, nn, seq, sl, mode, *scores)
     end.record()
     end.synchronize()
     pms1 = start.elapsed_time(end)
@@ -2518,23 +2570,30 @@ def full_rows(arrays, mode, scores, label):
     end.record()
     end.synchronize()
     pms2 = start.elapsed_time(end)
+    best_p = pf._best_packed_plain(Hp, sink, nn, sl, mode)
     written = ((torch.arange(N + 1, device=H.device)[None, :, None] <= nn.long()[:, None, None])
                & (torch.arange(S + 1, device=H.device)[None, None, :]
                   <= sl.long()[:, None, None]))
-    err1 = _max_err(f"poa_full_dp {shape}", ("H",), (H[written],), (Hp[written],),
-                    again=lambda: (pf.full_dp(*dp_args)[written],))
+
+    def again_dp():
+        H2, b2 = pf.full_dp(*dp_args)
+        return H2[written], b2
+
+    err1 = _max_err(f"poa_full_dp {shape}", ("H", "best"), (H[written], best),
+                    (Hp[written], best_p), again=again_dp)
     err2 = _max_err(f"poa_full_walk {shape}", ("pairs", "count", "score"), got, want,
-                    again=lambda: pf.full_walk(H, codes, preds, nid, sink, nn, seq, sl, mode,
-                                               *scores))
+                    again=lambda: pf.full_walk(H, best, *walk_args))
     ms1 = time_ms(lambda: pf.full_dp(*dp_args))
-    ms2 = time_ms(lambda: pf.full_walk(H, codes, preds, nid, sink, nn, seq, sl, mode, *scores))
+    ms2 = time_ms(lambda: pf.full_walk(H, best, *walk_args))
     ms_both = time_ms(lambda: pf.poa_align_batch_full(*t, mode, *scores, device=H.device))
-    Hk = torch.empty_like(H)
+    Hk, bk = torch.empty_like(H), torch.empty_like(best)
     res = tuple(torch.empty_like(a) for a in got)
-    kms1 = kernel_ms(lambda r: pf.launch_dp(codes, preds, nn, seq, sl, Hk, mode, *scores))
-    kms2 = kernel_ms(lambda r: pf.launch_walk(H, codes, preds, nid, sink, nn, seq, sl, *res, mode,
+    kms1 = kernel_ms(lambda r: pf.launch_dp(codes, preds, sink, nn, seq, sl, Hk, bk, mode,
+                                            *scores))
+    kms2 = kernel_ms(lambda r: pf.launch_walk(H, best, codes, preds, nid, nn, seq, sl, *res, mode,
                                               *scores))
-    if not (torch.equal(Hk[written], H[written]) and all(map(torch.equal, res, got))):
+    if not (torch.equal(Hk[written], H[written]) and torch.equal(bk, best)
+            and all(map(torch.equal, res, got))):
         raise RuntimeError(f"poa_full {shape}: the timed launches differ from the wrapper's")
     b1, o1, b2, o2 = full_work(t, mode, got)
     rows = {}
@@ -2552,26 +2611,44 @@ def full_rows(arrays, mode, scores, label):
     return rows
 
 
+def full_layout_lines(arrays, label):
+    """Log F1's predecessor reads at `arrays` (how many the ring serves)
+    and both kernels' registers and shared memory at its shape."""
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+
+    B, N, P = np.shape(arrays[1])
+    S = np.shape(arrays[5])[1]
+    log(dict(phase="full_pred_distances", inputs=label,
+             **pred_distances(arrays[1], arrays[4], pf.RING)))
+    log(dict(phase="full_resources", inputs=label, shape=f"N={N} S={S} P={P}",
+             **full_resources(S, N, P)))
+
+
 def full_kernels_phase(rng):
     """Phase 9a: F1 and F2 on a synthesized batch of 64 native window graphs
     at B10's buckets (N=1024, S=767, P=8), in nw, sw and ov, each held to
-    the plain version and timed (`full_rows`)."""
+    the plain version and timed (`full_rows`), with the batch's predecessor
+    distances and the kernels' resources. Returns the inputs."""
     arrays = full_window_inputs(rng, B=64, N=1024, P=8, S=767)
     nn, sl = arrays[4], arrays[6]
     log(f"F1/F2 inputs: 64 windows, nodes {int(nn.min())}-{int(nn.max())}, "
         f"reads {int(sl.min())}-{int(sl.max())} bases")
+    full_layout_lines(arrays, "9a")
     for mode in ("nw", "sw", "ov"):
         full_rows(arrays, mode, (3, -5, -4), " (9a)")
+    return arrays
 
 
 def full_backend_phase(tmp, device="cuda", goldens=GOLDENS):
     """Phase 9b: both goldens through the command line's `run` with
     `--backend full`, byte for byte against the committed goldens; the items
     on the card, the host routes (`fallbacks`), F1's and F2's launches and
-    F1's tally of (B, N, S, P), every kernel's launches. Then F1 and F2 on
-    the inputs of the run's heaviest launch (the largest B x N x S, the first
-    of equals), held to the plain version and timed (`full_rows`). Returns
-    (the kernels' launches in the phase, {kernel: row}). With device="cpu"
+    F1's tally of (B, N, S, P), F1's predecessor reads over every launch
+    (`pred_distances`), every kernel's launches. Then F1 and F2 on the
+    inputs of the run's heaviest launch (the largest B x N x S, the first of
+    equals), held to the plain version and timed (`full_rows`). Returns
+    (the kernels' launches in the phase, {kernel: row}, the heaviest
+    launch's {args, mode, scores}). With device="cpu"
     it is a rehearsal on the CPU: the backend is made for the CPU (the plain
     versions) and handed to `run`; no timed rows."""
     from vechat_tpu_torch.cli.racon_main import make_backend
@@ -2585,12 +2662,14 @@ def full_backend_phase(tmp, device="cuda", goldens=GOLDENS):
     t_phase = time.perf_counter()
     original = pf.poa_align_batch_full
     heaviest = {}
+    launched = []  # each launch's (preds, n_nodes): its distances after the timed runs
 
     def keep(*args, **kw):
         B, N, P = np.shape(args[1])
         work = B * N * np.shape(args[5])[1]
         if work > heaviest.get("work", -1):
             heaviest.update(work=work, args=args[:7], mode=args[7], scores=args[8:11])
+        launched.append((args[1], args[4]))
         return original(*args, **kw)
 
     _build.reset_launches()
@@ -2623,16 +2702,39 @@ def full_backend_phase(tmp, device="cuda", goldens=GOLDENS):
     launches = dict(_build.LAUNCHES)
     tally = sorted(_build.FULL_SHAPES.items(), key=lambda kv: -kv[1])
     log(dict(phase="full_backend_shapes", launch_shapes_B_N_S_P=[[*k, v] for k, v in tally]))
+    dist = {"reads": 0, "row_0": 0, "served_by_ring": 0, "global": 0, "hist": {}}
+    for preds, nn in launched:
+        d = pred_distances(preds, nn, pf.RING)
+        for key in ("reads", "row_0", "served_by_ring", "global"):
+            dist[key] += d[key]
+        for key, v in d["hist"].items():
+            dist["hist"][key] = dist["hist"].get(key, 0) + v
+    log(dict(phase="full_pred_distances", inputs="9b, every launch", ring=pf.RING, **dist,
+             share_without_global=1 - dist["global"] / max(dist["reads"], 1)))
     for k in FULL_KERNELS:
         if on_card and launches[k] == 0:
             raise RuntimeError(f"9b: kernel {k} was not launched by --backend full")
     rows = {}
     if on_card:
         a = heaviest["args"]
+        full_layout_lines(a, "9b's heaviest launch")
         rows = full_rows(a, heaviest["mode"], heaviest["scores"], " (9b's heaviest launch)")
     log(dict(phase="full_backend_total", wall_s=time.perf_counter() - t_phase,
              launches={k: v for k, v in launches.items() if v}))
-    return launches, rows
+    return launches, rows, heaviest
+
+
+def save_full_inputs(path, arrays_9a, heaviest):
+    """`--save-full PATH`: 9a's seven inputs (a_*) and those of 9b's
+    heaviest launch (b_*, with its mode and scores), for `k1_probe.py
+    time-full --inputs PATH`."""
+    out = {f"a_{k}": np.asarray(v) for k, v in zip(FULL_ARGS, arrays_9a)}
+    out.update({f"b_{k}": np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+                for k, v in zip(FULL_ARGS, heaviest["args"])})
+    out["b_mode"] = np.array(heaviest["mode"])
+    out["b_scores"] = np.array(heaviest["scores"], np.int32)
+    np.savez_compressed(path, **out)
+    log(dict(phase="save_full", path=path))
 
 
 def dryrun_phase(devices=("cuda:0", "cuda:0")):
@@ -2724,10 +2826,12 @@ def gpu_ecc():
 
 
 def main(argv=()):
-    # --save-k3 PATH, --save-k4 PATH: also save the inputs of phase 3c, 3d (npz)
+    # --save-k3 PATH, --save-k4 PATH, --save-full PATH: also save the inputs
+    # of phase 3c, 3d, 9a and 9b's heaviest launch (npz)
     saves = dict(zip(argv[::2], argv[1::2]))
-    if len(argv) % 2 or set(saves) - {"--save-k3", "--save-k4"}:
-        print("usage: python3 chip_smoke.py [--save-k3 PATH] [--save-k4 PATH]", file=sys.stderr)
+    if len(argv) % 2 or set(saves) - {"--save-k3", "--save-k4", "--save-full"}:
+        print("usage: python3 chip_smoke.py [--save-k3 PATH] [--save-k4 PATH] "
+              "[--save-full PATH]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -2808,9 +2912,11 @@ def main(argv=()):
             lap("phase 7")
             linear_launches, linear_rows = device_linear_phase(tmp, part, SCALE_OUT_READS)
             lap("phase 8")
-            full_kernels_phase(rng)
+            arrays_9a = full_kernels_phase(rng)
             lap("phase 9a")
-            full_launches, full_rows_9b = full_backend_phase(tmp)
+            full_launches, full_rows_9b, full_heaviest = full_backend_phase(tmp)
+            if "--save-full" in saves:
+                save_full_inputs(saves["--save-full"], arrays_9a, full_heaviest)
             lap("phase 9b")
             dryrun_phase()
             lap("phase 9c")

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Probes of K1, the linear POA DP kernel of vechat_tpu_torch, of K2, its
 run-length walk, of the dense walk, of K3, the banded NW kernel, of K5,
-the affine POA DP kernel, of K6, the convex one, and of K5w and K6w, their
-three-state walk, on one NVIDIA GPU (the timing) or on the output of
+the affine POA DP kernel, of K6, the convex one, of K5w and K6w, their
+three-state walk, and of F1 and F2, B10's full-matrix DP and its walk,
+on one NVIDIA GPU (the timing) or on the output of
 `cuobjdump -sass` (K1's count).
 
     python3 k1_probe.py time DIR [DIR ...]   # DIR: the root of a checkout
@@ -13,6 +14,7 @@ three-state walk, on one NVIDIA GPU (the timing) or on the output of
     python3 k1_probe.py time-k5 DIR [DIR ...]
     python3 k1_probe.py time-k6 DIR [DIR ...]
     python3 k1_probe.py time-walk3 DIR [DIR ...]
+    python3 k1_probe.py time-full [--inputs NPZ] DIR [DIR ...]
     python3 k1_probe.py repeat-k7 N          # K7 held to its plain version N times
     python3 k1_probe.py sass FILE            # cuobjdump -sass output or a .so
 
@@ -127,6 +129,20 @@ with the tiles its walks staged), the longest walk's
 steps and the microseconds a step, and ptxas's registers and spills of
 each walk instantiation. Last, K5w on three straight walks of 1000 steps
 (a diagonal, a column, a row), which tell a step's cost from a tile's.
+
+`time-full` runs F1 and F2, B10's full-matrix DP and its walk
+(`vechat_tpu_torch/csrc/poa_full.cu`), of each DIR's package in a process
+of its own, in the order given, on phase 9a's inputs in nw, sw and ov and
+on 9b's heaviest launch in its mode (both from `chip_smoke.py --save-full
+NPZ`; without --inputs, a 9a-like batch drawn by chip_smoke.py's
+`full_window_inputs` from its own seed, and no 9b case), then, for a
+package with F1's ring, at the S buckets 63, 127 and 255 on batches of 64
+drawn the same way. Each package's outputs are held to the
+plain versions first (H where F1 writes it, the pairs, counts and
+scores). Each line is one (DIR, case, mode): F1's and F2's wrappers (`ms`, the CUDA-event median of 20 calls)
+and kernels alone (`kernel_ms`, chip_smoke.py's `kernel_ms`: 24 launches
+in a CUDA graph), µs a row and a step (the largest window's rows, the
+longest walk's steps), with ptxas's registers of each kernel.
 
 `repeat-k7` launches K7, the mix-peak kernel of this checkout, N times at
 each of chip_smoke.py's check depths (1 and 8 rounds, its seed, a tile for
@@ -672,6 +688,102 @@ _K4_ONE_WARP = {
 }
 
 
+def _full_cases(cs, inputs_path, new):
+    """time-full's cases: [(label, seven numpy inputs, modes, scores)]."""
+    import numpy as np
+
+    if inputs_path:
+        z = np.load(inputs_path)
+        arrays = lambda pre: tuple(z[pre + k] for k in cs.FULL_ARGS)  # noqa: E731
+        cases = [("9a", arrays("a_"), ("nw", "sw", "ov"), (3, -5, -4)),
+                 ("9b's heaviest launch", arrays("b_"), (str(z["b_mode"]),),
+                  tuple(int(v) for v in z["b_scores"]))]
+    else:
+        rng = np.random.default_rng(cs.SEED + 17)
+        cases = [("9a-like", cs.full_window_inputs(rng, 64, 1024, 8, 767), ("nw", "sw", "ov"),
+                  (3, -5, -4))]
+    if new:
+        rng = np.random.default_rng(cs.SEED + 18)
+        for N, S in ((128, 63), (256, 127), (512, 255)):
+            arrs = cs.full_window_inputs(rng, 64, N, 8, S, backbone_len=S * 3 // 4)
+            cases.append((f"S={S} bucket", arrs, ("nw", "sw"), (3, -5, -4)))
+    return cases
+
+
+def _time_full(pkg_dir, inputs_path):
+    """Time F1 and F2 of the package under pkg_dir (its API, the earlier
+    one whose F1 returns H alone or the present one, read off `full_dp`'s
+    parameters); prints one JSON line a (case, mode)."""
+    import importlib.util
+    import inspect
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, pkg_dir)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vechat_tpu_torch.ops.kernels import _build
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+
+    assert pf.__file__.startswith(os.path.abspath(pkg_dir)), pf.__file__
+    new = "is_sink" in inspect.signature(pf.full_dp).parameters
+    dev = torch.device("cuda")
+    pf._lib()  # built, so that ptxas's report is there
+    regs = {}
+    for fn, use in _build.ptxas_usage("poa_full").items():
+        m = re.search(r"poa_full_(dp|walk)_kernelILi(\d)E(?:Li(\d)E)?", fn)
+        if m:  # F1 <mode, columns a thread>, F2 <mode>
+            regs[f"{m.group(1)}<{','.join(x for x in m.groups()[1:] if x)}>"] = use.get("registers")
+    print(json.dumps(dict(pkg=pkg_dir, registers=regs)), flush=True)
+    for label, arrays, modes, scores in _full_cases(cs, inputs_path, new):
+        t = pf._inputs(*arrays, dev)
+        codes, preds, nid, sink, nn, seq, sl = t
+        B, N, P = preds.shape
+        S = seq.shape[1]
+        for mode in modes:
+            args = (mode, *scores)
+            Hp = pf._dp_full_plain(codes, preds, nn, seq, sl, *args)
+            want = pf._walk_full_plain(Hp, codes, preds, nid, sink, nn, seq, sl, *args)
+            written = ((torch.arange(N + 1, device=dev)[None, :, None] <= nn.long()[:, None, None])
+                       & (torch.arange(S + 1, device=dev)[None, None, :]
+                          <= sl.long()[:, None, None]))
+            if new:
+                H, best = pf.full_dp(codes, preds, sink, nn, seq, sl, *args)
+                got = pf.full_walk(H, best, codes, preds, nid, nn, seq, sl, *args)
+                Hk, bk = torch.empty_like(H), torch.empty_like(best)
+                res = tuple(torch.empty_like(a) for a in got)
+                dp = lambda: pf.full_dp(codes, preds, sink, nn, seq, sl, *args)  # noqa: E731
+                dp_alone = lambda r: pf.launch_dp(  # noqa: E731
+                    codes, preds, sink, nn, seq, sl, Hk, bk, *args)
+                walk = lambda: pf.full_walk(H, best, codes, preds, nid, nn, seq, sl, *args)  # noqa
+                walk_alone = lambda r: pf.launch_walk(  # noqa: E731
+                    H, best, codes, preds, nid, nn, seq, sl, *res, *args)
+            else:
+                H = pf.full_dp(codes, preds, nn, seq, sl, *args)
+                got = pf.full_walk(H, codes, preds, nid, sink, nn, seq, sl, *args)
+                Hk = torch.empty_like(H)
+                res = tuple(torch.empty_like(a) for a in got)
+                dp = lambda: pf.full_dp(codes, preds, nn, seq, sl, *args)  # noqa: E731
+                dp_alone = lambda r: pf.launch_dp(  # noqa: E731
+                    codes, preds, nn, seq, sl, Hk, *args)
+                walk = lambda: pf.full_walk(H, codes, preds, nid, sink, nn, seq, sl, *args)  # noqa
+                walk_alone = lambda r: pf.launch_walk(  # noqa: E731
+                    H, codes, preds, nid, sink, nn, seq, sl, *res, *args)
+            assert torch.equal(H[written], Hp[written]), f"{label} {mode}: H"
+            for name, g, w in zip(("pairs", "count", "score"), got, want):
+                assert torch.equal(g, w), f"{label} {mode}: {name}"
+            line = dict(pkg=pkg_dir, case=f"{label}: B={B} N={N} S={S} P={P}", mode=mode,
+                        f1_ms=cs.time_ms(dp, warmup=2, reps=20),
+                        f1_kernel_ms=cs.kernel_ms(dp_alone),
+                        f2_ms=cs.time_ms(walk, warmup=2, reps=20),
+                        f2_kernel_ms=cs.kernel_ms(walk_alone))
+            line["f1_us_a_row"] = line["f1_kernel_ms"] * 1e3 / int(nn.max())
+            line["f2_us_a_step"] = line["f2_kernel_ms"] * 1e3 / max(int(got[1].max()), 1)
+            print(json.dumps(line), flush=True)
+
+
 def _time_k3(pkg_dir, inputs_path):
     """Time K3 of the package under pkg_dir, whole and rows only; prints one
     JSON line a (case, build) with its bound."""
@@ -900,6 +1012,25 @@ def main(argv):
         return 0
     if len(argv) == 3 and argv[0] == "_time_k4":
         _time_k4(argv[1], argv[2])
+        return 0
+    if len(argv) >= 2 and argv[0] == "time-full":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        inputs = ""
+        dirs = argv[1:]
+        if dirs[0] == "--inputs":
+            inputs, dirs = os.path.abspath(dirs[1]), dirs[2:]
+        for d in dirs:
+            rc = subprocess.run([sys.executable, __file__, "_time_full", os.path.abspath(d),
+                                 inputs]).returncode
+            if rc:
+                return rc
+        return 0
+    if len(argv) == 3 and argv[0] == "_time_full":
+        _time_full(argv[1], argv[2])
         return 0
     if len(argv) >= 2 and argv[0] == "time-k2":
         import torch

@@ -1977,8 +1977,8 @@ def _full_equal_plain(device, arrs, mode, scores=(3, -5, -4)):
     t = pf._inputs(*arrs, device)
     codes, preds, nid, sink, nn, seq, sl = t
     before = dict(_build.LAUNCHES)
-    H = pf.full_dp(codes, preds, nn, seq, sl, mode, *scores)
-    got = pf.full_walk(H, codes, preds, nid, sink, nn, seq, sl, mode, *scores)
+    H, best = pf.full_dp(codes, preds, sink, nn, seq, sl, mode, *scores)
+    got = pf.full_walk(H, best, codes, preds, nid, nn, seq, sl, mode, *scores)
     assert _build.LAUNCHES["poa_full_dp"] == before["poa_full_dp"] + 1
     assert _build.LAUNCHES["poa_full_walk"] == before["poa_full_walk"] + 1
     Hp = pf._dp_full_plain(codes, preds, nn, seq, sl, mode, *scores)
@@ -1988,11 +1988,13 @@ def _full_equal_plain(device, arrs, mode, scores=(3, -5, -4)):
     real = ((torch.arange(N1, device=device)[None, :, None] <= nn.long()[:, None, None])
             & (torch.arange(W, device=device)[None, None, :] <= sl.long()[:, None, None]))
     assert torch.equal(H[real], Hp[real])
+    assert torch.equal(best, pf._best_packed_plain(Hp, sink, nn, sl, mode))
     for name, a, b in zip(("pairs", "count", "score"), got, want):
         assert torch.equal(a, b), name
     cpu = pf.poa_align_batch_full(*arrs, mode, *scores, device="cpu")
     for a, b in zip(got, cpu):
         assert torch.equal(a.cpu(), b)
+    return best
 
 
 @pytest.mark.parametrize("mode", ["nw", "sw", "ov"])
@@ -2009,6 +2011,99 @@ def test_full_dp_widths_and_other_scores_match_plain(cuda, S):
     arrs = full_inputs(22, 4, 256, 4, S, depth=4, base_len=min(S, 100))
     for mode in ("nw", "sw", "ov"):
         _full_equal_plain(cuda, arrs, mode, scores=(5, -4, -8))
+
+
+@pytest.mark.parametrize("S", [63, 127, 255, 511, 767])
+def test_full_kernels_at_each_read_bucket(cuda, S):
+    """F1 and F2 at each of B10's read buckets (1 column a thread up to
+    S = 255, 4 above), B = 1 and B = 6, in every mode, against the plain
+    versions."""
+    N = {63: 128, 127: 256, 255: 512, 511: 1024, 767: 1024}[S]
+    arrs = full_inputs(26, 6, N, 8, S, base_len=min(S - 8, N // 2))
+    for mode in ("nw", "sw", "ov"):
+        _full_equal_plain(cuda, [a[:1] for a in arrs], mode)
+        _full_equal_plain(cuda, arrs, mode)
+
+
+def far_preds_inputs(seed, B, N, P, S, far):
+    """B synthesized DAGs in B10's layout whose rows take predecessors up to
+    `far` rows back (every tenth row one that far), random codes and reads."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (B, N)).astype(np.uint8)
+    preds = np.zeros((B, N, P), np.int32)
+    for b in range(B):
+        for n in range(N):
+            row = n + 1
+            ins = {row - 1}
+            if n % 10 == 9 and row - far >= 0:
+                ins.add(row - far)
+            for _ in range(int(rng.integers(0, P))):
+                ins.add(int(rng.integers(max(0, row - 6), row)))
+            ins = sorted(ins)[:P]
+            preds[b, n] = ins + [ins[0]] * (P - len(ins))
+    sink = np.zeros((B, N), bool)
+    sink[:, -3:] = True
+    sink[:, N // 2] = True
+    nid = np.tile(np.arange(N, dtype=np.int32), (B, 1))
+    nn = np.full(B, N, np.int32)
+    seq = rng.integers(0, 4, (B, S)).astype(np.uint8)
+    sl = rng.integers(S // 2, S + 1, B).astype(np.int32)
+    return codes, preds, nid, sink, nn, seq, sl
+
+
+@pytest.mark.parametrize("S", [255, 511])
+@pytest.mark.parametrize("far", [16, 17, 40])
+def test_full_dp_reads_rows_older_than_the_ring(cuda, far, S):
+    """Predecessors `far` rows back, at 1 and 4 columns a thread: 16, the
+    oldest row F1's ring of 16 keeps; 17 and 40, past it, which F1 reads
+    from global memory inside the kernel. H, best and the walk equal the
+    plain ones."""
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+
+    assert pf.RING == 16
+    for mode in ("nw", "sw", "ov"):
+        _full_equal_plain(cuda, far_preds_inputs(27, 5, 300, 6, S, far=far), mode)
+
+
+def test_full_best_ties_across_warps(cuda):
+    """Equal best values in several threads and warps: a window of one node
+    repeated (a chain of As) against a read of As, so that sw's and ov's
+    best value recurs along a row over many threads' columns; the lowest
+    flat index wins, as the reference's argmax."""
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+
+    B, N, P, S = 3, 512, 4, 511
+    codes = np.zeros((B, N), np.uint8)
+    preds = np.tile(np.arange(N, dtype=np.int32)[None, :, None], (B, 1, P))
+    nid = np.tile(np.arange(N, dtype=np.int32), (B, 1))
+    sink = np.ones((B, N), bool)
+    nn = np.array([N, 300, 40], np.int32)
+    seq = np.zeros((B, S), np.uint8)
+    sl = np.array([S, 400, 450], np.int32)
+    for mode in ("nw", "sw", "ov"):
+        best = _full_equal_plain(cuda, (codes, preds, nid, sink, nn, seq, sl), mode)
+        assert best[:, 1].min() >= 0
+    # the tie itself: more than one cell of each window holds the best value
+    t = pf._inputs(codes, preds, nid, sink, nn, seq, sl, cuda)
+    H, best = pf.full_dp(t[0], t[1], t[3], t[4], t[5], t[6], "ov", 3, -5, -4)
+    assert int((H[0, 1:, 1:] == best[0, 0]).sum()) > 1
+
+
+def test_full_sw_with_every_cell_zero(cuda):
+    """sw with no positive cell (a read that matches no node): best is
+    (0, -1), no walk, count 0, score 0, pairs all -2."""
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+
+    arrs = list(full_inputs(28, 3, 256, 4, 127, base_len=100))
+    arrs[0][:] = 0  # every node A
+    arrs[5][:] = 0xFF
+    arrs[5][:, :100] = 1  # reads of C
+    arrs[6][:] = 100
+    best = _full_equal_plain(cuda, arrs, "sw")
+    assert best.cpu().tolist() == [[0, -1]] * 3
+    pairs, count, score = pf.poa_align_batch_full(*arrs, "sw", 3, -5, -4, device=cuda)
+    assert count.tolist() == [0, 0, 0] and score.tolist() == [0, 0, 0]
+    assert bool((pairs == -2).all())
 
 
 def test_full_kernels_empty_batch_and_wrong_inputs(cuda):
@@ -2028,12 +2123,32 @@ def test_full_kernels_empty_batch_and_wrong_inputs(cuda):
         pf.poa_align_batch_full(*many, "nw", 3, -5, -4, device=cuda)
     codes, preds, nid, sink, nn, seq, sl = pf._inputs(*arrs, cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        pf.full_dp(codes.to(torch.int32), preds, nn, seq, sl, "nw", 3, -5, -4)
-    H = pf.full_dp(codes, preds, nn, seq, sl, "nw", 3, -5, -4)
+        pf.full_dp(codes.to(torch.int32), preds, sink, nn, seq, sl, "nw", 3, -5, -4)
     with pytest.raises(ValueError, match="contiguous"):
-        pf.full_walk(H, codes, preds, nid, sink.bool(), nn, seq, sl, "nw", 3, -5, -4)
+        pf.full_dp(codes, preds, sink.bool(), nn, seq, sl, "nw", 3, -5, -4)
+    H, best = pf.full_dp(codes, preds, sink, nn, seq, sl, "nw", 3, -5, -4)
+    with pytest.raises(ValueError, match="contiguous"):
+        pf.full_walk(H, best.long(), codes, preds, nid, nn, seq, sl, "nw", 3, -5, -4)
     with pytest.raises(ValueError, match="shape"):
-        pf.full_walk(H[:, :-1].contiguous(), codes, preds, nid, sink, nn, seq, sl, "nw", 3, -5, -4)
+        pf.full_walk(H[:, :-1].contiguous(), best, codes, preds, nid, nn, seq, sl, "nw", 3, -5,
+                     -4)
+    # a table past a block's shared memory: the plans refuse it, the launcher raises
+    assert pf.dp_plan(30000, 8, 767)[0] == 0 and pf.walk_plan(30000, 8, 767)[0] == 0
+    big = pf._inputs(np.zeros((1, 30000), np.uint8), np.zeros((1, 30000, 8), np.int32),
+                     np.zeros((1, 30000), np.int32), np.ones((1, 30000), bool),
+                     np.ones(1, np.int32), np.zeros((1, 767), np.uint8), np.ones(1, np.int32),
+                     cuda)
+    with pytest.raises(RuntimeError, match="poa_full_dp"):
+        pf.full_dp(big[0], big[1], big[3], big[4], big[5], big[6], "nw", 3, -5, -4)
+
+
+def test_full_kernel_attributes(cuda):
+    from vechat_tpu_torch.ops.kernels import poa_full as pf
+
+    for mode in ("nw", "sw", "ov"):
+        for which, S in (("walk", 767), ("dp", 255), ("dp", 767)):  # F1 at 1 and 4 columns
+            at = pf.kernel_attrs(which, mode, S)
+            assert 0 < at["registers"] <= 255 and at["local_bytes"] == 0, (which, mode, S, at)
 
 
 def test_sharded_poa_align_on_one_card(cuda):

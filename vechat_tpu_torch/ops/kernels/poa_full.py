@@ -11,39 +11,47 @@ in another layout: one sequence a graph, the whole int32 H matrix
 codes. Inputs are packed by `dense.graph_to_dense`, the same layout as the
 JAX package's.
 
-F1 (`full_dp`, `poa_full_dp_kernel`). One block a window, one thread a
-column (W = S + 1 rounded up to a warp, at most 1024: 24 warps at the top
-bucket S = 767). A row reads its predecessor rows of H from global memory
-(the L2, mostly), takes the diagonal and vertical candidates, then the
-in-row gap as a block-wide inclusive max-scan of H[j] - j*g: five shuffle
-steps in each warp, then each warp's carry from the warps to its left,
-published in shared memory. The row just computed stays in registers
-(the thread's column and, by a shuffle or the carry, its left neighbour),
-so a row whose predecessor is the row before it reads nothing from memory,
-and the block passes one barrier a row: a row's stores are read by a later
-row only after the next row's barrier. Rows past a graph's node count and
-columns past its sequence are neither computed nor written; no result
-reads them.
+F1 (`full_dp`, `poa_full_dp_kernel`). One block a window, K columns a
+thread in registers (`f1_columns`, as the launcher picks them from S: 1 up
+to 256 columns, 4 above; at S = 767, 6 warps). The block first stages the
+window's in-slots in shared memory (int16, each row's distinct ones first
+with their count) and its codes and sink flags. A row takes its
+predecessor rows from registers (the row before), from nothing (row 0),
+from a ring of the last `RING` = 16 rows in shared memory, or, for an
+older row, from global memory, where it was stored rows ago. The in-row gap is a block-wide inclusive max-scan of
+H[j] - j*g: serial over a thread's K columns, five shuffle steps over the
+warp's thread totals, then each warp's carry from the totals to its left,
+published in shared memory. One barrier a row: a row's ring reads come
+before its barrier and its ring write after, so the slot it overwrites is
+no longer read, and a row is read from the ring only after the next
+row's barrier. A row's word and first slot are read a row ahead. While
+it writes the rows, each thread keeps the first row where the largest of
+its cells of the mode's cells (nw: the sink rows at column seq_len; ov:
+the sink rows' cells; sw: every cell) rose, and at the end finds that
+row's first column at the value; one block reduction gives the window's
+best: (score, flat index), the largest value at the lowest flat index in
+(rank, column) order, the index -1 in sw when no cell is positive. Rows
+past a graph's node count and columns past its sequence are not
+computed; no result reads them.
 
-F2 (`full_walk`, `poa_full_walk_kernel`). One warp a window. The warp first
-finds the best cell, the first maximal one in (rank, column) order among
-the mode's cells (nw: the sink rows at column seq_len; ov: the sink rows'
-cells; sw: every cell), each lane keeping its own first maximum and the
-warp reducing to the largest value at the lowest flat index. Then the
-serial walk: at each step lane s tests diagonal slot s and vertical slot s
-of the node's predecessors (P <= 32), one ballot for each kind, and `__ffs`
+F2 (`full_walk`, `poa_full_walk_kernel`). One warp a window, from F1's
+best cell. The warp stages the window's in-slots (int16), codes and read
+in shared memory (4 warps a block where they fit). At each step lane s
+reads slot s of the node's predecessors (P <= 32) from shared memory and
+loads its two H cells, every lane the horizontal cell: one round trip to
+the L2 or device memory a step. One ballot for each kind, and `__ffs`
 picks the first true one in the reference's order, diagonal slots, then
-vertical, then horizontal; with none true it takes diagonal slot 0, as the
-reference's argmax does (a DP that F1 computed always has one true). The
-pairs are written back to front, -2 before them, and the walk ends at its
-exact step count (the reference steps L times with an active mask).
+vertical, then horizontal; with none true it takes diagonal slot 0, as
+the reference's argmax does (a DP that F1 computed always has one true).
+The chosen cell, shuffled from its lane, is the next step's h. The pairs
+are written back to front, -2 before them, and the walk ends at its exact
+step count (the reference steps L times with an active mask).
 
-What bounds them on the card: F1's chain of a row (the predecessor rows'
-loads, the scan's shuffles, the barrier), N rows a window, one block a
-window, so a batch of 64 windows fills 64 of the 132 SMs; F2's chain of
-dependent loads a step (the node's predecessors, then their H cells).
-Neither bytes nor operations come near the card's rates (`chip_smoke.py`
-phase 9).
+What bounds them on the card: F1's chain of a row (the predecessors'
+shared loads, the scan's serial part and shuffles, the barrier, the
+carry), N rows a window, one block a window; F2's chain of steps, one
+dependent load each. Neither bytes nor operations come near the card's
+rates (`chip_smoke.py` phase 9).
 
 On a CPU tensor each wrapper runs its plain version (the tests, and
 `make_backend("full", ..., device="cpu")`); on a CUDA tensor it launches
@@ -67,8 +75,9 @@ from .dense import bucket, graph_to_dense
 
 NEG = -(2**30)
 MODES = {"nw": 0, "sw": 1, "ov": 2}
-W_MAX = 1024  # F1: a thread a column, one block a window
+W_MAX = 1024  # F1: one block a window, at most 1024 threads at one column each
 P_MAX = 32  # F2: a lane a predecessor slot
+RING = 16  # F1: the last rows kept in shared memory (kRing in csrc/poa_full.cu)
 
 # B10's own buckets (poa_jax.py:270-272) and its cells a dispatch (:346)
 N_BUCKETS = (64, 128, 256, 512, 1024, 1536, 2048)
@@ -140,6 +149,27 @@ def _best_cell_plain(H, is_sink, n_nodes, seq_len, align_type):
     return max_i, max_j, score
 
 
+def _best_packed_plain(H, is_sink, n_nodes, seq_len, align_type):
+    """F1's second output from `_best_cell_plain`: [B, 2] int32 of (score,
+    flat index), the index the rank in nw, rank * S + column - 1 in sw and
+    ov, and -1 for an sw window whose best score is not positive."""
+    S = H.shape[2] - 1
+    max_i, max_j, score = _best_cell_plain(H, is_sink, n_nodes, seq_len, align_type)
+    flat = max_i - 1 if align_type == "nw" else (max_i - 1) * S + max_j - 1
+    flat = torch.where((max_i == 0) & (max_j == 0), -1, flat)
+    return torch.stack([score, flat], dim=1).to(torch.int32)
+
+
+def _best_cell_of(best, seq_len, align_type, S):
+    """(max_i, max_j, score) [B] int64 of F1's packed best, as
+    `_best_cell_plain` gives them."""
+    score, flat = best[:, 0].long(), best[:, 1].long()
+    if align_type == "nw":
+        return flat + 1, seq_len.long(), score
+    empty = flat < 0
+    return (torch.where(empty, 0, flat // S + 1), torch.where(empty, 0, flat % S + 1), score)
+
+
 def _walk_full_plain(H, codes, preds, node_id, is_sink, n_nodes, seq, seq_len, align_type, m, x,
                      g):
     """Plain PyTorch version of F2: the best cell, then the batched traceback
@@ -147,11 +177,17 @@ def _walk_full_plain(H, codes, preds, node_id, is_sink, n_nodes, seq, seq_len, a
     ends (the reference steps L times; a finished walk changes nothing).
     Returns (pairs [B, L, 2] int32 back to front, -2 before them,
     count [B] int32, score [B] int32)."""
+    best = _best_cell_plain(H, is_sink, n_nodes, seq_len, align_type)
+    return _traceback_plain(H, *best, codes, preds, node_id, seq, align_type, m, x, g)
+
+
+def _traceback_plain(H, max_i, max_j, score, codes, preds, node_id, seq, align_type, m, x, g):
+    """The traceback of `_walk_full_plain` from a best cell (max_i, max_j,
+    score; both indices 0: no walk)."""
     B, N, P = preds.shape
     S = seq.shape[1]
     L = N + S + 1
     dev = H.device
-    max_i, max_j, score = _best_cell_plain(H, is_sink, n_nodes, seq_len, align_type)
     bidx = torch.arange(B, device=dev)
     bcol = bidx[:, None]
     codes64, seq64, preds64, nid64 = codes.long(), seq.long(), preds.long(), node_id.long()
@@ -210,8 +246,9 @@ def _full_plain(codes, preds, node_id, is_sink, n_nodes, seq, seq_len, align_typ
 
 # ----------------------------------------------------------------- kernels
 
-_DP_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_DP_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _WALK_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_PLAN_OUT = ctypes.POINTER(ctypes.c_int)
 
 
 def _lib():
@@ -221,7 +258,44 @@ def _lib():
         lib.poa_full_dp_launch.restype = ctypes.c_int
         lib.poa_full_walk_launch.argtypes = _WALK_ARGS
         lib.poa_full_walk_launch.restype = ctypes.c_int
+        lib.poa_full_dp_plan.argtypes = [ctypes.c_int] * 3 + [_PLAN_OUT]
+        lib.poa_full_walk_plan.argtypes = [ctypes.c_int] * 3 + [_PLAN_OUT]
+        lib.poa_full_attrs.argtypes = [ctypes.c_int] * 3 + [_PLAN_OUT]
     return lib
+
+
+def f1_columns(S: int) -> int:
+    """F1's columns a thread at S, as its launcher picks them (`dp_columns`
+    in the source): 1 up to 256 columns (S = 63, 127, 255: 2, 4 and 8
+    warps), 4 above (S = 511: 4 warps; 767: 6; 1023: 8)."""
+    return 1 if S + 1 <= 256 else 4
+
+
+def dp_plan(N, P, S):
+    """(threads, dynamic shared bytes) of F1 at this shape; threads 0 where
+    it cannot launch (the shared memory of a block exceeded). Needs the
+    built library."""
+    smem = ctypes.c_int(0)
+    threads = _lib().poa_full_dp_plan(N, P, S, ctypes.byref(smem))
+    return threads, smem.value
+
+
+def walk_plan(N, P, S):
+    """(warps a block, dynamic shared bytes) of F2 at this shape; 0 warps
+    where one window's staging exceeds a block's shared memory."""
+    smem = ctypes.c_int(0)
+    warps = _lib().poa_full_walk_plan(N, P, S, ctypes.byref(smem))
+    return warps, smem.value
+
+
+def kernel_attrs(which: str, align_type: str, S: int = 767) -> Dict[str, int]:
+    """Registers a thread, static and local memory of F1 ("dp", the build
+    its launcher takes at S) or F2 ("walk") in `align_type`, from
+    cudaFuncGetAttributes."""
+    out = (ctypes.c_int * 3)()
+    rc = _lib().poa_full_attrs(0 if which == "dp" else 1, MODES[align_type], S, out)
+    _build.check(_lib(), rc, f"poa_full_{which} attributes")
+    return dict(registers=out[0], static_smem_bytes=out[1], local_bytes=out[2])
 
 
 def _inputs(codes, preds, node_id, is_sink, n_nodes, seq, seq_len, device):
@@ -254,87 +328,98 @@ def _check_card(dev, **tensors):
                              f"{t.dtype} on {t.device}")
 
 
-def full_dp(codes, preds, n_nodes, seq, seq_len, align_type, m, x, g):
-    """F1: H [B, N + 1, S + 1] int32 of each window (codes uint8 [B, N], preds
-    int32 [B, N, P], n_nodes and seq_len int32 [B], seq uint8 [B, S], on one
-    device). On the card only rows 0..n_nodes and columns 0..seq_len are
-    written. CPU tensors take the plain version; CUDA tensors launch F1 or
-    raise."""
+def full_dp(codes, preds, is_sink, n_nodes, seq, seq_len, align_type, m, x, g):
+    """F1: (H [B, N + 1, S + 1] int32, best [B, 2] int32) of each window
+    (codes uint8 [B, N], preds int32 [B, N, P], is_sink uint8 [B, N],
+    n_nodes and seq_len int32 [B], seq uint8 [B, S], on one device). best
+    is (score, flat index) of the first maximal cell in (rank, column)
+    order among the mode's cells, the index -1 in sw when the score is not
+    positive (`_best_packed_plain`). On the card H holds rows 0..n_nodes
+    at columns 0..seq_len (a thread may also store its columns past
+    seq_len; nothing reads them). CPU tensors take the plain version;
+    CUDA tensors launch F1 or raise."""
     dev = seq.device
     if dev.type == "cpu":
-        return _dp_full_plain(codes, preds, n_nodes, seq, seq_len, align_type, m, x, g)
+        H = _dp_full_plain(codes, preds, n_nodes, seq, seq_len, align_type, m, x, g)
+        return H, _best_packed_plain(H, is_sink, n_nodes, seq_len, align_type)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     B, N, P = preds.shape
     S = seq.shape[1]
     _check_card(dev, codes=(codes, torch.uint8), preds=(preds, torch.int32),
-                n_nodes=(n_nodes, torch.int32), seq=(seq, torch.uint8),
-                seq_len=(seq_len, torch.int32))
+                is_sink=(is_sink, torch.uint8), n_nodes=(n_nodes, torch.int32),
+                seq=(seq, torch.uint8), seq_len=(seq_len, torch.int32))
     if S + 1 > W_MAX:
         raise ValueError(f"F1 takes S + 1 <= {W_MAX} columns, got S={S}")
     H = torch.empty((B, N + 1, S + 1), dtype=torch.int32, device=dev)
+    best = torch.empty((B, 2), dtype=torch.int32, device=dev)
     if B:
-        launch_dp(codes, preds, n_nodes, seq, seq_len, H, align_type, m, x, g)
-    return H
+        launch_dp(codes, preds, is_sink, n_nodes, seq, seq_len, H, best, align_type, m, x, g)
+    return H, best
 
 
-def launch_dp(codes, preds, n_nodes, seq, seq_len, H, align_type, m, x, g):
+def launch_dp(codes, preds, is_sink, n_nodes, seq, seq_len, H, best, align_type, m, x, g):
     """F1 alone on `full_dp`'s buffers, all on the card (`chip_smoke.py`
-    times it apart from the wrapper)."""
+    times it apart from the wrapper). Raises where the launcher refuses
+    the shape (`dp_plan`)."""
     B, N, P = preds.shape
     S = seq.shape[1]
     stream = torch.cuda.current_stream(seq.device).cuda_stream
     with torch.cuda.device(seq.device):
         rc = _lib().poa_full_dp_launch(
-            codes.data_ptr(), preds.data_ptr(), n_nodes.data_ptr(), seq.data_ptr(),
-            seq_len.data_ptr(), H.data_ptr(), B, N, P, S, MODES[align_type], m, x, g, stream)
+            codes.data_ptr(), preds.data_ptr(), is_sink.data_ptr(), n_nodes.data_ptr(),
+            seq.data_ptr(), seq_len.data_ptr(), H.data_ptr(), best.data_ptr(), B, N, P, S,
+            MODES[align_type], m, x, g, stream)
     _build.check(_lib(), rc, "poa_full_dp")
     _build.LAUNCHES["poa_full_dp"] += 1
     shape = (B, N, S, P)
     _build.FULL_SHAPES[shape] = _build.FULL_SHAPES.get(shape, 0) + 1
 
 
-def full_walk(H, codes, preds, node_id, is_sink, n_nodes, seq, seq_len, align_type, m, x, g):
-    """F2 on F1's H and the inputs of `full_dp` (node_id int32 and is_sink
-    uint8 [B, N] besides): (pairs [B, L, 2] int32 back to front, -2 before
-    them, L = N + S + 1; count [B]; score [B]). CPU tensors take the plain
+def full_walk(H, best, codes, preds, node_id, n_nodes, seq, seq_len, align_type, m, x, g):
+    """F2 on F1's H and best and the inputs of `full_dp` (node_id int32
+    [B, N] besides): (pairs [B, L, 2] int32 back to front, -2 before them,
+    L = N + S + 1; count [B]; score [B]). CPU tensors take the plain
     version; CUDA tensors launch F2 or raise."""
     dev = H.device
     if dev.type == "cpu":
-        return _walk_full_plain(H, codes, preds, node_id, is_sink, n_nodes, seq, seq_len,
-                                align_type, m, x, g)
+        S = seq.shape[1]
+        return _traceback_plain(H, *_best_cell_of(best, seq_len, align_type, S), codes, preds,
+                                node_id, seq, align_type, m, x, g)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     B, N, P = preds.shape
     S = seq.shape[1]
-    _check_card(dev, H=(H, torch.int32), codes=(codes, torch.uint8), preds=(preds, torch.int32),
-                node_id=(node_id, torch.int32), is_sink=(is_sink, torch.uint8),
+    _check_card(dev, H=(H, torch.int32), best=(best, torch.int32), codes=(codes, torch.uint8),
+                preds=(preds, torch.int32), node_id=(node_id, torch.int32),
                 n_nodes=(n_nodes, torch.int32), seq=(seq, torch.uint8),
                 seq_len=(seq_len, torch.int32))
-    if H.shape != (B, N + 1, S + 1):
-        raise ValueError(f"H has shape {tuple(H.shape)}, expected {(B, N + 1, S + 1)}")
+    if H.shape != (B, N + 1, S + 1) or best.shape != (B, 2):
+        raise ValueError(f"H has shape {tuple(H.shape)} and best {tuple(best.shape)}, expected "
+                         f"{(B, N + 1, S + 1)} and {(B, 2)}")
     if P > P_MAX:
         raise ValueError(f"F2 takes P <= {P_MAX} predecessor slots, got {P}")
     pairs = torch.empty((B, N + S + 1, 2), dtype=torch.int32, device=dev)
     count = torch.empty((B,), dtype=torch.int32, device=dev)
     score = torch.empty_like(count)
     if B:
-        launch_walk(H, codes, preds, node_id, is_sink, n_nodes, seq, seq_len, pairs, count, score,
+        launch_walk(H, best, codes, preds, node_id, n_nodes, seq, seq_len, pairs, count, score,
                     align_type, m, x, g)
     return pairs, count, score
 
 
-def launch_walk(H, codes, preds, node_id, is_sink, n_nodes, seq, seq_len, pairs, count, score,
+def launch_walk(H, best, codes, preds, node_id, n_nodes, seq, seq_len, pairs, count, score,
                 align_type, m, x, g):
     """F2 alone on `full_walk`'s buffers, all on the card. The kernel writes
-    every element of its outputs."""
+    every element of its outputs. Raises where the launcher refuses the
+    shape (`walk_plan`)."""
     B, N, P = preds.shape
     S = seq.shape[1]
     stream = torch.cuda.current_stream(H.device).cuda_stream
     with torch.cuda.device(H.device):
         rc = _lib().poa_full_walk_launch(
-            H.data_ptr(), codes.data_ptr(), preds.data_ptr(), node_id.data_ptr(),
-            is_sink.data_ptr(), n_nodes.data_ptr(), seq.data_ptr(), seq_len.data_ptr(),
+            H.data_ptr(), best.data_ptr(), codes.data_ptr(), preds.data_ptr(),
+            node_id.data_ptr(), n_nodes.data_ptr(), seq.data_ptr(), seq_len.data_ptr(),
             pairs.data_ptr(), count.data_ptr(), score.data_ptr(), B, N, P, S,
             MODES[align_type], m, x, g, stream)
     _build.check(_lib(), rc, "poa_full_walk")
@@ -361,8 +446,8 @@ def poa_align_batch_full(codes, preds, node_id, is_sink, n_nodes, seq, seq_len, 
     dev = _build.resolve_device(device)
     codes, preds, node_id, is_sink, n_nodes, seq, seq_len = _inputs(
         codes, preds, node_id, is_sink, n_nodes, seq, seq_len, dev)
-    H = full_dp(codes, preds, n_nodes, seq, seq_len, align_type, m, x, g)
-    return full_walk(H, codes, preds, node_id, is_sink, n_nodes, seq, seq_len, align_type, m, x, g)
+    H, best = full_dp(codes, preds, is_sink, n_nodes, seq, seq_len, align_type, m, x, g)
+    return full_walk(H, best, codes, preds, node_id, n_nodes, seq, seq_len, align_type, m, x, g)
 
 
 # ------------------------------------------------------------------ backend
