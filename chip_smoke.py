@@ -5,7 +5,8 @@
     python3 chip_smoke.py --save-k3 PATH   # also save phase 3c's K3 inputs
     python3 chip_smoke.py --save-k4 PATH   # also save phase 3d's and every phase-3 K4 launch's inputs
     python3 chip_smoke.py --save-full PATH # also save phase 9a's inputs and 9b's heaviest launch's
-                                           # (any of the three may be given)
+    python3 chip_smoke.py --save-build PATH  # also save phase 7's heaviest G4 and G5 launches
+                                             # (any of the four may be given)
 
 Phases (each raises on failure; the script exits non-zero on any):
   0. the card's name and power limit; build the CUDA kernels with nvcc
@@ -78,9 +79,12 @@ Phases (each raises on failure; the script exits non-zero on any):
      and the host routes by reason, dispatches, layer steps, the build's
      pack/device/fetch seconds, and the launches of G3, G4, G5, K1, the
      dense walk, G1 and G2 (in 7b, by CUDA events around each launch,
-     their device seconds too); then G3, G4 and G5 on the inputs of their heaviest
-     launches, each held to its plain version and timed (wrapper, kernel
-     alone, plain)
+     their device seconds too) and the form (shared or global memory, by N)
+     of each G4 and G5 launch; then G3, G4 and G5 on the inputs of their
+     heaviest launches, each held to its plain version and timed (wrapper
+     as the build calls it, kernel alone, plain), with its registers and
+     shared memory (`--save-build PATH` saves the heaviest G4 and G5
+     launch at each N, for `k1_probe.py time-build`)
   8. the device round-2 consensus (VECHAT_DEVICE_LINEAR=1: round 2's build,
      heaviest bundle with branch completion, coverage and trim on the card,
      G3, G4, G5, K1, the dense walk and G6): (a) both goldens through
@@ -1989,19 +1993,35 @@ def _keep_heaviest(best, work, args):
     best[key] = (work, args)
 
 
+def reach_edge_bytes(args, got):
+    """G5's edge bytes on this run's data: (the (tail, head) of every valid
+    edge of the windows that cut a subgraph, which G5 reads to group them;
+    those of the edges into a kept node alone, all that a traversal over
+    in-edges grouped outside the kernel reads)."""
+    import torch
+
+    tails, heads, n_edges, use_full = args[0], args[1], args[2], args[7]
+    B, E = tails.shape
+    cut = (~use_full.bool())[:, None]
+    valid = (torch.arange(E, device=tails.device)[None, :] < n_edges.reshape(B, 1)) & cut
+    into = valid & torch.gather(got & cut, 1, heads.long())
+    return 8 * int(valid.sum()), 8 * int(into.sum())
+
+
 def build_work(name, args, got):
     """(bytes, counted operations) of one G3, G4 or G5 launch on this run's
     data (`args` its inputs, `got` its outputs), each input read once and
     each output written once. G3: the slots below each real node's
     in-degree and ring count, both counts, n_nodes; the two [B, N] int32
     outputs. G5: of the windows that cut a subgraph, the (tail, head) of
-    every valid edge into a kept node and the ring slots and count of each
-    kept node; begin, end, use_full and n_nodes; the [B, N] bytes written.
-    G4, of the active windows: the pairs of the alignment and the
-    sequence's codes and weights (8 bytes each), a weight read and written
-    for each edge update (one a position), the tail and head of each
-    appended edge, the code of each new node, and with labels both words
-    of each edge touched; the counts and the overflow word."""
+    every valid edge (`reach_edge_bytes`: what it groups) and the ring
+    slots and count of each kept node; begin, end, use_full and n_nodes;
+    the [B, N] bytes written. G4, of the active windows: the pairs of the
+    alignment and the sequence's codes and weights (8 bytes each), a
+    weight read and written for each edge update (one a position), the
+    tail and head of each appended edge, the code of each new node, and
+    with labels both words of each edge touched; the counts and the
+    overflow word."""
     import torch
 
     if name == "graph_topo_bundled":
@@ -2013,16 +2033,14 @@ def build_work(name, args, got):
         return 4 * int(slots[real].sum()) + 4 * B + 8 * B * N, 2 * nodes * GRAPH_OPS_STEP
     if name == "graph_reach":
         tails, heads, n_edges, aligned, acount, begin, end, use_full, n_nodes = args
-        B, E = tails.shape
+        B = tails.shape[0]
         N, R = aligned.shape[1], aligned.shape[2]
-        cut = (~use_full.bool())[:, None]
-        kept = got & cut
-        valid = torch.arange(E, device=tails.device)[None, :] < n_edges.reshape(B, 1)
-        into = valid & torch.gather(kept, 1, heads.long()) & cut
+        kept = got & (~use_full.bool())[:, None]
         ring = int(torch.where(kept, acount.clamp_max(R), 0).sum())
-        nk, ne = int(kept.sum()), int(into.sum())
-        nbytes = 8 * ne + 4 * (ring + nk) + 13 * B + B * N
-        return nbytes, nk * REACH_OPS_NODE + (ne + ring) * REACH_OPS_SLOT
+        nk = int(kept.sum())
+        edge_bytes, into_bytes = reach_edge_bytes(args, got)
+        nbytes = edge_bytes + 4 * (ring + nk) + 13 * B + B * N
+        return nbytes, nk * REACH_OPS_NODE + (into_bytes // 8 + ring) * REACH_OPS_SLOT
     codes, n_nodes, n_edges = args[0], args[4], args[5]
     count, seq_len, active = args[9], args[12], args[13].bool()
     B = codes.shape[0]
@@ -2036,13 +2054,19 @@ def build_work(name, args, got):
 
 def build_kernel_row(name, args):
     """G3, G4 or G5 on the inputs of phase 7's heaviest launch (`args`, as the
-    build gave them to the wrapper): held to its plain version (exact), the
-    wrapper (median of 5) and the plain version (once) by CUDA events, the
-    kernel alone (`kernel_ms()` on one copy of the inputs: on the path the
-    torch ops have just written them, so they are in the L2) and the
-    bound. G4
-    updates its graph in place, so each of its timed launches first copies
-    the graph back: its kernel alone is that time less the copies'."""
+    build gave them to the wrapper, G4's graph as it was before the launch):
+    held to its plain version (exact), the wrapper (median of 5) and the
+    plain version (once) by CUDA events, the kernel alone (`kernel_ms()` on
+    one copy of the inputs: on the path the torch ops have just written
+    them, so they are in the L2) and the bound, with the kernel's registers
+    and shared memory and the form it took. G4 updates its graph in place,
+    so each of its timed launches first copies the graph back: `ms` is
+    `fuse_walk_` as the build calls it (no copies, no checks) less those
+    copies, and so is the kernel alone; `copying_wrapper_ms` is `fuse_walk`,
+    which copies the graph for a caller that keeps it. G5's `ms` is
+    `reach_keep`, whose kernel groups the in-edges itself; its row gives
+    the bound with the edges into kept nodes alone too
+    (`bound_ms_edges_into_kept`, `reach_edge_bytes`)."""
     import torch
 
     from vechat_tpu_torch.ops.kernels import graph_build as gb
@@ -2075,56 +2099,208 @@ def build_kernel_row(name, args):
     end.synchronize()
     pms = start.elapsed_time(end)
     err = _max_err(f"{name} {shape}", names, got, want, again=lambda: outs(wrapper(*args)))
-    ms = time_ms(lambda: wrapper(*args))
     i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
-    extra = {}
+    extra, form = {}, "shared"
     if name == "graph_topo_bundled":
+        ms = time_ms(lambda: wrapper(*args))
         ins = tuple(i32(a) for a in args)
         res = tuple(torch.empty_like(t) for t in got)
         kms = kernel_ms(lambda r: gb.launch_topo_bundled(*ins, *res))
         same = all(torch.equal(a, b) for a, b in zip(res, got))
     elif name == "graph_reach":
-        off, csr = gb.in_edge_csr(args[0], args[1], args[2], N)
-        ins = (off, csr, *(i32(a) for a in args[3:7]), args[7].to(torch.uint8).contiguous(),
-               i32(args[8]))
+        ms = time_ms(lambda: wrapper(*args))
+        E, R = args[0].shape[1], args[3].shape[2]
+        form = gb.kernel_form(name, N, E, R)
+        ins = tuple(i32(a) for a in args[:7])
+        full, nn = args[7].contiguous(), i32(args[8])
         res = torch.empty_like(got[0])
-        kms = kernel_ms(lambda r: gb.launch_reach(*ins, res))
+        scratch = (torch.empty((B, gb.reach_scratch_ints(N, E)), dtype=torch.int32,
+                               device=res.device) if form == "global" else None)
+        kms = kernel_ms(lambda r: gb.launch_reach(*ins, full, nn, res, scratch))
         same = torch.equal(res, got[0])
+        new_bytes, into_bytes = reach_edge_bytes(args, got[0])
+        nbytes, ops = build_work(name, args, got[0])
+        extra = dict(smem_bytes=gb.reach_smem_bytes(N, E, R) if form == "shared" else
+                     4 * ((N + 31) // 32),
+                     bound_ms_edges_into_kept=bound_ms(nbytes - new_bytes + into_bytes, ops)[0],
+                     edges_read=new_bytes // 8, edges_into_kept=into_bytes // 8)
     else:
         track = args[14] is not None
+        E, R = args[1].shape[1], args[6].shape[2]
+        form = gb.kernel_form(name, N, E, R, track)
         state0 = [i32(a) for a in args[:8]] + ([i32(args[14]), i32(args[15])] if track else [])
         work = [torch.empty_like(t) for t in state0]
         labs = work[8:] if track else [None, None]
         bits = [i32(args[16]), i32(args[17])] if track else [None, None]
         ins = [i32(a) for a in args[8:13]]
-        act = args[13].to(torch.uint8).contiguous()
+        act = args[13].contiguous()
         ovf = torch.empty((B,), dtype=torch.int32, device=act.device)
+        scratch = (torch.empty((B, gb.fuse_scratch_ints(N, E)), dtype=torch.int32,
+                               device=act.device) if form == "global" else None)
 
-        def copy(r):
+        def copy(r=0):
             for w, s in zip(work, state0):
                 w.copy_(s)
 
-        def run(r):
-            copy(r)
-            gb.launch_fuse(*work[:8], *labs, *bits, *ins, act, ovf)
+        def step():
+            copy()
+            return gb.fuse_walk_(*work[:8], *ins, act, *labs, *bits, check=False)
 
+        def run(r):
+            copy()
+            gb.launch_fuse(*work[:8], *labs, *bits, *ins, act, ovf, scratch)
+
+        step_ovf = step()
+        same_step = (all(torch.equal(a, b) for a, b in zip(work, got[:8] + got[9:]))
+                     and torch.equal(step_ovf, got[8]))
+        copies_wall = time_ms(copy)
+        step_wall = time_ms(step)
+        ms = step_wall - copies_wall
         copies = kernel_ms(copy)
         with_copies = kernel_ms(run)
         kms = with_copies - copies
-        extra = dict(kernel_with_copies_ms=with_copies, copies_ms=copies)
-        same = (all(torch.equal(a, b) for a, b in zip(work[:8], got[:8]))
+        extra = dict(step_with_copies_ms=step_wall, copies_wall_ms=copies_wall,
+                     copying_wrapper_ms=time_ms(lambda: wrapper(*args)),
+                     kernel_with_copies_ms=with_copies, copies_ms=copies,
+                     smem_bytes=gb.fuse_smem_bytes(N, E, R, track) if form == "shared" else 0)
+        same = (same_step and all(torch.equal(a, b) for a, b in zip(work[:8], got[:8]))
                 and torch.equal(ovf, got[8]))
     if not same:
         raise RuntimeError(f"{name} {shape}: the timed launches differ from the wrapper's")
-    nbytes, ops = build_work(name, args, got[0] if name == "graph_reach" else got)
+    if name != "graph_reach":
+        nbytes, ops = build_work(name, args, got)
     b_ms, b_by = bound_ms(nbytes, ops)
     row = dict(kernel=name, shape=shape, ms=ms, kernel_ms=kms, plain_ms=pms, max_abs_err=err,
-               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops, **extra)
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops, form=form,
+               **gb.kernel_attrs(name, form), **extra)
     log_row(row)
     return row
 
 
-def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GOLDENS):
+@contextlib.contextmanager
+def capturing_build(best):
+    """Within the block, the wrappers of G3, G4 and G5 in `graph_build`
+    (which `device_build` calls by these names) keep in best[kernel] the
+    inputs of the launch with the most work among those of one shape
+    (`_keep_heaviest`): G3's ranked nodes, G4's positions and pairs, G5's
+    kept nodes. G4 updates the graph and the labels in place, so those are
+    kept as they were before the launch. Yields a one-element list: the
+    host seconds spent in the capture's own calls, around the launches."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import graph_build as gb
+
+    wrapped = {"graph_topo_bundled": "topo_ranks_bundled", "graph_fuse": "fuse_walk_",
+               "graph_reach": "reach_keep"}
+    originals = {k: getattr(gb, fn) for k, fn in wrapped.items()}
+    updated = (0, 1, 2, 3, 4, 5, 6, 7, 14, 15)  # the arguments G4 updates in place
+    host_s = [0.0]
+
+    def work_of(name, args, out):
+        if name == "graph_topo_bundled":
+            return args[4].long().clamp_max(args[0].shape[1]).sum()
+        if name == "graph_reach":  # the nodes its traversal keeps
+            return (out & ~args[7].bool()[:, None]).sum()
+        return torch.where(args[13].bool(), args[9].long() + args[12].long(), 0).sum()
+
+    def keep(name):
+        def launch(*args, **kw):
+            t0 = time.perf_counter()
+            kept = args
+            if name == "graph_fuse":
+                kept = tuple(a.clone() if i in updated and torch.is_tensor(a) else a
+                             for i, a in enumerate(args))
+            t1 = time.perf_counter()
+            out = originals[name](*args, **kw)
+            t2 = time.perf_counter()
+            _keep_heaviest(best.setdefault(name, {}), work_of(name, kept, out), kept)
+            host_s[0] += t1 - t0 + time.perf_counter() - t2
+            return out
+
+        return launch
+
+    for k, fn in wrapped.items():
+        setattr(gb, fn, keep(k))
+    try:
+        yield host_s
+    finally:
+        for k, fn in wrapped.items():
+            setattr(gb, fn, originals[k])
+
+
+def heaviest_by_n(best, name):
+    """{N: the inputs of the heaviest launch at N} of one kernel's captures
+    (`capturing_build`), N its graphs' node capacity."""
+    out = {}
+    for work, args in best.get(name, {}).values():
+        N = (args[3] if name == "graph_reach" else args[0]).shape[1]
+        w = int(work)
+        if N not in out or w > out[N][0]:
+            out[N] = (w, args)
+    return {N: args for N, (w, args) in sorted(out.items())}
+
+
+def save_build_inputs(path, launches, **extra):
+    """G4 and G5 launches {(tag "fuse" or "reach", N): [argument or None]}
+    to an npz for `k1_probe.py time-build --inputs PATH` (`--save-build
+    PATH`: phase 7's heaviest at each N): `{tag}_N{N}_n` the count of
+    arguments, `{tag}_N{N}_{i}` each that is not None; `extra` as it is."""
+    out = dict(extra)
+    for (tag, N), args in launches.items():
+        out[f"{tag}_N{N}_n"] = np.array(len(args))
+        out.update({f"{tag}_N{N}_{i}": np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+                    for i, a in enumerate(args) if a is not None})
+    np.savez_compressed(path, **out)
+    log(dict(phase="save_build", path=path, launches=[f"{t} N={n}" for t, n in launches]))
+
+
+def load_build_inputs(path):
+    """{(tag, N): [numpy argument or None, ...]} from `save_build_inputs`."""
+    z = np.load(path)
+    out = {}
+    for key in z.files:
+        if key.endswith("_n"):
+            tag, n = key.split("_")[:2]
+            out[(tag, int(n[1:]))] = [z[f"{tag}_{n}_{i}"] if f"{tag}_{n}_{i}" in z.files else None
+                                      for i in range(int(z[key]))]
+    return out
+
+
+def synth_build_batch(rng, B, N, depth=12, W=576):
+    """`device_build`'s arguments for B windows built at node capacity N: a
+    random backbone of min(0.45 N, W - 16) bases (so that the graph stays
+    within N, as the pipeline's node bucket keeps it) and `depth` layers,
+    each a copy of it at 8% ONT-profile error, every third cut at random
+    ends; build weights 1-40. For `k1_probe.py time-build` at an N that
+    phase 7 did not launch."""
+    from vechat_tpu_torch.ops.encode import encode
+
+    blen = min(int(0.45 * N), W - 16)
+    bb_codes = np.zeros((B, W), np.int32)
+    lseqs = np.full((B, depth, W), 0xFF, np.int32)
+    llen = np.ones((B, depth), np.int32)
+    lbegin = np.zeros((B, depth), np.int32)
+    lend = np.zeros((B, depth), np.int32)
+    lfull = np.zeros((B, depth), bool)
+    for b in range(B):
+        base = rand_seq(rng, blen)
+        bb_codes[b, :blen] = encode(base)
+        for s in range(depth):
+            b0, e0 = 0, blen - 1
+            if s % 3 == 2:
+                b0, e0 = int(rng.integers(0, blen // 4)), blen - 1 - int(rng.integers(0, blen // 4))
+            codes = encode(mutate(rng, base[b0 : e0 + 1], *(0.08 * f for f in ONT)))[: W - 1]
+            lseqs[b, s, : len(codes)] = codes
+            llen[b, s], lbegin[b, s], lend[b, s] = len(codes), b0, e0
+            lfull[b, s] = b0 == 0 and e0 == blen - 1
+    bb_w = rng.integers(1, 41, size=(B, W)).astype(np.int32)
+    lw = rng.integers(1, 41, size=(B, depth, W)).astype(np.int32)
+    return (bb_codes, bb_w, np.full(B, blen, np.int32), lseqs, lw, llen, lbegin, lend, lfull,
+            np.full(B, depth, np.int32))
+
+
+def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GOLDENS,
+                       save=None):
     """Phase 7, the device build (VECHAT_DEVICE_BUILD=1): (a) both goldens
     through the command line's `run`, byte for byte against the committed
     goldens; (b) `reads_path`, the first `n_reads` reads of phase 3's
@@ -2135,49 +2311,31 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
     reason, dispatches, layer steps, the build's pack/device/fetch seconds
     and the launches of G3, G4, G5, K1, the dense walk, G1 and G2; 7b also
     their device seconds (7b alone, by CUDA events around each launch,
-    `_event_timed`). Then G3, G4 and G5 on the inputs of their heaviest launches
-    (`build_kernel_row`). Returns (the kernels' launches in the phase,
-    {G3, G4, G5: row}). With another `backend_name` it is a rehearsal on the
-    CPU."""
+    `_event_timed`), and the form each G4 and G5 launch took (shared or
+    global memory, by N). Then G3, G4 and G5 on the inputs of their
+    heaviest launches (`build_kernel_row`); `save`, a path, also gets the
+    heaviest G4 and G5 launch at each N (`save_build_inputs`). Returns (the
+    kernels' launches in the phase, {G3, G4, G5: row}). With another
+    `backend_name` it is a rehearsal on the CPU."""
     import torch
 
     from vechat_tpu_torch.cli.vechat_main import build_parser, run
     from vechat_tpu_torch.io.fastx import write_fasta
     from vechat_tpu_torch.ops.kernels import _build
-    from vechat_tpu_torch.ops.kernels import graph_build as gb
     from vechat_tpu_torch.utils.logger import Logger
 
     on_card = backend_name == "cuda"
     t_phase = time.perf_counter()
-    wrapped = {"graph_topo_bundled": "topo_ranks_bundled", "graph_fuse": "fuse_walk",
-               "graph_reach": "reach_keep"}
-    originals = {k: getattr(gb, fn) for k, fn in wrapped.items()}
     best = {k: {} for k in BUILD_KERNELS}
-
-    def work_of(name, args, out):
-        if name == "graph_topo_bundled":
-            return args[4].long().clamp_max(args[0].shape[1]).sum()
-        if name == "graph_reach":  # the nodes its traversal keeps
-            return (out & ~args[7].bool()[:, None]).sum()
-        return torch.where(args[13].bool(), args[9].long() + args[12].long(), 0).sum()
-
-    def keep(name):
-        def launch(*args):
-            out = originals[name](*args)
-            _keep_heaviest(best[name], work_of(name, args, out), args)
-            return out
-
-        return launch
-
     host_out = os.path.join(tmp, "stream_host.fa")
     runs = [(os.path.basename(r), r, e, x, False) for r, e, x in goldens]
     runs.append((f"first {n_reads} reads of the community, with the device cycle", reads_path,
                  host_out, ["--platform", "ont"], True))
     _build.reset_launches()
-    for k, fn in wrapped.items():
-        setattr(gb, fn, keep(k))
     os.environ["VECHAT_DEVICE_BUILD"] = "1"
-    walls = busy = 0.0
+    walls = busy = captured = 0.0
+    capture = contextlib.ExitStack()
+    capture_s = capture.enter_context(capturing_build(best))
     try:
         for label, reads, expected, extra, cycle in runs:
             if cycle:
@@ -2185,6 +2343,8 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
             out = os.path.join(tmp, "build_" + os.path.basename(expected))
             args = build_parser().parse_args([reads, "-o", out, "--backend", backend_name, *extra])
             before = dict(_build.LAUNCHES)
+            forms_before = dict(_build.BUILD_FORMS)
+            capture_before = capture_s[0]
             # 7b's kernels are timed by CUDA events (`_event_timed`); the
             # profiler that did it before took ~16-20 s to process its trace
             timed = on_card and cycle
@@ -2198,7 +2358,8 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
             same = _same_bytes(out, expected)
             c = backend.counters()
             log(dict(phase="device_build", run=label, byte_identical=same,
-                     wall_s=wall, kernels_device_s=kernels_s if timed else "not measured",
+                     wall_s=wall, capture_host_s=capture_s[0] - capture_before,
+                     kernels_device_s=kernels_s if timed else "not measured",
                      device_busy_s="not measured",
                      windows_built_on_card=c["n_build_windows"],
                      windows_to_host_build=c["n_build_host"],
@@ -2212,22 +2373,29 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
                          "poa_dp_kernel", "poa_walk_dense_kernel", "graph_dfs_kernel",
                          "graph_topo_kernel")} if timed else "not measured",
                      launches={k: v - before[k] for k, v in _build.LAUNCHES.items()
-                               if v != before[k]}))
+                               if v != before[k]},
+                     forms={f"{k} N={n} {f}": v - forms_before.get((k, n, f), 0)
+                            for (k, n, f), v in sorted(_build.BUILD_FORMS.items())
+                            if v != forms_before.get((k, n, f), 0)}))
             if not same:
                 raise RuntimeError(f"7: {label} does not reproduce {expected}")
             if not c["n_build_windows"]:
                 raise RuntimeError(f"7: no window of {reads} was built on the device")
             if timed:
                 walls, busy = walls + wall, busy + kernels_s
+                captured = captured + capture_s[0] - capture_before
     finally:
         del os.environ["VECHAT_DEVICE_BUILD"]
-        for k, fn in wrapped.items():
-            setattr(gb, fn, originals[k])
+        capture.close()
     launches = dict(_build.LAUNCHES)
     if on_card:
         for k in ("poa_dp", "poa_walk_dense", *BUILD_KERNELS):
             if launches[k] == 0:
                 raise RuntimeError(f"7: kernel {k} was not launched by the device build")
+    if save:
+        save_build_inputs(save, {(tag, N): args for name, tag in (("graph_fuse", "fuse"),
+                                                                  ("graph_reach", "reach"))
+                                 for N, args in heaviest_by_n(best, name).items()})
     rows = {}
     for name in BUILD_KERNELS:
         entries = list(best[name].values())
@@ -2236,8 +2404,9 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
         best[name] = None
         rows[name] = build_kernel_row(name, args) if on_card else {}
     log(dict(phase="device_build_total", wall_s=time.perf_counter() - t_phase,
-             wall_s_7b=walls, kernels_device_s_7b=busy,
-             launches={k: v for k, v in launches.items() if v}))
+             wall_s_7b=walls, capture_host_s_7b=captured, kernels_device_s_7b=busy,
+             launches={k: v for k, v in launches.items() if v},
+             forms={f"{k} N={n} {f}": v for (k, n, f), v in sorted(_build.BUILD_FORMS.items())}))
     return launches, rows
 
 
@@ -2826,12 +2995,13 @@ def gpu_ecc():
 
 
 def main(argv=()):
-    # --save-k3 PATH, --save-k4 PATH, --save-full PATH: also save the inputs
-    # of phase 3c, 3d, 9a and 9b's heaviest launch (npz)
+    # --save-k3 PATH, --save-k4 PATH, --save-full PATH, --save-build PATH:
+    # also save the inputs of phase 3c, 3d, 9a and 9b's heaviest launch, and
+    # phase 7's heaviest G4 and G5 launches (npz)
     saves = dict(zip(argv[::2], argv[1::2]))
-    if len(argv) % 2 or set(saves) - {"--save-k3", "--save-k4", "--save-full"}:
+    if len(argv) % 2 or set(saves) - {"--save-k3", "--save-k4", "--save-full", "--save-build"}:
         print("usage: python3 chip_smoke.py [--save-k3 PATH] [--save-k4 PATH] "
-              "[--save-full PATH]", file=sys.stderr)
+              "[--save-full PATH] [--save-build PATH]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -2908,7 +3078,8 @@ def main(argv=()):
             lap("phase 5")
             cycle_launches, cycle_rows = device_cycle_phase(tmp)
             lap("phase 6")
-            build_launches, build_rows = device_build_phase(tmp, part, SCALE_OUT_READS)
+            build_launches, build_rows = device_build_phase(tmp, part, SCALE_OUT_READS,
+                                                            save=saves.get("--save-build"))
             lap("phase 7")
             linear_launches, linear_rows = device_linear_phase(tmp, part, SCALE_OUT_READS)
             lap("phase 8")

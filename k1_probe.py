@@ -15,6 +15,7 @@ on one NVIDIA GPU (the timing) or on the output of
     python3 k1_probe.py time-k6 DIR [DIR ...]
     python3 k1_probe.py time-walk3 DIR [DIR ...]
     python3 k1_probe.py time-full [--inputs NPZ] DIR [DIR ...]
+    python3 k1_probe.py time-build [--inputs NPZ] DIR [DIR ...]
     python3 k1_probe.py repeat-k7 N          # K7 held to its plain version N times
     python3 k1_probe.py sass FILE            # cuobjdump -sass output or a .so
 
@@ -143,6 +144,26 @@ scores). Each line is one (DIR, case, mode): F1's and F2's wrappers (`ms`, the C
 and kernels alone (`kernel_ms`, chip_smoke.py's `kernel_ms`: 24 launches
 in a CUDA graph), µs a row and a step (the largest window's rows, the
 longest walk's steps), with ptxas's registers of each kernel.
+
+`time-build` runs G4 and G5, the device build's fusion walk and
+reachability (`vechat_tpu_torch/csrc/graph_build.cu`), of each DIR's
+package in a process of its own, in the order given, on the inputs of
+phase 7's heaviest G4 and G5 launch at N = 256, 1152 and 2048, as
+`chip_smoke.py --save-build NPZ` saved them; an N that phase 7 did not
+launch (or every N, without --inputs) is filled by a device build of 64
+windows drawn by chip_smoke.py's `synth_build_batch` at that N, this
+checkout's package capturing its heaviest launches. Each package's
+outputs are held to the plain versions first. Each line is one (DIR,
+kernel, N): the wrapper as the build calls it (`ms`: G4's in-place call
+without checks, G5's `reach_keep`; for a package without `fuse_walk_`,
+G4's copying `fuse_walk` and G5's `reach_keep` with its torch-sorted
+CSR, as its build called them), the kernel alone (`kernel_ms`,
+chip_smoke.py's `kernel_ms`; G4 less the graph's copies back), for a
+package with `fuse_walk_` also G4 alone with every window inactive, so
+that it stages and writes back its windows and walks none
+(`inactive_ms`), µs a step (G4: the positions and pairs of the longest
+walk) or a node (G5: the most nodes a
+window keeps), with the card's name and power limit.
 
 `repeat-k7` launches K7, the mix-peak kernel of this checkout, N times at
 each of chip_smoke.py's check depths (1 and 8 rounds, its seed, a tile for
@@ -784,6 +805,150 @@ def _time_full(pkg_dir, inputs_path):
             print(json.dumps(line), flush=True)
 
 
+BUILD_NS = (256, 1152, 2048)
+
+
+def _prep_build(inputs_path, out_path):
+    """time-build's inputs, with this checkout's package: the G4 and G5
+    launches of `inputs_path` (chip_smoke.py --save-build) at each of
+    BUILD_NS, the others captured from a device build of synthetic windows
+    (`synth_build_batch`) on the card; saved to out_path as
+    `save_build_inputs` saves, with `source_N{N}`."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from vechat_tpu_torch.ops.kernels import graph_build as gb
+
+    have = cs.load_build_inputs(inputs_path) if inputs_path else {}
+    sources, dev = {}, torch.device("cuda")
+    for N in BUILD_NS:
+        sources[f"source_N{N}"] = np.array("phase 7's heaviest launch")
+        if ("fuse", N) in have and ("reach", N) in have:
+            continue
+        sources[f"source_N{N}"] = np.array("synthesized: 64 windows, synth_build_batch")
+        rng = np.random.default_rng(cs.SEED + 19 + N)
+        args = [torch.from_numpy(a).to(dev) for a in cs.synth_build_batch(rng, 64, N)]
+        best = {}
+        with cs.capturing_build(best):
+            gb.device_build(*args, N, 2 * N, 8, 3, -5, -4, p_cap=16)
+        for name, tag in (("graph_fuse", "fuse"), ("graph_reach", "reach")):
+            have[(tag, N)] = cs.heaviest_by_n(best, name)[N]
+    cs.save_build_inputs(out_path, {k: v for k, v in have.items() if k[1] in BUILD_NS},
+                         **sources)
+
+
+def _time_build(pkg_dir, inputs_path):
+    """Time G4 and G5 of the package under pkg_dir (its API, with or
+    without `fuse_walk_`, read off its module) on time-build's inputs; one
+    JSON line a (kernel, N)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, pkg_dir)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vechat_tpu_torch.ops.kernels import graph_build as gb
+
+    assert gb.__file__.startswith(os.path.abspath(pkg_dir)), gb.__file__
+
+    new = hasattr(gb, "fuse_walk_")
+    gb._lib()
+    dev = torch.device("cuda")
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    inputs = cs.load_build_inputs(inputs_path)
+    sources = dict(np.load(inputs_path))
+    i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+    for N in BUILD_NS:
+        source = str(sources[f"source_N{N}"])
+        a = [None if x is None else torch.from_numpy(x).to(dev) for x in inputs[("fuse", N)]]
+        B = a[0].shape[0]
+        track = a[14] is not None
+        want = gb._fuse_plain(*a)
+        got = gb.fuse_walk(*a)
+        for name, g, w in zip(("codes", "tails", "heads", "weights", "n_nodes", "n_edges",
+                               "aligned", "acount", "overflow", "lab_lo", "lab_hi"), got, want):
+            assert torch.equal(g.long(), w.long()), f"G4 N={N}: {name}"
+        state0 = [i32(x) for x in a[:8]] + ([i32(a[14]), i32(a[15])] if track else [])
+        work = [torch.empty_like(t) for t in state0]
+        labs = work[8:] if track else [None, None]
+        bits = [i32(a[16]), i32(a[17])] if track else [None, None]
+        ins = [i32(x) for x in a[8:13]]
+        ovf = torch.empty((B,), dtype=torch.int32, device=dev)
+
+        def copy(r=0):
+            for w, s0 in zip(work, state0):
+                w.copy_(s0)
+
+        if new:
+            act = a[13].contiguous()
+            form = gb.kernel_form("graph_fuse", N, a[1].shape[1], a[6].shape[2], track)
+            scratch = (torch.empty((B, gb.fuse_scratch_ints(N, a[1].shape[1])),
+                                   dtype=torch.int32, device=dev) if form == "global" else None)
+
+            def step():
+                copy()
+                gb.fuse_walk_(*work[:8], *ins, act, *labs, *bits, check=False)
+
+            ms = cs.time_ms(step, warmup=2, reps=20) - cs.time_ms(copy, warmup=2, reps=20)
+
+            def alone(r, act=act):
+                copy()
+                gb.launch_fuse(*work[:8], *labs, *bits, *ins, act, ovf, scratch)
+        else:
+            act = a[13].to(torch.uint8).contiguous()
+            ms = cs.time_ms(lambda: gb.fuse_walk(*a), warmup=2, reps=20)
+
+            def alone(r):
+                copy()
+                gb.launch_fuse(*work[:8], *labs, *bits, *ins, act, ovf)
+
+        kms = cs.kernel_ms(alone) - cs.kernel_ms(copy)
+        idle_ms = None
+        if new:  # every window inactive: G4 stages and writes back, and walks none
+            idle = torch.zeros_like(act)
+            idle_ms = cs.kernel_ms(lambda r: alone(r, idle)) - cs.kernel_ms(copy)
+        live = a[13].bool()
+        steps = int(torch.where(live, a[9].long() + a[12].long(), 0).max())
+        print(json.dumps(dict(pkg=pkg_dir, kernel="graph_fuse", N=N, B=B, labels=track,
+                              inputs=source, ms=ms, kernel_ms=kms, inactive_ms=idle_ms,
+                              steps_longest_walk=steps,
+                              us_a_step=kms * 1e3 / max(steps, 1), gpu=gpu)), flush=True)
+
+        r = [None if x is None else torch.from_numpy(x).to(dev) for x in inputs[("reach", N)]]
+        keep = gb.reach_keep(*r)
+        assert torch.equal(keep, gb._reach_plain(*r)), f"G5 N={N}"
+        ms = cs.time_ms(lambda: gb.reach_keep(*r), warmup=2, reps=20)
+        res = torch.empty_like(keep)
+        if new:
+            E, R = r[0].shape[1], r[3].shape[2]
+            scratch = (torch.empty((B, gb.reach_scratch_ints(N, E)), dtype=torch.int32,
+                                   device=dev)
+                       if gb.kernel_form("graph_reach", N, E, R) == "global" else None)
+            rin = [i32(x) for x in r[:7]]
+
+            def alone(k):
+                gb.launch_reach(*rin, r[7].contiguous(), i32(r[8]), res, scratch)
+
+            kms = cs.kernel_ms(alone)
+            alone(0)
+        else:
+            off, csr = gb.in_edge_csr(r[0], r[1], r[2], N)
+            rin = [i32(x) for x in r[3:7]]
+            full, nn = r[7].to(torch.uint8).contiguous(), i32(r[8])
+            kms = cs.kernel_ms(lambda k: gb.launch_reach(off, csr, *rin, full, nn, res))
+        assert torch.equal(res, keep), f"G5 N={N}: the kernel alone"
+        nodes = int((keep & ~r[7].bool()[:, None]).sum(1).max())
+        print(json.dumps(dict(pkg=pkg_dir, kernel="graph_reach", N=N, B=B, inputs=source, ms=ms,
+                              kernel_ms=kms, nodes_most_kept=nodes,
+                              us_a_node=kms * 1e3 / max(nodes, 1), gpu=gpu)), flush=True)
+
+
 def _time_k3(pkg_dir, inputs_path):
     """Time K3 of the package under pkg_dir, whole and rows only; prints one
     JSON line a (case, build) with its bound."""
@@ -1031,6 +1196,33 @@ def main(argv):
         return 0
     if len(argv) == 3 and argv[0] == "_time_full":
         _time_full(argv[1], argv[2])
+        return 0
+    if len(argv) >= 2 and argv[0] == "time-build":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        inputs = ""
+        dirs = argv[1:]
+        if dirs[0] == "--inputs":
+            inputs, dirs = os.path.abspath(dirs[1]), dirs[2:]
+        os.makedirs(os.path.join(REPO, "vechat_tpu_torch", "_build"), exist_ok=True)
+        prepared = os.path.join(REPO, "vechat_tpu_torch", "_build", "time_build_inputs.npz")
+        rc = subprocess.run([sys.executable, __file__, "_prep_build", inputs, prepared]).returncode
+        if rc:
+            return rc
+        for d in dirs:
+            rc = subprocess.run([sys.executable, __file__, "_time_build", os.path.abspath(d),
+                                 prepared]).returncode
+            if rc:
+                return rc
+        return 0
+    if len(argv) == 3 and argv[0] == "_prep_build":
+        _prep_build(argv[1], argv[2])
+        return 0
+    if len(argv) == 3 and argv[0] == "_time_build":
+        _time_build(argv[1], argv[2])
         return 0
     if len(argv) >= 2 and argv[0] == "time-k2":
         import torch

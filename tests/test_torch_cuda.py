@@ -25,6 +25,10 @@ from vechat_tpu_torch.ops.kernels.backend import TorchAlignerBackend, pack_windo
 from vechat_tpu_torch.ops.kernels.dense import graph_to_dense
 from vechat_tpu_torch.ops.native_graph import make_graph
 
+# from the test directory, which pytest puts on sys.path (it holds no
+# __init__.py): a `tests` package installed elsewhere may shadow `tests.`
+from graph_build_cases import at_the_edge_cap, with_duplicate_edges
+
 pytestmark = pytest.mark.cuda
 
 
@@ -1677,24 +1681,36 @@ def test_graph_topo_bundled_kernel_matches_plain(cuda, N):
             assert torch.equal(g.long(), w.long()), (name, p_cap)
 
 
-@pytest.mark.parametrize("N", [256, 1152, 2048])
+@pytest.mark.parametrize("N", [256, 1152, 2048, 8192])
 def test_graph_reach_kernel_matches_plain(cuda, N):
-    """G5 at B = 64: spans inside the graph, end < begin, end past the
-    nodes, full-span windows."""
-    st = build_state(N + 1, 64, N)
+    """G5 at B = 64 (16 at N = 8192, past shared memory: the global form):
+    spans inside the graph, end < begin, end past the nodes, full-span
+    windows; every fourth window's first 40 edges appended again (duplicate
+    in-edges in its groups)."""
+    B = 16 if N > 2048 else 64
+    st = build_state(N + 1, B, N)
+    for b in range(0, B, 4):
+        ne = int(st["n_edges"][b])
+        k = min(40, 2 * N - ne)
+        for key in ("tails", "heads"):
+            st[key][b, ne : ne + k] = st[key][b, :k]
+        st["n_edges"][b] = ne + k
     rng = np.random.default_rng(N)
     n = st["n_nodes"]
     begin = rng.integers(0, n // 2).astype(np.int32)
-    end = (n - 1 - rng.integers(0, 20, size=64)).astype(np.int32)
+    end = (n - 1 - rng.integers(0, 20, size=B)).astype(np.int32)
     end[::9] = begin[::9] - 1
     end[1::9] = n[1::9] + 2
-    use_full = rng.random(64) < 0.2
+    use_full = rng.random(B) < 0.2
     args = _t(st, ("tails", "heads", "n_edges", "aligned", "acount"), cuda)
     args += [torch.from_numpy(a).to(cuda) for a in (begin, end, use_full)]
     args.append(torch.from_numpy(n).to(cuda))
-    before = _build.LAUNCHES["graph_reach"]
+    form = gb.kernel_form("graph_reach", N, 2 * N, 8)
+    assert form == ("global" if N > 4096 else "shared")
+    before, forms = _build.LAUNCHES["graph_reach"], _build.BUILD_FORMS[("graph_reach", N, form)]
     got = gb.reach_keep(*args)
     assert _build.LAUNCHES["graph_reach"] == before + 1
+    assert _build.BUILD_FORMS[("graph_reach", N, form)] == forms + 1
     want = gb._reach_plain(*args)
     assert torch.equal(got, want) and int(want.sum()) > 0
 
@@ -1737,30 +1753,76 @@ def fuse_inputs(st, seed, L, W, labels, crowd=False):
     return out
 
 
-@pytest.mark.parametrize("labels", [False, True], ids=["plain", "labels"])
-@pytest.mark.parametrize("N", [256, 1152, 2048])
-def test_graph_fuse_kernel_matches_plain(cuda, N, labels):
-    """G4 at B = 64 and the build's shapes (L = N + 577, W = 576): every
-    output of every window equal to the plain walk, flagged ones included;
-    at N = 1152 every window starts 10 nodes short of N, so nodes overflow,
-    and at N = 256 the edge table is nearly full, so edges overflow."""
-    st = build_state(N + 2, 64, N)
-    if N == 256:
-        st["n_edges"] = np.full(64, 2 * N - 20, np.int32)
-    args = fuse_inputs(st, N, N + 577, 576, labels, crowd=N == 1152)
-    dev_args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in args]
-    before = _build.LAUNCHES["graph_fuse"]
+FUSE_NAMES = ("codes", "tails", "heads", "weights", "n_nodes", "n_edges", "aligned", "acount",
+              "overflow", "lab_lo", "lab_hi")
+
+
+def _fuse_equals_plain(device, args, N):
+    """G4 through `fuse_walk` against the plain walk on the same inputs,
+    every output of every window; the launch counted in the form its size
+    takes. Returns the outputs."""
+    dev_args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args]
+    E, R = args[1].shape[1], args[6].shape[2]
+    form = gb.kernel_form("graph_fuse", N, E, R, len(args) > 14)
+    before, forms = _build.LAUNCHES["graph_fuse"], _build.BUILD_FORMS[("graph_fuse", N, form)]
     got = gb.fuse_walk(*dev_args)
     assert _build.LAUNCHES["graph_fuse"] == before + 1
+    assert _build.BUILD_FORMS[("graph_fuse", N, form)] == forms + 1
     want = gb._fuse_plain(*dev_args)
-    names = ("codes", "tails", "heads", "weights", "n_nodes", "n_edges", "aligned", "acount",
-             "overflow", "lab_lo", "lab_hi")
-    for name, g, w in zip(names, got, want):
+    for name, g, w in zip(FUSE_NAMES, got, want):
         assert torch.equal(g.long(), w.long()), name
-    if N != 2048:
-        assert (got[8] != 0).any()
     # the inputs were not written
     assert torch.equal(dev_args[0].cpu(), torch.from_numpy(args[0]))
+    return got
+
+
+@pytest.mark.parametrize("labels", [False, True], ids=["plain", "labels"])
+@pytest.mark.parametrize("N", [256, 1152, 2048, 4096])
+def test_graph_fuse_kernel_matches_plain(cuda, N, labels):
+    """G4 at B = 64 (16 at N = 4096, past shared memory: the global form)
+    and the build's shapes (L = N + 577, W = 576): every output of every
+    window equal to the plain walk, flagged ones included; at N = 1152 every
+    window starts 10 nodes short of N, so nodes overflow, and at N = 256 the
+    edge table is nearly full, so edges overflow."""
+    B = 16 if N > 2048 else 64
+    st = build_state(N + 2, B, N)
+    if N == 256:
+        st["n_edges"] = np.full(B, 2 * N - 20, np.int32)
+    assert gb.kernel_form("graph_fuse", N, 2 * N, 8, labels) == ("global" if N > 2048 else "shared")
+    got = _fuse_equals_plain(cuda, fuse_inputs(st, N, N + 577, 576, labels, crowd=N == 1152), N)
+    if N in (256, 1152):
+        assert (got[8] != 0).any()
+
+
+@pytest.mark.parametrize("labels", [False, True], ids=["plain", "labels"])
+@pytest.mark.parametrize("case", ["dups", "clamp"])
+@pytest.mark.parametrize("N", [1152, 4096])
+def test_graph_fuse_kernel_edge_lookup_cases_match_plain(cuda, N, case, labels):
+    """G4's edge lookup where it is hard, in both forms: duplicate (tail,
+    head) edges walked (the lowest slot takes the weight and labels), and
+    appends at the E - 1 clamp with lookups of the overwritten edge and of
+    the new one (`with_duplicate_edges`, `at_the_edge_cap`)."""
+    B = 16 if N > 2048 else 64
+    args = fuse_inputs(build_state(N + 3, B, N), N + 1, N + 577, 576, labels)
+    if case == "dups":
+        args, changed = with_duplicate_edges(args)
+        assert len(changed) >= B // 2
+    else:
+        args = at_the_edge_cap(args)
+    got = _fuse_equals_plain(cuda, args, N)
+    ovf = got[8].cpu().numpy()
+    if case == "clamp":
+        assert (ovf[:4] & gb.OVF_E_CAP).all()
+
+
+def test_build_kernels_do_not_spill(cuda):
+    """G3, and G4 and G5 in both forms: no local memory (no spills), and
+    registers within the block's share."""
+    for kernel, forms in (("graph_topo_bundled", ("shared",)), ("graph_fuse", ("shared", "global")),
+                          ("graph_reach", ("shared", "global"))):
+        for form in forms:
+            at = gb.kernel_attrs(kernel, form)
+            assert 0 < at["registers"] <= 255 and at["local_bytes"] == 0, (kernel, form, at)
 
 
 def test_build_kernels_empty_batch_and_wrong_inputs(cuda):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.graph_build_cases import at_the_edge_cap, with_duplicate_edges
 from tests.test_graph_build import _assert_graph_equal, _noisy, _oracle_build
 from tests.test_torch_graph_cycle import (
     _ballot,
@@ -391,54 +392,75 @@ def g3_warp(in_nbr, indeg, aligned, acount, n_nodes):
     return rank_of, rank_to_node
 
 
-def g5_warp(off, csr_tails, aligned, acount, begin, end, use_full, n_nodes):
-    """csrc/graph_build.cu:graph_reach_kernel for one window: the pop, the
-    in-edges 32 at a time and then the ring, each new node claimed on the
-    bitmap and pushed at its rank in the ballot."""
+def g5_warp(tails, heads, n_edges, aligned, acount, begin, end, use_full, n_nodes, order):
+    """csrc/graph_build.cu:graph_reach_kernel for one window: the block's
+    grouping (the edges with both ends in [max(begin, 0), n_nodes) counted
+    by head, the inclusive scan over N + 1 heads, each tail scattered down
+    from its group's end; the scatter visits the edges in `order`, as the
+    block's atomics land in no fixed order), then the warp's traversal: up
+    to 4 nodes popped a step, lanes 8g..8g+7 taking the g-th from the top's
+    candidates (its ring, then its in-edges) 8 at a time, each new node
+    claimed on the bitmap and pushed at its rank in the ballot."""
     n, r_cap = aligned.shape
     real = min(int(n_nodes), n)
-    if use_full:
-        return np.arange(n) < real
+    first = max(int(begin), 0)
+    if use_full or not (begin <= end and 0 <= end < real):
+        return np.arange(n) < real if use_full else np.zeros(n, bool)
+    ne = min(int(n_edges), len(tails))
+    ok = [first <= tails[k] < real and first <= heads[k] < real for k in range(ne)]
+    pos = np.zeros(n + 1, np.int64)
+    for k in range(ne):
+        if ok[k]:
+            pos[heads[k]] += 1
+    pos = np.cumsum(pos)
+    csr = np.zeros(max(ne, 1), np.int64)
+    for k in order:
+        if k < ne and ok[k]:
+            pos[heads[k]] -= 1
+            csr[pos[heads[k]]] = tails[k]
     kept = np.zeros((n + 31) // 32, np.uint32)
     stack = np.zeros(n, np.int64)
-    first = max(int(begin), 0)
-    sp = 0
-    if begin <= end and 0 <= end < real:
-        _set(kept, int(end))
-        stack[0], sp = end, 1
-
-    def push(cands):
-        nonlocal sp
-        mine = []
-        for c in cands:
-            ok = c is not None and first <= c < real and not _bit(kept, c)
-            if ok:
-                _set(kept, c)
-            mine.append(ok)
-        ball = _ballot(mine)
-        for lane, c in enumerate(cands):
-            if mine[lane]:
-                stack[sp + bin(ball & ((1 << lane) - 1)).count("1")] = c
-        sp += bin(ball).count("1")
-
+    _set(kept, int(end))
+    stack[0], sp = end, 1
     while sp > 0:
-        v = int(stack[sp - 1])
-        sp -= 1
-        e0, e1 = int(off[v]), int(off[v + 1])
-        for base in range(e0, e1, 32):
-            push([int(csr_tails[k]) if k < e1 else None for k in range(base, base + 32)])
-        av = min(int(acount[v]), r_cap)
-        push([int(aligned[v, lane]) if lane < av else None for lane in range(32)])
+        take = min(sp, 4)
+        popped = [int(stack[sp - 1 - g]) for g in range(take)]
+        sp -= take
+        cands = []
+        for v in popped:
+            av = min(int(acount[v]), r_cap)
+            cands.append([int(aligned[v, i]) for i in range(av)]
+                         + [int(csr[k]) for k in range(pos[v], pos[v + 1])])
+        for base in range(0, max(len(c) for c in cands), 8):
+            lanes = [cands[g][base + sub] if g < take and base + sub < len(cands[g]) else None
+                     for g in range(4) for sub in range(8)]
+            mine = []
+            for c in lanes:
+                ok = c is not None and first <= c < real and not _bit(kept, c)
+                if ok:
+                    _set(kept, c)
+                mine.append(ok)
+            ball = _ballot(mine)
+            for lane, c in enumerate(lanes):
+                if mine[lane]:
+                    stack[sp + bin(ball & ((1 << lane) - 1)).count("1")] = c
+            sp += bin(ball).count("1")
     return np.array([_bit(kept, i) for i in range(n)], bool)
 
 
 class G4Warp:
-    """csrc/graph_build.cu:graph_fuse_kernel for one window: the same uniform
-    walk, the edge search as ballots over the (tail, head) table 32 edges
-    at a time (__ffs), the ring slots as lanes (__ffs of the hits)."""
+    """csrc/graph_build.cu:graph_fuse_kernel for one window: the block's
+    out-edge lists (the slots below min(n_edges, E - 1) pushed at the head
+    of their tail's list in `order`, as the block's atomicExch pushes land
+    in no fixed order), then the warp's uniform walk: positions and pairs 32
+    at a time, the pairs with a position taken in order (__ffs of the
+    ballot), the edge lookup as the least index with the head over the
+    tail's whole list and slot E - 1 on its own once n_edges >= E, an
+    append listed below E - 1, the ring slots as lanes (__ffs of the
+    hits)."""
 
     def __init__(self, codes, tails, heads, weights, n_nodes, n_edges, aligned, acount, seq,
-                 seq_w, labels=None, bits=(0, 0)):
+                 seq_w, order, labels=None, bits=(0, 0)):
         self.codes, self.th = codes.copy(), [list(x) for x in zip(tails, heads)]
         self.weights, self.aligned, self.acount = weights.copy(), aligned.copy(), acount.copy()
         self.lab = None if labels is None else [x.copy() for x in labels]
@@ -446,6 +468,11 @@ class G4Warp:
         self.seq, self.seq_w = seq, seq_w
         self.n_nodes, self.n_edges, self.ovf = int(n_nodes), int(n_edges), 0
         self.N, self.E, self.R, self.W = len(codes), len(tails), aligned.shape[1], len(seq)
+        self.first, self.next = [-1] * self.N, [-1] * self.E
+        for e in order:
+            t = self.th[e][0]
+            if e < min(self.n_edges, self.E - 1) and 0 <= t < self.N:
+                self.next[e], self.first[t] = self.first[t], e
 
     def at(self, a, i):
         return int(a[min(max(i, 0), self.W - 1)])
@@ -457,45 +484,52 @@ class G4Warp:
         return pos
 
     def add_edge(self, t, h, w):
-        lim, found = min(self.n_edges, self.E), -1
-        for base in range(0, lim, 32):
-            ball = _ballot(e < lim and self.th[e] == [t, h] for e in range(base, base + 32))
-            if ball:
-                found = base + _ffs(ball) - 1
-                break
-        if found >= 0:
+        E, found, e = self.E, self.E, self.first[t]
+        while e >= 0:
+            if self.th[e][1] == h and e < found:
+                found = e
+            e = self.next[e]
+        if found == E and self.n_edges >= E and self.th[E - 1] == [t, h]:
+            found = E - 1
+        if found < E:
             self.weights[found] += w
             if self.lab:
                 for lw, bit in zip(self.lab, self.bits):
                     lw[found] |= bit
         else:
-            pos = min(self.n_edges, self.E - 1)
+            pos = min(self.n_edges, E - 1)
             self.th[pos], self.weights[pos] = [t, h], w
             if self.lab:
                 for lw, bit in zip(self.lab, self.bits):
                     lw[pos] = bit
-            if self.n_edges >= self.E:
+            if pos < E - 1:
+                self.next[pos], self.first[t] = self.first[t], pos
+            if self.n_edges >= E:
                 self.ovf |= tgb.OVF_E_CAP
             self.n_edges += 1
 
     def run(self, lo, hi):
         prev = first = -1
-        for i in range(lo, hi):
-            nid = self.add_node(self.at(self.seq, i))
-            if prev >= 0 and i > lo:
-                self.add_edge(prev, nid, self.at(self.seq_w, i - 1) + self.at(self.seq_w, i))
-            first = nid if first < 0 else first
-            prev = nid
+        for base in range(lo, hi, 32):
+            lanes = [(self.at(self.seq, i), self.at(self.seq_w, i - 1) + self.at(self.seq_w, i))
+                     for i in range(base, base + 32)]
+            for j in range(min(32, hi - base)):
+                code, w = lanes[j]
+                nid = self.add_node(code)
+                if prev >= 0 and base + j > lo:
+                    self.add_edge(prev, nid, w)
+                first = nid if first < 0 else first
+                prev = nid
         return prev, first
 
-    def pair(self, a_n, a_p):
-        code = self.at(self.seq, a_p)
+    def pair(self, a_n, code):
         is_new = a_n < 0
         jt = 0 if is_new else min(a_n, self.N - 1)
         jt_match = not is_new and self.codes[jt] == code
         av = int(self.acount[jt])
         m = [int(self.aligned[jt, r]) for r in range(self.R)]
-        m_pos = [min(int(self.acount[x]), self.R - 1) for x in m]
+        members = range(min(av, self.R))
+        m_pos = {r: min(int(self.acount[m[r]]), self.R - 1) for r in members}
         hits = _ballot(not is_new and not jt_match and r < av and self.codes[m[r]] == code
                        for r in range(self.R))
         ring_node = m[_ffs(hits) - 1] if hits else m[0]
@@ -503,7 +537,6 @@ class G4Warp:
         new_id = self.add_node(code) if need_new else 0
         curr = jt if jt_match else (ring_node if hits else new_id)
         if need_new and not is_new:
-            members = range(min(av, self.R))
             for r in members:
                 self.aligned[m[r], m_pos[r]] = curr
                 self.acount[m[r]] += 1
@@ -528,15 +561,16 @@ class G4Warp:
             _, suffix_first = self.run(vback + 1, slen)
             prev = prefix_prev
             if not no_aln:
-                for k in range(k0, L):
-                    a_n, a_p = int(pairs[k, 0]), int(pairs[k, 1])
-                    if a_p < 0:
-                        continue
-                    curr = self.pair(a_n, a_p)
-                    if prev >= 0:
+                for base in range(k0, L, 32):
+                    rows = [(int(pairs[k, 0]), int(pairs[k, 1])) if k < L else (0, -1)
+                            for k in range(base, base + 32)]
+                    for j in (j for j, (_, a_p) in enumerate(rows) if a_p >= 0):
+                        a_n, a_p = rows[j]
                         w = self.at(self.seq_w, a_p - 1) + self.at(self.seq_w, a_p)
-                        self.add_edge(prev, curr, w)
-                    prev = curr
+                        curr = self.pair(a_n, self.at(self.seq, a_p))
+                        if prev >= 0:
+                            self.add_edge(prev, curr, w)
+                        prev = curr
                 if suffix_first >= 0 and prev >= 0:
                     self.add_edge(prev, suffix_first,
                                   self.at(self.seq_w, vback) + self.at(self.seq_w, vback + 1))
@@ -557,34 +591,79 @@ def test_warp_model_of_g3_equals_the_plain_machine(built, p_cap):
             _eq(rn, r2n[b])
 
 
+def _reach_cuts(built, seed):
+    """_subgraph_inputs with cuts past the middle of every backbone: begin at
+    a half to two thirds of it (most edges lie outside the cut), a third of
+    the windows use_full, two with end < begin."""
+    args = _subgraph_inputs(built, seed)
+    rng = np.random.default_rng(seed)
+    blen = built[1]["bb_len"]
+    begin = (blen * rng.uniform(0.5, 0.67, size=len(blen))).astype(np.int32)
+    end = (blen - 1 - rng.integers(0, 4, size=len(blen))).astype(np.int32)
+    end[[0, 5]] = begin[[0, 5]] - 1
+    use_full = np.zeros(len(blen), bool)
+    use_full[[2, 6]] = True
+    return args[:7] + [begin, end, use_full, args[10]]
+
+
+def _g5_model_equals_plain(args, rng):
+    (codes, tails, heads, weights, n_edges, aligned, acount, begin, end, use_full,
+     n_nodes) = args
+    keep = tgb.reach_keep(*map(torch.from_numpy, (tails, heads, n_edges, aligned, acount, begin,
+                                                  end, use_full, n_nodes)))
+    assert _np(keep).sum() > 0
+    for b in range(len(n_nodes)):
+        got = g5_warp(tails[b], heads[b], n_edges[b], aligned[b], acount[b], begin[b], end[b],
+                      use_full[b], n_nodes[b], rng.permutation(tails.shape[1]))
+        _eq(got, keep[b])
+
+
 def test_warp_model_of_g5_equals_the_plain_machine(built):
+    """The model of the kernel's grouping and traversal, the scatter in a
+    seeded random order (the result is a set, whatever the order), against
+    the plain fixpoint on random spans."""
+    rng = np.random.default_rng(40)
     for seed in range(4):
-        (codes, tails, heads, weights, n_edges, aligned, acount, begin, end, use_full,
-         n_nodes) = _subgraph_inputs(built, 20 + seed)
-        keep = tgb.reach_keep(*map(torch.from_numpy, (tails, heads, n_edges, aligned, acount,
-                                                      begin, end, use_full, n_nodes)))
-        off, csr = tgb.in_edge_csr(torch.from_numpy(tails), torch.from_numpy(heads),
-                                   torch.from_numpy(n_edges), N)
-        off, csr = _np(off), _np(csr)
-        assert _np(keep).sum() > 0
-        for b in range(len(n_nodes)):
-            got = g5_warp(off[b * N : (b + 1) * N + 1], csr, aligned[b], acount[b], begin[b],
-                          end[b], use_full[b], n_nodes[b])
-            _eq(got, keep[b])
+        _g5_model_equals_plain(_subgraph_inputs(built, 20 + seed), rng)
 
 
-@pytest.mark.parametrize("caps", [(False, E), (True, E), (False, 120)],
-                         ids=["fits", "nodes", "edges"])
+def test_warp_model_of_g5_groups_cut_windows_alike(built):
+    """The same on cuts past the middle of the backbones, where the grouping
+    drops most edges, with use_full and end < begin windows."""
+    rng = np.random.default_rng(42)
+    for seed in range(2):
+        _g5_model_equals_plain(_reach_cuts(built, 24 + seed), rng)
+
+
+def _g4_case(built, case, labels):
+    """The walk's inputs of a model case: random streams that fit, whose
+    nodes pass N, whose edges pass E = 120; duplicate (tail, head) edges
+    walked (`graph_build_cases.with_duplicate_edges`); appends at the E - 1
+    clamp (`graph_build_cases.at_the_edge_cap`)."""
+    caps = dict(fits=(False, E), nodes=(True, E), edges=(False, 120)).get(case, (False, E))
+    args = _fuse_inputs(built, 30, labels, *caps)
+    if case == "dups":
+        args, changed = with_duplicate_edges(args)
+        assert len(changed) >= 4
+    elif case == "clamp":
+        args = at_the_edge_cap(args)
+    return args
+
+
+@pytest.mark.parametrize("caps", ["fits", "nodes", "edges", "dups", "clamp"])
 @pytest.mark.parametrize("labels", [False, True], ids=["plain", "labels"])
 def test_warp_model_of_g4_equals_the_plain_walk(built, caps, labels):
     """Every window, flagged ones included: the model and the plain walk
-    agree word for word."""
-    args = _fuse_inputs(built, 30, labels, *caps)
+    agree word for word, the out-edge lists pushed in a seeded random order
+    (the kernel's pushes land in no fixed order)."""
+    args = _g4_case(built, caps, labels)
     got = tgb.fuse_walk(*map(torch.from_numpy, args))
+    rng = np.random.default_rng(41)
     B = len(args[4])
     for b in range(B):
         g = [a[b] for a in args]
-        model = G4Warp(*g[:8], g[10], g[11], labels=g[14:16] if labels else None,
+        model = G4Warp(*g[:8], g[10], g[11], rng.permutation(len(g[1])),
+                       labels=g[14:16] if labels else None,
                        bits=(int(g[16]), int(g[17])) if labels else (0, 0))
         model.walk(g[8], g[9], int(g[12]), bool(g[13]))
         th = np.array(model.th)
@@ -595,6 +674,11 @@ def test_warp_model_of_g4_equals_the_plain_walk(built, caps, labels):
         if labels:
             _eq(model.lab[0], got[9][b])
             _eq(model.lab[1], got[10][b])
+    ovf = _np(got[8])
+    if caps == "clamp":
+        assert (ovf[:4] & tgb.OVF_E_CAP).all()
+    if caps == "dups":
+        assert not ovf.any()
 
 
 # ------------------------------------------------------------ the pipeline

@@ -9,7 +9,8 @@ build raises with nvcc's stderr; there is no fallback.
 
 The launch counters live here too: every wrapper adds one to its kernel's
 count where it launches the kernel, and nowhere else; K1's, K3's and K4's
-wrappers, and F1's, also tally their launch shapes.
+wrappers, and F1's, also tally their launch shapes, and G4's and G5's the
+form each launch took.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import re
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from typing import Dict, Sequence
 
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -64,6 +66,9 @@ K3_SHAPES: Dict[tuple, int] = {}
 K4_SHAPES: Dict[tuple, int] = {}
 # F1's launch shapes since the last reset_launches(): (B, N, S, P) -> launches
 FULL_SHAPES: Dict[tuple, int] = {}
+# G4's and G5's launches since the last reset_launches(): (kernel, N, form
+# "shared" or "global") -> launches
+BUILD_FORMS: Counter = Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -76,6 +81,7 @@ def reset_launches() -> None:
     K3_SHAPES.clear()
     K4_SHAPES.clear()
     FULL_SHAPES.clear()
+    BUILD_FORMS.clear()
 
 
 def resolve_device(device) -> "torch.device":

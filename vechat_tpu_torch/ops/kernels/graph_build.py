@@ -32,10 +32,14 @@ Order-sensitive semantics kept word for word:
 `reach_keep`) and `fuse_walk`, the walk of `fuse_alignments` (G4), launch
 the kernels of `csrc/graph_build.cu` on CUDA tensors and run their plain
 versions, the batched machines of the JAX program, on CPU tensors.
-Everything else is the array work XLA ran, as torch ops on the tensors'
-device. A write that JAX drops at index N or E goes into a padded extra
-column that is sliced away; a write past a capacity is clamped to the
-last slot and flags the window, as in JAX.
+`device_build` keeps its graph in int32 buffers that `fuse_walk_` updates
+in place, one G4 launch a layer step with no copies; G5 groups the
+in-edges by head itself. G4 and G5 take their shared form where the window
+fits a block's shared memory (`kernel_form`), else their global form on a
+scratch buffer. Everything else is the array work XLA ran, as torch ops
+on the tensors' device. A write that JAX drops at index N or E goes into
+a padded extra column that is sliced away; a write past a capacity is
+clamped to the last slot and flags the window, as in JAX.
 
 `device_build` flags a window (`overflow_bits`, beside JAX's `overflow`)
 for nodes past N, edges past E, a ring past R, in-slots past P, or a
@@ -75,10 +79,47 @@ BUILD_OVF_BITS = dict(n_cap=OVF_N_CAP, e_cap=OVF_E_CAP, r_cap=OVF_R_CAP, p_cap=O
 
 # rounds of the plain reachability between two reads of its `changed` flag
 REACH_CHECK = 8
-# largest N and E a launch takes (one warp's bitmaps and stack, or its
-# (tail, head) table, in shared memory)
+# largest N and E a launch takes (G3's bitmaps and stack, and G5's bitmap,
+# in shared memory; G4's and G5's global forms' scratch)
 N_MAX = 8192
 E_MAX = 16384
+# shared memory a block can opt into on Hopper (227 KB): G4 and G5 take
+# their shared form where the window fits, else their global form
+SMEM_OPTIN = 232448
+
+
+def fuse_smem_bytes(N: int, E: int, R: int, track: bool) -> int:
+    """Shared memory of G4's shared form (csrc/graph_build.cu:fuse_smem_ints):
+    the (tail, head) table, weights, next_out and the labels [E]; codes,
+    acount and first_out [N]; the rings [N, R]."""
+    return 4 * ((4 + 2 * track) * E + 3 * N + N * R)
+
+
+def fuse_scratch_ints(N: int, E: int) -> int:
+    """Scratch of G4's global form a window (fuse_scratch_ints): the table,
+    next_out and first_out, rounded up to an even count."""
+    return (3 * E + N + 1) // 2 * 2
+
+
+def reach_smem_bytes(N: int, E: int, R: int) -> int:
+    """Shared memory of G5's shared form: the kept bitmap, the group bounds
+    [N + 1], the grouped tails [E], the rings [N, R], the counts and the
+    stack [N]."""
+    return 4 * ((N + 31) // 32 + N + 1 + E + N * R + 2 * N)
+
+
+def reach_scratch_ints(N: int, E: int) -> int:
+    """Scratch of G5's global form a window: the group bounds, the grouped
+    tails and the stack."""
+    return 2 * N + 1 + E
+
+
+def kernel_form(kernel: str, N: int, E: int, R: int, track: bool = False) -> str:
+    """"shared" where the window fits the block's shared memory, else
+    "global": the form the launch of G4 ("graph_fuse") or G5
+    ("graph_reach") takes."""
+    need = fuse_smem_bytes(N, E, R, track) if kernel == "graph_fuse" else reach_smem_bytes(N, E, R)
+    return "shared" if need <= SMEM_OPTIN else "global"
 
 
 def topo_steps(N: int) -> int:
@@ -95,8 +136,9 @@ def _bit32(j: int) -> int:
 
 
 _TOPO_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_REACH_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_FUSE_ARGS = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_REACH_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_FUSE_ARGS = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ATTRS_OUT = ctypes.c_int * 3
 
 
 def _lib():
@@ -104,10 +146,24 @@ def _lib():
     if lib.graph_fuse_launch.argtypes is None:
         for fn, args in ((lib.graph_topo_bundled_launch, _TOPO_ARGS),
                          (lib.graph_reach_launch, _REACH_ARGS),
-                         (lib.graph_fuse_launch, _FUSE_ARGS)):
+                         (lib.graph_fuse_launch, _FUSE_ARGS),
+                         (lib.graph_build_attrs, [ctypes.c_int, _ATTRS_OUT])):
             fn.argtypes = args
             fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_attrs(kernel: str, form: str = "shared") -> dict:
+    """Registers a thread, static shared memory and local memory (spills)
+    of G3 ("graph_topo_bundled"), or of G4 ("graph_fuse") or G5
+    ("graph_reach") in `form`, as the card's loader reports them."""
+    which = {("graph_topo_bundled", "shared"): 0, ("graph_reach", "shared"): 1,
+             ("graph_reach", "global"): 2, ("graph_fuse", "shared"): 3,
+             ("graph_fuse", "global"): 4}[(kernel, form)]
+    out = _ATTRS_OUT()
+    rc = _lib().graph_build_attrs(which, out)
+    _build.check(_lib(), rc, "graph_build_attrs")
+    return dict(registers=out[0], static_smem_bytes=out[1], local_bytes=out[2])
 
 
 def _on_card(dev) -> bool:
@@ -382,22 +438,15 @@ def fuse_walk(codes, tails, heads, weights, n_nodes, n_edges, aligned, acount, p
               bit_hi=None):
     """`fuse_alignments` with its overflow as bits (OVF_N_CAP, OVF_E_CAP,
     OVF_R_CAP). CPU tensors run the plain walk; CUDA tensors launch G4 or
-    raise. Nothing it is given is written: the kernel works on copies."""
-    B, N = codes.shape
-    E = tails.shape[1]
-    R = aligned.shape[2]
-    L = pairs.shape[1]
-    W = seq.shape[1]
+    raise. Nothing it is given is written: the kernel works on copies (the
+    build updates its own buffers in place, `fuse_walk_`)."""
+    B = codes.shape[0]
     dev = codes.device
     track = lab_lo is not None
     if not _on_card(dev):
         return _fuse_plain(codes, tails, heads, weights, n_nodes, n_edges, aligned, acount,
                            pairs, count, seq, seq_w, seq_len, active_w, lab_lo, lab_hi, bit_lo,
                            bit_hi)
-    if R > 32 or E > E_MAX or W < 1:
-        raise ValueError(f"G4 takes R <= 32, E <= {E_MAX} and W >= 1, got R={R}, E={E}, W={W}")
-    if pairs.shape != (B, L, 2) or aligned.shape != (B, N, R) or seq_w.shape != (B, W):
-        raise ValueError("G4 takes pairs [B, L, 2], aligned [B, N, R], seq and seq_w [B, W]")
 
     def fresh(t):
         return torch.empty(t.shape, dtype=torch.int32, device=dev).copy_(t)
@@ -406,34 +455,87 @@ def fuse_walk(codes, tails, heads, weights, n_nodes, n_edges, aligned, acount, p
     labs = [fresh(lab_lo), fresh(lab_hi)] if track else [None, None]
     bits = [_int32(bit_lo), _int32(bit_hi)] if track else [None, None]
     ins = [_int32(t) for t in (pairs, count, seq, seq_w, seq_len)]
-    act = active_w.to(torch.uint8).contiguous()
-    named = dict(zip(("pairs", "count", "seq", "seq_w", "seq_len"), ins))
-    named.update(zip(("bit_lo", "bit_hi"), [t for t in bits if t is not None]))
-    _check_inputs(named, torch.int32, dev)
-    ovf = torch.empty((B,), dtype=torch.int32, device=dev)
-    if B:
-        launch_fuse(*state, *labs, *bits, *ins, act, ovf)
+    ovf = fuse_walk_(*state, *ins, active_w.to(torch.uint8).contiguous(), *labs, *bits)
     if not track:
         labs = [torch.zeros((B, 1), dtype=torch.int32, device=dev)] * 2
     return (*state, ovf, *labs)
 
 
+def fuse_walk_(codes, tails, heads, weights, n_nodes, n_edges, aligned, acount, pairs, count,
+               seq, seq_w, seq_len, active_w, lab_lo=None, lab_hi=None, bit_lo=None,
+               bit_hi=None, check=True):
+    """`fuse_walk` on the graph buffers (codes ... acount, and the labels),
+    which it updates in place; returns the overflow bits [B] int32. On the
+    card every tensor must be int32 and contiguous (active_w bool or uint8),
+    as `device_build` keeps them: G4 is launched on them as they are, and
+    `check` (the build's first layer step) checks that, and the shapes,
+    first. On the CPU the plain walk runs and its results are copied in."""
+    B, N = codes.shape
+    E = tails.shape[1]
+    R = aligned.shape[2]
+    L = pairs.shape[1]
+    W = seq.shape[1]
+    dev = codes.device
+    track = lab_lo is not None
+    if not _on_card(dev):
+        out = _fuse_plain(codes, tails, heads, weights, n_nodes, n_edges, aligned, acount, pairs,
+                          count, seq, seq_w, seq_len, active_w, lab_lo, lab_hi, bit_lo, bit_hi)
+        bufs = (codes, tails, heads, weights, n_nodes, n_edges, aligned, acount)
+        for buf, o in zip(bufs + ((lab_lo, lab_hi) if track else ()), out[:8] + out[9:]):
+            buf.copy_(o)
+        return out[8].to(torch.int32)
+    if check:
+        if R > 32 or E > E_MAX or N > N_MAX or W < 1:
+            raise ValueError(f"G4 takes R <= 32, N <= {N_MAX}, E <= {E_MAX} and W >= 1, "
+                             f"got R={R}, N={N}, E={E}, W={W}")
+        shapes = dict(codes=(B, N), tails=(B, E), heads=(B, E), weights=(B, E), n_nodes=(B,),
+                      n_edges=(B,), aligned=(B, N, R), acount=(B, N), pairs=(B, L, 2),
+                      count=(B,), seq=(B, W), seq_w=(B, W), seq_len=(B,), active_w=(B,))
+        named = dict(zip(shapes, (codes, tails, heads, weights, n_nodes, n_edges, aligned, acount,
+                                  pairs, count, seq, seq_w, seq_len, active_w)))
+        if track:
+            shapes.update(lab_lo=(B, E), lab_hi=(B, E), bit_lo=(B,), bit_hi=(B,))
+            named.update(lab_lo=lab_lo, lab_hi=lab_hi, bit_lo=bit_lo, bit_hi=bit_hi)
+        for name, shp in shapes.items():
+            if tuple(named[name].shape) != shp:
+                raise ValueError(f"G4: {name} has shape {tuple(named[name].shape)}, "
+                                 f"expected {shp}")
+        act = named.pop("active_w")
+        if act.dtype not in (torch.bool, torch.uint8) or not act.is_contiguous():
+            raise ValueError("G4: active_w must be a contiguous bool or uint8 tensor")
+        _check_inputs(named, torch.int32, dev)
+    ovf = torch.empty((B,), dtype=torch.int32, device=dev)
+    scratch = None
+    if kernel_form("graph_fuse", N, E, R, track) == "global":
+        scratch = torch.empty((B, fuse_scratch_ints(N, E)), dtype=torch.int32, device=dev)
+    if B:
+        launch_fuse(codes, tails, heads, weights, n_nodes, n_edges, aligned, acount, lab_lo,
+                    lab_hi, bit_lo, bit_hi, pairs, count, seq, seq_w, seq_len, active_w, ovf,
+                    scratch)
+    return ovf
+
+
 def launch_fuse(codes, tails, heads, weights, n_nodes, n_edges, aligned, acount, lab_lo, lab_hi,
-                bit_lo, bit_hi, pairs, count, seq, seq_w, seq_len, active, overflow):
-    """G4 alone, on the int32 (active: uint8) buffers `fuse_walk` makes, all
-    on the card; the graph buffers (and labels, or None) are updated in
-    place. `chip_smoke.py` times it apart from that glue."""
+                bit_lo, bit_hi, pairs, count, seq, seq_w, seq_len, active, overflow,
+                scratch=None):
+    """G4 alone, on the int32 (active: bool or uint8) buffers of
+    `fuse_walk_`, all on the card; the graph buffers (and labels, or None)
+    are updated in place. `scratch` ([B, fuse_scratch_ints]) selects the
+    global form, None the shared one. `chip_smoke.py` times it apart from
+    that glue."""
     B, N = codes.shape
     E, R, L, W = tails.shape[1], aligned.shape[2], pairs.shape[1], seq.shape[1]
+    form = "shared" if scratch is None else "global"
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     with torch.cuda.device(codes.device):
         rc = _lib().graph_fuse_launch(
             *(_ptr(t) for t in (codes, tails, heads, weights, n_nodes, n_edges, aligned, acount,
                                 lab_lo, lab_hi, bit_lo, bit_hi, pairs, count, seq, seq_w,
-                                seq_len, active, overflow)),
+                                seq_len, active, overflow, scratch)),
             B, N, E, R, L, W, int(lab_lo is not None), stream)
     _build.check(_lib(), rc, "graph_fuse")
     _build.LAUNCHES["graph_fuse"] += 1
+    _build.BUILD_FORMS[("graph_fuse", N, form)] += 1
 
 
 def fuse_alignments(codes, tails, heads, weights, n_nodes, n_edges, aligned, acount, pairs, count,
@@ -498,54 +600,58 @@ def reach_keep(tails, heads, n_edges, aligned, acount, begin, end, use_full, n_n
     (and below n_nodes) from which `end` is reached along edges and rings,
     `end` among them; nothing where end < begin or end >= n_nodes; every
     real node for `use_full` windows. CPU tensors run the plain fixpoint;
-    CUDA tensors launch G5 on an in-edge CSR of the valid edges or raise."""
+    CUDA tensors launch G5, which groups the in-edges itself, or raise.
+    Given int32 contiguous tensors (use_full bool or uint8), as
+    `device_build` keeps them, it converts nothing: it allocates the result
+    (and, past shared memory, G5's scratch) and launches."""
     B, E = tails.shape
     N, R = aligned.shape[1], aligned.shape[2]
     dev = tails.device
     if not _on_card(dev):
         return _reach_plain(tails, heads, n_edges, aligned, acount, begin, end, use_full, n_nodes)
-    if R > 32 or N > N_MAX:
-        raise ValueError(f"G5 takes R <= 32 and N <= {N_MAX}, got R={R}, N={N}")
-    off, csr_tails = in_edge_csr(tails, heads, n_edges, N)
-    args = [_int32(t) for t in (aligned, acount, begin, end)]
-    full = use_full.to(torch.uint8).contiguous()
-    nn = _int32(n_nodes)
-    _check_inputs(dict(aligned=args[0], acount=args[1], begin=args[2], end=args[3], n_nodes=nn),
-                  torch.int32, dev)
-    if acount.shape != (B, N) or begin.shape != (B,) or end.shape != (B,):
-        raise ValueError("G5 takes aligned [B, N, R], acount [B, N], begin and end [B]")
+    if R > 32 or N > N_MAX or E > E_MAX:
+        raise ValueError(f"G5 takes R <= 32, N <= {N_MAX} and E <= {E_MAX}, "
+                         f"got R={R}, N={N}, E={E}")
+    shapes = dict(heads=(B, E), n_edges=(B,), aligned=(B, N, R), acount=(B, N), begin=(B,),
+                  end=(B,), use_full=(B,), n_nodes=(B,))
+    named = dict(zip(shapes, (heads, n_edges, aligned, acount, begin, end, use_full, n_nodes)))
+    for name, shp in shapes.items():
+        if tuple(named[name].shape) != shp:
+            raise ValueError(f"G5: {name} has shape {tuple(named[name].shape)}, expected {shp}")
+    args = [_int32(t) for t in (tails, heads, n_edges, aligned, acount, begin, end, n_nodes)]
+    _check_inputs(dict(zip(("tails", "heads", "n_edges", "aligned", "acount", "begin", "end",
+                            "n_nodes"), args)), torch.int32, dev)
+    full = use_full if use_full.dtype in (torch.bool, torch.uint8) else use_full.bool()
+    full = full.contiguous()
+    if full.device != dev:
+        raise ValueError(f"use_full is on {full.device}, expected {dev}")
     keep = torch.empty((B, N), dtype=torch.bool, device=dev)
+    scratch = None
+    if kernel_form("graph_reach", N, E, R) == "global":
+        scratch = torch.empty((B, reach_scratch_ints(N, E)), dtype=torch.int32, device=dev)
     if B:
-        launch_reach(off, csr_tails, *args, full, nn, keep)
+        launch_reach(*args[:7], full, args[7], keep, scratch)
     return keep
 
 
-def in_edge_csr(tails, heads, n_edges, N: int):
-    """The valid edges (index < n_edges) of every window grouped by head,
-    each group in edge-index order: (off [B * N + 1], tails [B * E]) int32,
-    the in-edges of node v of window b at off[b * N + v] up to the next."""
-    B, E = tails.shape
-    dev = tails.device
-    valid = _ar(E, dev)[None, :] < n_edges.long()[:, None]
-    key = torch.where(valid, _ar(B, dev)[:, None] * N + heads.long(), B * N).reshape(-1)
-    skey, perm = torch.sort(key, stable=True)
-    off = torch.searchsorted(skey, _ar(B * N + 1, dev))
-    return _int32(off), _int32(tails.reshape(-1)[perm])
-
-
-def launch_reach(off, csr_tails, aligned, acount, begin, end, use_full, n_nodes, keep):
-    """G5 alone, on the buffers `reach_keep` makes, all on the card;
-    `chip_smoke.py` times it apart from that glue. The kernel writes every
-    element of `keep`."""
+def launch_reach(tails, heads, n_edges, aligned, acount, begin, end, use_full, n_nodes, keep,
+                 scratch=None):
+    """G5 alone, on the int32 (use_full: bool or uint8) buffers of
+    `reach_keep`, all on the card; `scratch` ([B, reach_scratch_ints])
+    selects the global form, None the shared one. `chip_smoke.py` times it
+    apart from that glue. The kernel writes every element of `keep`."""
     B, N, R = aligned.shape
+    E = tails.shape[1]
+    form = "shared" if scratch is None else "global"
     stream = torch.cuda.current_stream(aligned.device).cuda_stream
     with torch.cuda.device(aligned.device):
         rc = _lib().graph_reach_launch(
-            off.data_ptr(), csr_tails.data_ptr(), aligned.data_ptr(), acount.data_ptr(),
-            begin.data_ptr(), end.data_ptr(), use_full.data_ptr(), n_nodes.data_ptr(),
-            keep.data_ptr(), B, N, R, stream)
+            *(_ptr(t) for t in (tails, heads, n_edges, aligned, acount, begin, end, use_full,
+                                n_nodes, keep, scratch)),
+            B, N, E, R, stream)
     _build.check(_lib(), rc, "graph_reach")
     _build.LAUNCHES["graph_reach"] += 1
+    _build.BUILD_FORMS[("graph_reach", N, form)] += 1
 
 
 # ------------------------------------------------------- positional subgraph
@@ -646,17 +752,30 @@ def device_build(bb_codes, bb_w, bb_len, lseqs, lw, llen, lbegin, lend, lfull, n
     # the backbone's edges carry label bit 0
     lab = ([torch.where(chain_on, 1, 0), torch.zeros((B, E), dtype=torch.int64, device=dev)]
            if track_labels else [None, None])
+    # the graph as int32 buffers, which every layer step's fusion (G4, or on
+    # the CPU the plain walk) updates in place; a layer's rows of the inputs
+    # contiguous, so that G4 and G5 take them as they are
+    graph = [_int32(t) for t in (codes, tails, heads, weights, n_nodes, n_edges, aligned, acount)]
+    codes, tails, heads, weights, n_nodes, n_edges, aligned, acount = graph
+    lab = [_int32(t) for t in lab] if track_labels else [None, None]
+    lseqs_s, lw_s = _int32(lseqs.transpose(0, 1)), _int32(lw.transpose(0, 1))
+    llen_s, lbegin_s, lend_s = (_int32(t.t()) for t in (llen, lbegin, lend))
+    lfull_s = lfull.bool().t().contiguous()
+    if track_labels:  # layer s is sequence s + 1 (the backbone is 0): its bit [SMAX, 2, B]
+        bit_rows = [[_bit32(j) if j < 32 else 0, _bit32(j - 32) if j >= 32 else 0]
+                    for j in range(1, SMAX + 1)]
+        bits_s = torch.tensor(bit_rows, dtype=torch.int32, device=dev)[:, :, None]
+        bits_s = bits_s.expand(SMAX, 2, B).contiguous()
     n_layers = n_layers.long()
     steps = int(n_layers.max()) if B else 0
     for s in range(min(steps, SMAX)):
         # a window past its layers, or flagged, is neither aligned nor fused
         active = s < n_layers
         live = active & (ovf == 0)
-        seq = lseqs[:, s]
-        slen = torch.where(active, llen[:, s].long(), 1)
+        slen = torch.where(active, llen_s[s], 1)
+        # G5 and its plain version read n_nodes past N as N
         sub = positional_subgraph(codes, tails, heads, weights, n_edges, aligned, acount,
-                                  lbegin[:, s], lend[:, s], lfull[:, s].bool() | ~active,
-                                  n_nodes.clamp_max(N))
+                                  lbegin_s[s], lend_s[s], lfull_s[s] | ~active, n_nodes)
         in_nbr, indeg, out_deg, ovf_p = build_in_slots(
             sub["tails"], sub["heads"], ar_e < sub["n_edges"].long()[:, None], N, p_cap)
         rank_of, rank_to_node = topo_ranks_bundled(in_nbr, indeg, sub["aligned"], sub["acount"],
@@ -666,26 +785,16 @@ def device_build(bb_codes, bb_w, bb_len, lseqs, lw, llen, lbegin, lend, lfull, n
         # K1 sees a frozen window's rows with row 0 as their one predecessor
         preds_dp = torch.where(live[:, None, None], preds_dp, 0)
         pairs, count, _, ring_over = poa_align_mixed(
-            codes_dp, preds_dp, is_sink, sub["n_sub"], seq[:, None, :], slen[:, None],
+            codes_dp, preds_dp, is_sink, sub["n_sub"], lseqs_s[s][:, None, :], slen[:, None],
             torch.zeros((B, 1), dtype=torch.bool, device=dev), m, x, g,
             node_id=rank_to_node, active=live[:, None])
         # subgraph ids back to full-graph ids (UpdateAlignment, graph.cpp:723-745)
-        pn = pairs[:, 0, :, 0].long()
-        mapped = torch.gather(sub["order"].long(), 1, pn.clamp_min(0))
-        pairs = torch.stack([torch.where(pn >= 0, mapped, pn), pairs[:, 0, :, 1].long()], dim=2)
-        if track_labels:
-            j = s + 1  # layer s is sequence s + 1; the backbone is 0
-            bits = [torch.full((B,), _bit32(j) if j < 32 else 0, dtype=torch.int64, device=dev),
-                    torch.full((B,), _bit32(j - 32) if j >= 32 else 0, dtype=torch.int64,
-                               device=dev)]
-        else:
-            bits = [None, None]
-        (codes, tails, heads, weights, n_nodes, n_edges, aligned, acount, ovf_f,
-         *labs) = fuse_walk(codes, tails, heads, weights, n_nodes, n_edges, aligned, acount, pairs,
-                            torch.where(live, count[:, 0].long(), 0), seq, lw[:, s], slen, live,
-                            *lab, *bits)
-        if track_labels:
-            lab = labs
+        pn = pairs[:, 0, :, 0]
+        mapped = torch.gather(sub["order"], 1, pn.clamp_min(0).long())
+        pairs = torch.stack([torch.where(pn >= 0, mapped, pn), pairs[:, 0, :, 1]], dim=2)
+        bits = [bits_s[s, 0], bits_s[s, 1]] if track_labels else [None, None]
+        ovf_f = fuse_walk_(*graph, pairs, torch.where(live, count[:, 0], 0), lseqs_s[s], lw_s[s],
+                           slen, live, *lab, *bits, check=s == 0)
         step_ovf = (ovf_f.long() | torch.where(ovf_p, OVF_P_CAP, 0)
                     | torch.where(ring_over, OVF_RING, 0))
         ovf = ovf | torch.where(live, step_ovf, 0)
