@@ -5,7 +5,8 @@
     python3 chip_smoke.py --save-k3 PATH   # also save phase 3c's K3 inputs
     python3 chip_smoke.py --save-k4 PATH   # also save phase 3d's and every phase-3 K4 launch's inputs
     python3 chip_smoke.py --save-full PATH # also save phase 9a's inputs and 9b's heaviest launch's
-    python3 chip_smoke.py --save-build PATH  # also save phase 7's heaviest G4 and G5 launches
+    python3 chip_smoke.py --save-build PATH  # also save phase 6's heaviest G1 and phase 7's
+                                             # heaviest G3, G4 and G5 launches
                                              # (any of the four may be given)
 
 Phases (each raises on failure; the script exits non-zero on any):
@@ -69,7 +70,8 @@ Phases (each raises on failure; the script exits non-zero on any):
      cycle's pack/device/fetch seconds, cc_min_labels' rounds, and the
      launches and device seconds of K1, the dense walk, G1 and G2; then G1
      and G2 on the inputs of their heaviest launches, each held to its plain
-     version and timed (wrapper, kernel alone, plain)
+     version and timed (wrapper as the cycle calls it, kernel alone, plain),
+     with its registers and shared memory, and G1's form
   7. the device build (VECHAT_DEVICE_BUILD=1: round 1's incremental build
      and prune cycle on the card, G3, G4 and G5 with K1 and the dense walk,
      then G1 and G2): (a) both goldens through `vechat --backend cuda`,
@@ -80,11 +82,12 @@ Phases (each raises on failure; the script exits non-zero on any):
      pack/device/fetch seconds, and the launches of G3, G4, G5, K1, the
      dense walk, G1 and G2 (in 7b, by CUDA events around each launch,
      their device seconds too) and the form (shared or global memory, by N)
-     of each G4 and G5 launch; then G3, G4 and G5 on the inputs of their
+     of each G3, G4 and G5 launch; then G3, G4 and G5 on the inputs of their
      heaviest launches, each held to its plain version and timed (wrapper
      as the build calls it, kernel alone, plain), with its registers and
-     shared memory (`--save-build PATH` saves the heaviest G4 and G5
-     launch at each N, for `k1_probe.py time-build`)
+     shared memory and form (`--save-build PATH` saves the heaviest G3,
+     G4 and G5 launch at each N, and phase 6's G1, for `k1_probe.py
+     time-build`)
   8. the device round-2 consensus (VECHAT_DEVICE_LINEAR=1: round 2's build,
      heaviest bundle with branch completion, coverage and trim on the card,
      G3, G4, G5, K1, the dense walk and G6): (a) both goldens through
@@ -1838,15 +1841,19 @@ def graph_work(name, args, got):
 def graph_kernel_row(name, args):
     """G1 or G2 on the inputs of phase 6's heaviest launch (`args`, as the
     cycle gave them to the wrapper): held to its plain version (exact), the
-    wrapper and the plain version by CUDA events, the kernel alone
-    (`kernel_ms()`, on one copy of the inputs: on the path the torch ops
-    have just written them, so they are in the L2), and the bound."""
+    wrapper as the cycle calls it (G1 without its checks) and the plain
+    version by CUDA events, the kernel alone (`kernel_ms()`, on one copy of
+    the inputs: on the path the torch ops have just written them, so they
+    are in the L2), the bound, µs a step (2 a node of the largest
+    component), and the kernel's registers and shared memory; G1's also
+    its form (its windows whose slots it staged in shared memory)."""
     import torch
 
     from vechat_tpu_torch.ops.kernels import graph_cycle as gc
 
     wrapper, plain, launch, names = {
-        "graph_dfs": (gc.dfs_preorder, gc._dfs_plain, gc.launch_dfs, ("new_id", "order", "n_sub")),
+        "graph_dfs": (lambda *a: gc.dfs_preorder(*a, check=False), gc._dfs_plain, gc.launch_dfs,
+                      ("new_id", "order", "n_sub")),
         "graph_topo": (gc.topo_ranks, gc._topo_plain, gc.launch_topo, ("rank_of", "rank_to_node")),
     }[name]
     B, N, K = args[0].shape
@@ -1854,9 +1861,18 @@ def graph_kernel_row(name, args):
     got = wrapper(*args)
     err = _max_err(f"{name} {shape}", names, got, plain(*args), again=lambda: wrapper(*args))
     ms = time_ms(lambda: wrapper(*args))
+    extra = dict(gc.kernel_attrs(name))
+    if name == "graph_dfs":
+        compact = gc.dfs_compact(args[1], K)
+        cap, smem = gc.dfs_smem(N, K)
+        extra.update(smem_bytes=smem, slot_cap=cap, windows_staged=int(compact.sum()),
+                     form="shared" if bool(compact.all()) else "global in some windows",
+                     slots_most=int(args[1].long().clamp(0, min(K, 32)).sum(1).max()))
+    else:
+        extra.update(smem_bytes=4 * ((N + 31) // 32 + N))
     if name == "graph_dfs":
         ins = (args[0].to(torch.int32).contiguous(), args[1].to(torch.int32).contiguous(),
-               args[2].to(torch.uint8).contiguous(), args[3].to(torch.int32).contiguous())
+               args[2].contiguous(), args[3].to(torch.int64).contiguous())
         n_sub = got[2]
     else:
         ins = tuple(a.to(torch.int32).contiguous() for a in args)
@@ -1868,9 +1884,12 @@ def graph_kernel_row(name, args):
     pms = time_ms(lambda: plain(*args), warmup=0, reps=2)
     nbytes, ops = graph_work(name, args, got)
     b_ms, b_by = bound_ms(nbytes, ops)
+    # G1: a push a node but the root and a pop a node; G2: about 2 a node
+    longest = 2 * int(n_sub.max()) - (name == "graph_dfs")
     row = dict(kernel=name, shape=shape, ms=ms, kernel_ms=kms, plain_ms=pms, max_abs_err=err,
                bound_ms=b_ms, bound_by=b_by, component_nodes=int(n_sub.sum()),
-               steps=2 * int(n_sub.sum()))
+               steps=2 * int(n_sub.sum()), steps_longest=longest,
+               us_a_step=kms * 1e3 / max(longest, 1), **extra)
     log_row(row)
     return row
 
@@ -1883,8 +1902,8 @@ def device_cycle_phase(tmp, backend_name="cuda", goldens=GOLDENS):
     cc_min_labels' rounds, and the launches and device seconds of K1, the
     dense walk, G1 and G2. Then G1 and G2 on the inputs of their heaviest
     launches (`graph_kernel_row`). Returns (the kernels' launches in the
-    phase, {G1, G2: row}). With another `backend_name` it is a rehearsal on
-    the CPU."""
+    phase, {G1, G2: row}, {N: the inputs of G1's heaviest launch at N}).
+    With another `backend_name` it is a rehearsal on the CPU."""
     import torch
 
     from vechat_tpu_torch.cli.vechat_main import build_parser, run
@@ -1902,8 +1921,8 @@ def device_cycle_phase(tmp, backend_name="cuda", goldens=GOLDENS):
     dfs, topo = gc.dfs_preorder, gc.topo_ranks
 
     def keep(name, fn, nodes):
-        def launch(*args):
-            out = fn(*args)
+        def launch(*args, **kw):
+            out = fn(*args, **kw)
             kept[name].append((nodes(args, out).sum(), args[0].shape[0] * args[0].shape[1], args))
             return out
 
@@ -1951,23 +1970,28 @@ def device_cycle_phase(tmp, backend_name="cuda", goldens=GOLDENS):
         for k in ("poa_dp", "poa_walk_dense", *CYCLE_KERNELS):
             if launches[k] == 0:
                 raise RuntimeError(f"6: kernel {k} was not launched by the device cycle")
-    rows = {}
+    rows, dfs_by_n = {}, {}
     for name in CYCLE_KERNELS:
         nodes = torch.stack([n for n, _, _ in kept[name]]).tolist() if kept[name] else []
         heaviest = max(range(len(nodes)), key=lambda i: (nodes[i], kept[name][i][1]))
         args = kept[name][heaviest][2]
+        if name == "graph_dfs":  # the heaviest at each N, for --save-build
+            for i in sorted(range(len(nodes)), key=lambda i: (nodes[i], kept[name][i][1])):
+                dfs_by_n[kept[name][i][2][0].shape[1]] = kept[name][i][2]
         kept[name] = None
         rows[name] = graph_kernel_row(name, args) if on_card else {}
     log(dict(phase="device_cycle_total", wall_s=time.perf_counter() - t_phase,
              wall_s_runs=walls, device_busy_s=busy,
              device_idle_share=1 - busy / walls if on_card else "not measured",
              launches={k: v for k, v in launches.items() if v}))
-    return launches, rows
+    return launches, rows, dfs_by_n
 
 
 # ---------------------------------------------- phase 7: the device build
 
 BUILD_KERNELS = ("graph_topo_bundled", "graph_fuse", "graph_reach")
+# their launches' tags in --save-build's npz (G1's, from phase 6: "dfs")
+BUILD_TAGS = {"graph_topo_bundled": "topo", "graph_fuse": "fuse", "graph_reach": "reach"}
 # counted at the function's work. G3: a step as G1's and G2's (GRAPH_OPS_STEP),
 # 2 steps a node. G5: a kept node's pop and its CSR bounds (6); an in-edge
 # or ring slot of it: its load, 2 compares, the claim and the push (5). G4:
@@ -2006,6 +2030,47 @@ def reach_edge_bytes(args, got):
     valid = (torch.arange(E, device=tails.device)[None, :] < n_edges.reshape(B, 1)) & cut
     into = valid & torch.gather(got & cut, 1, heads.long())
     return 8 * int(valid.sum()), 8 * int(into.sum())
+
+
+def topo_steps_taken(in_nbr, indeg, aligned, acount, n_nodes):
+    """[B] the steps G3's machine takes in each window (numpy arrays, the
+    plain machine's rule): a rooting, a push or an emit a step, stopped at
+    topo_steps(N). A window whose graph holds a cycle (one only a flagged
+    build gives) runs to that cap, and a launch takes as long as its
+    slowest window, so its µs a step are counted against these."""
+    from vechat_tpu_torch.ops.kernels.graph_build import topo_steps
+
+    B, N, P = in_nbr.shape
+    R = aligned.shape[2]
+    cap = topo_steps(N)
+    out = np.zeros(B, np.int64)
+    for b in range(B):
+        tails, deg, ring, cnt = in_nbr[b].tolist(), indeg[b].tolist(), aligned[b].tolist(), acount[b].tolist()
+        n = int(n_nodes[b])
+        last = min(n, N)
+        emitted, bundled = bytearray(N + 1), bytearray(N + 1)
+        stack, rcnt, cursor, steps = [], 0, 0, 0
+        while steps < cap and (stack or rcnt < n):
+            steps += 1
+            if not stack:
+                while cursor < last and (emitted[cursor] or bundled[cursor]):
+                    cursor += 1
+                stack.append(cursor if cursor < last else 0)
+                continue
+            v = stack[-1]
+            vb = bundled[v]
+            unmet = [t for t in tails[v][: min(P, deg[v])] if not emitted[t]]
+            ring_unmet = [] if vb else [m for m in ring[v][: min(R, cnt[v])] if not emitted[m]]
+            if unmet or ring_unmet:
+                for m in ring_unmet:
+                    bundled[m] = 1
+                stack.append(ring_unmet[-1] if ring_unmet else unmet[-1])
+            else:
+                emitted[v] = 1
+                rcnt += 0 if vb else 1 + cnt[v]
+                stack.pop()
+        out[b] = steps
+    return out
 
 
 def build_work(name, args, got):
@@ -2098,15 +2163,34 @@ def build_kernel_row(name, args):
     end.record()
     end.synchronize()
     pms = start.elapsed_time(end)
-    err = _max_err(f"{name} {shape}", names, got, want, again=lambda: outs(wrapper(*args)))
-    i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
     extra, form = {}, "shared"
     if name == "graph_topo_bundled":
-        ms = time_ms(lambda: wrapper(*args))
+        # a ring past R (only in a flagged window) scatters several ranks
+        # into one slot: the plain machine keeps any of them on the card, the
+        # last on the CPU, as G3 does. A window where the two versions
+        # differ on the card is held to the plain machine on the CPU.
+        diff = ((got[0] != want[0]) | (got[1] != want[1])).any(1).nonzero().flatten()
+        if len(diff):
+            on_cpu = plain(*(a[diff].cpu() for a in args))
+            want = tuple(w.index_copy(0, diff, c.to(w.device, w.dtype))
+                         for w, c in zip(want, on_cpu))
+        extra["windows_held_on_cpu"] = len(diff)
+    err = _max_err(f"{name} {shape}", names, got, want, again=lambda: outs(wrapper(*args)))
+    i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+    if name == "graph_topo_bundled":
+        # as the build calls it: on its own int32 buffers, without checks
+        ms = time_ms(lambda: wrapper(*args, check=False))
+        P, R = args[0].shape[2], args[2].shape[2]
+        form = gb.kernel_form(name, N, R=R, P=P)
         ins = tuple(i32(a) for a in args)
         res = tuple(torch.empty_like(t) for t in got)
         kms = kernel_ms(lambda r: gb.launch_topo_bundled(*ins, *res))
         same = all(torch.equal(a, b) for a, b in zip(res, got))
+        steps = int(topo_steps_taken(*(a.cpu().numpy() for a in args)).max())
+        extra.update(checked_wrapper_ms=time_ms(lambda: wrapper(*args)),
+                     smem_bytes=gb.topo_smem_bytes(N, P, R) if form == "shared" else
+                     4 * N + 8 * ((N + 31) // 32),
+                     steps_longest=steps, us_a_step=kms * 1e3 / max(steps, 1))
     elif name == "graph_reach":
         ms = time_ms(lambda: wrapper(*args))
         E, R = args[0].shape[1], args[3].shape[2]
@@ -2241,10 +2325,11 @@ def heaviest_by_n(best, name):
 
 
 def save_build_inputs(path, launches, **extra):
-    """G4 and G5 launches {(tag "fuse" or "reach", N): [argument or None]}
-    to an npz for `k1_probe.py time-build --inputs PATH` (`--save-build
-    PATH`: phase 7's heaviest at each N): `{tag}_N{N}_n` the count of
-    arguments, `{tag}_N{N}_{i}` each that is not None; `extra` as it is."""
+    """G1, G3, G4 and G5 launches {(tag "dfs", "topo", "fuse" or "reach",
+    N): [argument or None]} to an npz for `k1_probe.py time-build --inputs
+    PATH` (`--save-build PATH`: phase 6's and 7's heaviest at each N):
+    `{tag}_N{N}_n` the count of arguments, `{tag}_N{N}_{i}` each that is
+    not None; `extra` as it is."""
     out = dict(extra)
     for (tag, N), args in launches.items():
         out[f"{tag}_N{N}_n"] = np.array(len(args))
@@ -2299,8 +2384,40 @@ def synth_build_batch(rng, B, N, depth=12, W=576):
             np.full(B, depth, np.int32))
 
 
+def synth_dfs_batch(rng, B, N, A=32):
+    """G1's arguments (adj, deg, comp_mask, root) for B windows at node
+    capacity N, as the prune cycle makes them from POA-like DAGs: a chain
+    through n in [N/2, N] nodes plus forward skip edges of 2-40 nodes, 2N
+    edges at most, inserted in a random order, every edge kept. For
+    `k1_probe.py time-build` at an N that phase 6 did not launch."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import graph_cycle as gc
+
+    E = 2 * N
+    tails = np.zeros((B, E), np.int64)
+    heads = np.zeros((B, E), np.int64)
+    n_nodes = rng.integers(N // 2, N + 1, size=B)
+    n_edges = np.zeros(B, np.int64)
+    for b in range(B):
+        n = int(n_nodes[b])
+        s = rng.integers(0, n - 1, size=n)
+        t = np.minimum(s + rng.integers(2, 41, size=n), n - 1)
+        pairs = sorted({(i, i + 1) for i in range(n - 1)} | {(int(x), int(y)) for x, y in zip(s, t)
+                                                               if x < y})
+        pairs = [pairs[k] for k in rng.permutation(len(pairs))][:E]
+        n_edges[b] = len(pairs)
+        tails[b, : len(pairs)], heads[b, : len(pairs)] = zip(*pairs)
+    t, h = torch.from_numpy(tails), torch.from_numpy(heads)
+    valid = torch.from_numpy(np.arange(E)[None, :] < n_edges[:, None])
+    alive = torch.from_numpy(np.arange(N)[None, :] < n_nodes[:, None])
+    comp, root = gc.select_component(gc.cc_min_labels(t, h, valid, alive), alive)
+    adj, deg, _ = gc.build_undirected_adjacency(t, h, valid, N, A)
+    return [x.numpy() for x in (adj, deg, comp, root)]
+
+
 def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GOLDENS,
-                       save=None):
+                       save=None, saved=None):
     """Phase 7, the device build (VECHAT_DEVICE_BUILD=1): (a) both goldens
     through the command line's `run`, byte for byte against the committed
     goldens; (b) `reads_path`, the first `n_reads` reads of phase 3's
@@ -2314,7 +2431,9 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
     `_event_timed`), and the form each G4 and G5 launch took (shared or
     global memory, by N). Then G3, G4 and G5 on the inputs of their
     heaviest launches (`build_kernel_row`); `save`, a path, also gets the
-    heaviest G4 and G5 launch at each N (`save_build_inputs`). Returns (the
+    heaviest G3, G4 and G5 launch at each N and the launches of `saved`
+    (phase 6's G1 at each N: {(tag, N): arguments}; `save_build_inputs`).
+    Returns (the
     kernels' launches in the phase, {G3, G4, G5: row}). With another
     `backend_name` it is a rehearsal on the CPU."""
     import torch
@@ -2393,9 +2512,9 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
             if launches[k] == 0:
                 raise RuntimeError(f"7: kernel {k} was not launched by the device build")
     if save:
-        save_build_inputs(save, {(tag, N): args for name, tag in (("graph_fuse", "fuse"),
-                                                                  ("graph_reach", "reach"))
-                                 for N, args in heaviest_by_n(best, name).items()})
+        save_build_inputs(save, {**(saved or {}), **{
+            (tag, N): args for name, tag in BUILD_TAGS.items()
+            for N, args in heaviest_by_n(best, name).items()}})
     rows = {}
     for name in BUILD_KERNELS:
         entries = list(best[name].values())
@@ -2997,7 +3116,7 @@ def gpu_ecc():
 def main(argv=()):
     # --save-k3 PATH, --save-k4 PATH, --save-full PATH, --save-build PATH:
     # also save the inputs of phase 3c, 3d, 9a and 9b's heaviest launch, and
-    # phase 7's heaviest G4 and G5 launches (npz)
+    # phase 6's heaviest G1 and phase 7's heaviest G3, G4 and G5 launches (npz)
     saves = dict(zip(argv[::2], argv[1::2]))
     if len(argv) % 2 or set(saves) - {"--save-k3", "--save-k4", "--save-full", "--save-build"}:
         print("usage: python3 chip_smoke.py [--save-k3 PATH] [--save-k4 PATH] "
@@ -3076,10 +3195,11 @@ def main(argv=()):
             scale_out_launches, dense_row = scale_out_phase(tmp, part, stream_host,
                                                             SCALE_OUT_READS)
             lap("phase 5")
-            cycle_launches, cycle_rows = device_cycle_phase(tmp)
+            cycle_launches, cycle_rows, dfs_by_n = device_cycle_phase(tmp)
             lap("phase 6")
-            build_launches, build_rows = device_build_phase(tmp, part, SCALE_OUT_READS,
-                                                            save=saves.get("--save-build"))
+            build_launches, build_rows = device_build_phase(
+                tmp, part, SCALE_OUT_READS, save=saves.get("--save-build"),
+                saved={("dfs", N): args for N, args in dfs_by_n.items()})
             lap("phase 7")
             linear_launches, linear_rows = device_linear_phase(tmp, part, SCALE_OUT_READS)
             lap("phase 8")

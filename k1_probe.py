@@ -16,6 +16,7 @@ on one NVIDIA GPU (the timing) or on the output of
     python3 k1_probe.py time-walk3 DIR [DIR ...]
     python3 k1_probe.py time-full [--inputs NPZ] DIR [DIR ...]
     python3 k1_probe.py time-build [--inputs NPZ] DIR [DIR ...]
+    python3 k1_probe.py latency              # a warp's dependent-operation latencies
     python3 k1_probe.py repeat-k7 N          # K7 held to its plain version N times
     python3 k1_probe.py sass FILE            # cuobjdump -sass output or a .so
 
@@ -145,25 +146,43 @@ and kernels alone (`kernel_ms`, chip_smoke.py's `kernel_ms`: 24 launches
 in a CUDA graph), µs a row and a step (the largest window's rows, the
 longest walk's steps), with ptxas's registers of each kernel.
 
-`time-build` runs G4 and G5, the device build's fusion walk and
-reachability (`vechat_tpu_torch/csrc/graph_build.cu`), of each DIR's
-package in a process of its own, in the order given, on the inputs of
-phase 7's heaviest G4 and G5 launch at N = 256, 1152 and 2048, as
+`time-build` runs G4, G5 and G3, the device build's fusion walk,
+reachability and bundled topological order
+(`vechat_tpu_torch/csrc/graph_build.cu`), and G1, the prune cycle's DFS
+(`csrc/graph_cycle.cu`), of each DIR's package in a process of its own,
+in the order given, on the inputs of phase 7's heaviest G3, G4 and G5
+launch and phase 6's heaviest G1 launch at N = 256, 1152 and 2048, as
 `chip_smoke.py --save-build NPZ` saved them; an N that phase 7 did not
 launch (or every N, without --inputs) is filled by a device build of 64
 windows drawn by chip_smoke.py's `synth_build_batch` at that N, this
-checkout's package capturing its heaviest launches. Each package's
-outputs are held to the plain versions first. Each line is one (DIR,
-kernel, N): the wrapper as the build calls it (`ms`: G4's in-place call
-without checks, G5's `reach_keep`; for a package without `fuse_walk_`,
-G4's copying `fuse_walk` and G5's `reach_keep` with its torch-sorted
-CSR, as its build called them), the kernel alone (`kernel_ms`,
-chip_smoke.py's `kernel_ms`; G4 less the graph's copies back), for a
-package with `fuse_walk_` also G4 alone with every window inactive, so
-that it stages and writes back its windows and walks none
-(`inactive_ms`), µs a step (G4: the positions and pairs of the longest
-walk) or a node (G5: the most nodes a
-window keeps), with the card's name and power limit.
+checkout's package capturing its heaviest launches, and one that phase 6
+did not by G1's inputs on 64 DAGs drawn by `synth_dfs_batch`. Each
+package's outputs are held to the plain versions first. Each line is one
+(DIR, kernel, N): the wrapper as the build or the cycle calls it (`ms`:
+G4's in-place call without checks, G5's `reach_keep`, G3's and G1's
+without checks; for a package without `fuse_walk_`, G4's copying
+`fuse_walk` and G5's `reach_keep` with its torch-sorted CSR, as its
+build called them; for one without the check switch, G3's and G1's
+wrappers as they were), the kernel alone (`kernel_ms`, chip_smoke.py's
+`kernel_ms`; G4 less the graph's copies back), for a package with
+`fuse_walk_` also G4 alone with every window inactive, so that it stages
+and writes back its windows and walks none (`inactive_ms`), µs a step
+(G4: the positions and pairs of the longest walk; G3 and G1: two a node
+of the largest window or component, or G3's step cap, topo_steps(N),
+where a window's machine runs to it) or a node (G5: the most nodes a
+window keeps), G3 and G1 alone with nothing to walk (`idle_ms`: no node
+to rank, every root outside its component), the form each took, with the
+card's name and power limit.
+
+`latency` times, in one warp with clock64(), the dependent chains a step of
+the graph walks (G1, G3) is made of: a multiply-add (the loop's own cost,
+taken from the others), a shared load, a shuffle, a ballot, a ballot with
+its first lane and a shuffle from it, a shared load through the ballot
+and the shuffle to a second shared load, the first candidate's value by
+a ballot and a max reduction instead, a shared load through a min
+reduction to a second shared load, lane 0's store or atomicOr followed
+by __syncwarp and a load; with the SM clock over the run, from
+%globaltimer. One JSON line of cycles a link.
 
 `repeat-k7` launches K7, the mix-peak kernel of this checkout, N times at
 each of chip_smoke.py's check depths (1 and 8 rounds, its seed, a tile for
@@ -585,6 +604,156 @@ def _time_walk3(pkg_dir):
                   2 * n + 1024, P, t(np.arange(n, dtype=np.int32)[None]), {})
 
 
+# One warp timing its own dependent chains with clock64(): the operations a
+# step of the graph kernels' walks (G1, G3) chains, each a loop of `iters`
+# links, and the SM clock from %globaltimer over the whole run.
+_LATENCY_SRC = r"""
+#include <cuda_runtime.h>
+constexpr unsigned kFull = 0xffffffffu;
+__device__ __forceinline__ long long now_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__global__ void latency_kernel(long long* out, int iters) {
+  __shared__ int s[1024];
+  __shared__ unsigned bits[64];
+  const int lane = threadIdx.x;
+  for (int i = lane; i < 1024; i += 32) s[i] = (i + 32) & 1023;
+  bits[lane] = bits[lane + 32] = 0;
+  __syncwarp();
+  const long long ns0 = now_ns(), c0 = clock64();
+  long long t;
+  int p = lane, k = 0;
+  unsigned a = lane;
+  // 0: a dependent integer multiply-add, the loop's own cost
+  t = clock64();
+  for (int i = 0; i < iters; ++i) a = a * 3u + 1u;
+  out[k++] = clock64() - t;
+  // 1: a dependent shared load
+  t = clock64();
+  for (int i = 0; i < iters; ++i) p = s[p];
+  out[k++] = clock64() - t;
+  // 2: a dependent shuffle
+  int x = lane;
+  t = clock64();
+  for (int i = 0; i < iters; ++i) x = __shfl_sync(kFull, x, (lane + 1) & 31);
+  out[k++] = clock64() - t;
+  // 3: a ballot of the last one's bit
+  unsigned b = lane;
+  t = clock64();
+  for (int i = 0; i < iters; ++i) b = __ballot_sync(kFull, (b >> lane) & 1u) ^ 0x55555555u;
+  out[k++] = clock64() - t;
+  // 4: a step's decision: the ballot, its first lane, a shuffle from it
+  int y = lane;
+  t = clock64();
+  for (int i = 0; i < iters; ++i) {
+    const unsigned bb = __ballot_sync(kFull, ((y + i) & 3) == 0);
+    y = __shfl_sync(kFull, y, bb ? __ffs(bb) - 1 : 0) + lane;
+  }
+  out[k++] = clock64() - t;
+  // 5: a step's chain: a shared load, the ballot of its bit, a shuffle
+  // from the first set lane, a shared load at the shuffled index
+  int q = lane;
+  t = clock64();
+  for (int i = 0; i < iters; ++i) {
+    const int v = s[q];
+    const unsigned bb = __ballot_sync(kFull, (v & 32) == 0);
+    const int w = __shfl_sync(kFull, v, bb ? __ffs(bb) - 1 : 0);
+    q = (w + lane) & 1023;
+  }
+  out[k++] = clock64() - t;
+  // 5b: the same decision by a reduction: the first candidate lane's value
+  int z = lane;
+  t = clock64();
+  for (int i = 0; i < iters; ++i) {
+    const bool c = ((z + i) & 3) == 0;
+    const unsigned bb = __ballot_sync(kFull, c);
+    const bool first = c && !(bb & ((1u << lane) - 1));
+    z = __reduce_max_sync(kFull, first ? z : -1) + lane;
+  }
+  out[k++] = clock64() - t;
+  // 5c: a step's chain with a reduction: a shared load, the least lane
+  // whose value passes, with its value, a shared load at that value
+  int q2 = lane;
+  t = clock64();
+  for (int i = 0; i < iters; ++i) {
+    const int v = s[q2];
+    const int f = __reduce_min_sync(kFull, (v & 32) ? 0x7fffffff : (lane << 13) | v);
+    q2 = ((f & 1023) + lane) & 1023;
+  }
+  out[k++] = clock64() - t;
+  // 6: lane 0 stores, the warp synchronises, a lane loads what it stored
+  int r = lane;
+  t = clock64();
+  for (int i = 0; i < iters; ++i) {
+    if (lane == 0) s[r & 1023] = (r + 32) & 1023;
+    __syncwarp();
+    r = s[r & 1023];
+  }
+  out[k++] = clock64() - t;
+  // 7: lane 0 sets a bit by atomicOr, the warp synchronises, a lane reads it
+  unsigned m = lane;
+  t = clock64();
+  for (int i = 0; i < iters; ++i) {
+    if (lane == 0) atomicOr(&bits[m & 63], 1u << (i & 31));
+    __syncwarp();
+    m = bits[(m + 1) & 63] + m;
+  }
+  out[k++] = clock64() - t;
+  const long long c1 = clock64(), ns1 = now_ns();
+  if (lane == 0) {
+    out[k++] = c1 - c0;
+    out[k++] = ns1 - ns0;
+    out[k++] = (long long)a + p + x + b + y + q + z + q2 + r + m;
+  }
+}
+extern "C" int latency_launch(long long* out, int iters, void* stream) {
+  latency_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+_LATENCY_NAMES = ("imad", "lds", "shfl", "ballot", "ballot_ffs_shfl", "lds_ballot_shfl_lds",
+                  "ballot_first_reduce", "lds_reduce_lds", "sts_syncwarp_lds",
+                  "atoms_syncwarp_lds")
+
+
+def _latency(iters=4096):
+    """Cycles a link of each chain of _LATENCY_SRC (less the loop's
+    multiply-add for the others), and the SM clock of the run; one JSON
+    line."""
+    import ctypes
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from vechat_tpu_torch.ops.kernels import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(_build.BUILD_DIR, "latency_probe.cu")
+    with open(src, "w") as f:
+        f.write(_LATENCY_SRC)
+    lib_path = os.path.join(_build.BUILD_DIR, "liblatency_probe.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, src], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(lib_path)
+    lib.latency_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    out = torch.zeros(len(_LATENCY_NAMES) + 3, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(3):  # the last of three runs, the clock settled
+        assert lib.latency_launch(out.data_ptr(), iters, stream) == 0
+        torch.cuda.synchronize()
+    vals = out.tolist()
+    base = vals[0] / iters
+    line = {name: v / iters - (base if i else 0) for i, (name, v) in
+            enumerate(zip(_LATENCY_NAMES, vals))}
+    line["sm_mhz"] = vals[len(_LATENCY_NAMES)] / vals[len(_LATENCY_NAMES) + 1] * 1e3
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps(dict(probe="latency", cycles_a_link=line, iters=iters, gpu=gpu)),
+          flush=True)
+
+
 def _repeat_k7(n):
     """K7 against its plain version n times at each of chip_smoke.py's check
     depths; prints one JSON line a depth and the ECC counts."""
@@ -809,11 +978,12 @@ BUILD_NS = (256, 1152, 2048)
 
 
 def _prep_build(inputs_path, out_path):
-    """time-build's inputs, with this checkout's package: the G4 and G5
-    launches of `inputs_path` (chip_smoke.py --save-build) at each of
-    BUILD_NS, the others captured from a device build of synthetic windows
-    (`synth_build_batch`) on the card; saved to out_path as
-    `save_build_inputs` saves, with `source_N{N}`."""
+    """time-build's inputs, with this checkout's package: the G1, G3, G4 and
+    G5 launches of `inputs_path` (chip_smoke.py --save-build) at each of
+    BUILD_NS; the build's others captured from a device build of synthetic
+    windows (`synth_build_batch`) on the card, G1's drawn by
+    `synth_dfs_batch`; saved to out_path as `save_build_inputs` saves, with
+    `source_N{N}` and `dfs_source_N{N}`."""
     import numpy as np
     import torch
 
@@ -823,26 +993,99 @@ def _prep_build(inputs_path, out_path):
 
     have = cs.load_build_inputs(inputs_path) if inputs_path else {}
     sources, dev = {}, torch.device("cuda")
+    build_tags = tuple(cs.BUILD_TAGS.items())
     for N in BUILD_NS:
         sources[f"source_N{N}"] = np.array("phase 7's heaviest launch")
-        if ("fuse", N) in have and ("reach", N) in have:
-            continue
-        sources[f"source_N{N}"] = np.array("synthesized: 64 windows, synth_build_batch")
-        rng = np.random.default_rng(cs.SEED + 19 + N)
-        args = [torch.from_numpy(a).to(dev) for a in cs.synth_build_batch(rng, 64, N)]
-        best = {}
-        with cs.capturing_build(best):
-            gb.device_build(*args, N, 2 * N, 8, 3, -5, -4, p_cap=16)
-        for name, tag in (("graph_fuse", "fuse"), ("graph_reach", "reach")):
-            have[(tag, N)] = cs.heaviest_by_n(best, name)[N]
+        if any((tag, N) not in have for _, tag in build_tags):
+            sources[f"source_N{N}"] = np.array("synthesized: 64 windows, synth_build_batch")
+            rng = np.random.default_rng(cs.SEED + 19 + N)
+            args = [torch.from_numpy(a).to(dev) for a in cs.synth_build_batch(rng, 64, N)]
+            best = {}
+            with cs.capturing_build(best):
+                gb.device_build(*args, N, 2 * N, 8, 3, -5, -4, p_cap=16)
+            for name, tag in build_tags:
+                have[(tag, N)] = cs.heaviest_by_n(best, name)[N]
+        sources[f"dfs_source_N{N}"] = np.array("phase 6's heaviest launch")
+        if ("dfs", N) not in have:
+            sources[f"dfs_source_N{N}"] = np.array("synthesized: 64 windows, synth_dfs_batch")
+            have[("dfs", N)] = cs.synth_dfs_batch(np.random.default_rng(cs.SEED + 29 + N), 64, N)
     cs.save_build_inputs(out_path, {k: v for k, v in have.items() if k[1] in BUILD_NS},
                          **sources)
 
 
+def _time_cycle_build(pkg_dir, cs, inputs, sources, gpu):
+    """G3 and G1 of the package under pkg_dir on time-build's inputs (its
+    API, with the check switch or without, read off its wrappers); one
+    JSON line a (kernel, N)."""
+    import inspect
+
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import graph_build as gb
+    from vechat_tpu_torch.ops.kernels import graph_cycle as gc
+
+    dev = torch.device("cuda")
+    new = "check" in inspect.signature(gb.topo_ranks_bundled).parameters
+    i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+    for N in BUILD_NS:
+        a = [torch.from_numpy(x).to(dev) for x in inputs[("topo", N)]]
+        got = gb.topo_ranks_bundled(*a)
+        want = gb._topo_bundled_plain(*a)
+        diff = ((got[0] != want[0]) | (got[1] != want[1])).any(1).nonzero().flatten()
+        if len(diff):  # a ring past R: the plain machine's last write, on the CPU
+            on_cpu = gb._topo_bundled_plain(*(x[diff].cpu() for x in a))
+            want = tuple(w.index_copy(0, diff, c.to(dev, w.dtype)) for w, c in zip(want, on_cpu))
+        for name, g, w in zip(("rank_of", "rank_to_node"), got, want):
+            assert torch.equal(g.long(), w.long()), f"G3 N={N}: {name}"
+        call = (lambda: gb.topo_ranks_bundled(*a, check=False)) if new else (
+            lambda: gb.topo_ranks_bundled(*a))
+        ms = cs.time_ms(call, warmup=2, reps=20)
+        ins = [i32(x) for x in a]
+        res = [torch.empty_like(t) for t in got]
+        kms = cs.kernel_ms(lambda r: gb.launch_topo_bundled(*ins, *res))
+        assert all(torch.equal(x, y) for x, y in zip(res, got)), f"G3 N={N}: the kernel alone"
+        # no node to rank: the block's staging and write-back alone
+        idle = ins[:4] + [torch.zeros_like(ins[4])]
+        idle_ms = cs.kernel_ms(lambda r: gb.launch_topo_bundled(*idle, *res))
+        P, R = a[0].shape[2], a[2].shape[2]
+        form = gb.kernel_form("graph_topo_bundled", N, R=R, P=P) if new else "one warp"
+        steps = int(cs.topo_steps_taken(*inputs[("topo", N)]).max())
+        print(json.dumps(dict(pkg=pkg_dir, kernel="graph_topo_bundled", N=N, B=a[0].shape[0],
+                              inputs=str(sources[f"source_N{N}"]), form=form, ms=ms,
+                              kernel_ms=kms, idle_ms=idle_ms, steps_longest=steps,
+                              us_a_step=kms * 1e3 / max(steps, 1), gpu=gpu)), flush=True)
+
+        d = [torch.from_numpy(x).to(dev) for x in inputs[("dfs", N)]]
+        got = gc.dfs_preorder(*d)
+        for name, g, w in zip(("new_id", "order", "n_sub"), got, gc._dfs_plain(*d)):
+            assert torch.equal(g.long(), w.long()), f"G1 N={N}: {name}"
+        call = (lambda: gc.dfs_preorder(*d, check=False)) if new else (lambda: gc.dfs_preorder(*d))
+        ms = cs.time_ms(call, warmup=2, reps=20)
+        A = d[0].shape[2]
+        if new:
+            ins = [i32(d[0]), i32(d[1]), d[2].contiguous(), d[3].to(torch.int64).contiguous()]
+            form = "shared" if bool(gc.dfs_compact(d[1], A).all()) else "global in some windows"
+        else:
+            ins = [i32(d[0]), i32(d[1]), d[2].to(torch.uint8).contiguous(), i32(d[3])]
+            form = "one warp"
+        res = [torch.empty_like(t) for t in got]
+        kms = cs.kernel_ms(lambda r: gc.launch_dfs(*ins, *res))
+        assert all(torch.equal(x, y) for x, y in zip(res, got)), f"G1 N={N}: the kernel alone"
+        # every root outside its component: the block's scan, staging and
+        # write-back alone
+        idle = [ins[0], ins[1], torch.zeros_like(ins[2]), ins[3]]
+        idle_ms = cs.kernel_ms(lambda r: gc.launch_dfs(*idle, *res))
+        steps = 2 * int(got[2].max()) - 1  # a push a node but the root, a pop a node
+        print(json.dumps(dict(pkg=pkg_dir, kernel="graph_dfs", N=N, B=d[0].shape[0], A=A,
+                              inputs=str(sources[f"dfs_source_N{N}"]), form=form, ms=ms,
+                              kernel_ms=kms, idle_ms=idle_ms, steps_longest=steps,
+                              us_a_step=kms * 1e3 / max(steps, 1), gpu=gpu)), flush=True)
+
+
 def _time_build(pkg_dir, inputs_path):
     """Time G4 and G5 of the package under pkg_dir (its API, with or
-    without `fuse_walk_`, read off its module) on time-build's inputs; one
-    JSON line a (kernel, N)."""
+    without `fuse_walk_`, read off its module) on time-build's inputs, then
+    G3 and G1 (`_time_cycle_build`); one JSON line a (kernel, N)."""
     import importlib.util
 
     import numpy as np
@@ -947,6 +1190,7 @@ def _time_build(pkg_dir, inputs_path):
         print(json.dumps(dict(pkg=pkg_dir, kernel="graph_reach", N=N, B=B, inputs=source, ms=ms,
                               kernel_ms=kms, nodes_most_kept=nodes,
                               us_a_node=kms * 1e3 / max(nodes, 1), gpu=gpu)), flush=True)
+    _time_cycle_build(pkg_dir, cs, inputs, sources, gpu)
 
 
 def _time_k3(pkg_dir, inputs_path):
@@ -1283,6 +1527,14 @@ def main(argv):
         return 0
     if len(argv) == 3 and argv[0] == "_time_gap":
         _time_gap(argv[2], argv[1])
+        return 0
+    if argv == ["latency"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("k1_probe: no CUDA device", file=sys.stderr)
+            return 2
+        _latency()
         return 0
     if len(argv) == 2 and argv[0] == "repeat-k7":
         import torch

@@ -1518,21 +1518,22 @@ def test_device_aligner_tiled_route_matches_cpu(cuda):
     assert gpu.device_tiles == cpu.device_tiles
 
 
-def graph_batch(seed, B, N):
-    """B random POA-like DAGs of up to N nodes and 2N edges: a chain through
-    every node plus forward skip edges of up to 40 nodes, inserted in a
-    random order; the prune cycle's inputs of G1 (with every edge kept) and
-    of G2 (the renumbered component)."""
+def graph_batch(seed, B, N, per_node=2, a_cap=32):
+    """B random POA-like DAGs of up to N nodes and per_node * N edges: a
+    chain through every node plus forward skip edges of up to 40 nodes,
+    inserted in a random order; the prune cycle's inputs of G1 (with every
+    edge kept, adjacency rows of a_cap slots) and of G2 (the renumbered
+    component)."""
     rng = np.random.default_rng(seed)
-    E = 2 * N
+    E = per_node * N
     tails = np.zeros((B, E), np.int64)
     heads = np.zeros((B, E), np.int64)
     n_nodes = rng.integers(N // 2, N + 1, size=B)
     n_edges = np.zeros(B, np.int64)
     for b in range(B):
         n = int(n_nodes[b])
-        s = rng.integers(0, n - 1, size=n)
-        t = np.minimum(s + rng.integers(2, 41, size=n), n - 1)
+        s = rng.integers(0, n - 1, size=(per_node - 1) * n)
+        t = np.minimum(s + rng.integers(2, 41, size=(per_node - 1) * n), n - 1)
         pairs = sorted({(i, i + 1) for i in range(n - 1)} | {(int(a), int(c)) for a, c in zip(s, t) if a < c})
         pairs = [pairs[k] for k in rng.permutation(len(pairs))][:E]
         n_edges[b] = len(pairs)
@@ -1541,7 +1542,7 @@ def graph_batch(seed, B, N):
     valid = torch.from_numpy(np.arange(E)[None, :] < n_edges[:, None])
     alive = torch.from_numpy(np.arange(N)[None, :] < n_nodes[:, None])
     comp, root = gc.select_component(gc.cc_min_labels(t, h, valid, alive), alive)
-    adj, deg, _ = gc.build_undirected_adjacency(t, h, valid, N, 32)
+    adj, deg, _ = gc.build_undirected_adjacency(t, h, valid, N, a_cap)
     new_id, order, n_sub = gc.dfs_preorder(adj, deg, comp, root)
     codes = torch.from_numpy(rng.integers(0, 4, size=(B, N)))
     t2, h2, _, v2, _, _ = gc.renumber_subgraph(t, h, valid, new_id, order, codes)
@@ -1552,8 +1553,10 @@ def graph_batch(seed, B, N):
 @pytest.mark.parametrize("N", [256, 1152, 2048])
 def test_graph_dfs_and_topo_kernels_match_plain(cuda, N):
     """G1 and G2 at the cycle's batch (B = 64) and node ladder: the kernels
-    on the card against the plain machines on the same inputs."""
+    on the card against the plain machines on the same inputs; G1 stages
+    every window's slots in shared memory (4N hold a graph of 2N edges)."""
     g1_in, g2_in = graph_batch(N, 64, N)
+    assert gc.dfs_compact(g1_in[1], 32).all()
     before = dict(_build.LAUNCHES)
     got = gc.dfs_preorder(*(a.to(cuda) for a in g1_in))
     assert _build.LAUNCHES["graph_dfs"] == before["graph_dfs"] + 1
@@ -1563,6 +1566,49 @@ def test_graph_dfs_and_topo_kernels_match_plain(cuda, N):
     assert _build.LAUNCHES["graph_topo"] == before["graph_topo"] + 1
     for name, g, w in zip(("rank_of", "rank_to_node"), got, gc._topo_plain(*(a.to(cuda) for a in g2_in))):
         assert torch.equal(g.long(), w.long()), name
+
+
+@pytest.mark.parametrize("case", ["deg_past_a", "root_outside", "past_slot_cap"])
+def test_graph_dfs_kernel_on_edge_windows(cuda, case):
+    """G1 at B = 64 N = 1152 against its plain machine: adjacency rows cut at
+    A = 3 below most degrees; roots outside their component in every other
+    window; windows of 6N edges, whose slots pass dfs_slot_cap, so that the
+    block walks their rows where they lie."""
+    N = 1152
+    per_node, a_cap = {"deg_past_a": (2, 3), "root_outside": (2, 32), "past_slot_cap": (6, 32)}[case]
+    adj, deg, comp, root = graph_batch(N + 7, 64, N, per_node, a_cap)[0]
+    if case == "root_outside":
+        comp[::2] &= torch.arange(N)[None, :] != root[::2, None]
+    compact = gc.dfs_compact(deg, a_cap)
+    if case == "past_slot_cap":
+        assert compact.sum() < 16, int(compact.sum())
+    else:
+        assert compact.all()
+    if case == "deg_past_a":
+        assert int((deg > a_cap).sum()) > 64 * 100
+    args = [a.to(cuda) for a in (adj, deg, comp, root)]
+    before = _build.LAUNCHES["graph_dfs"]
+    got = gc.dfs_preorder(*args)
+    assert _build.LAUNCHES["graph_dfs"] == before + 1
+    want = gc._dfs_plain(*args)
+    for name, g, w in zip(("new_id", "order", "n_sub"), got, want):
+        assert torch.equal(g.long(), w.long()), name
+    if case == "root_outside":
+        assert (want[2][::2] == 0).all() and torch.equal(want[1][::2, 0], args[3][::2])
+
+
+def test_cycle_kernels_do_not_spill(cuda):
+    """G1 and G2: no local memory (no spills), registers within the block's
+    share; G1's slot capacity and shared memory as its Python mirror gives
+    them, within the 227 KB a block can opt into."""
+    for kernel in ("graph_dfs", "graph_topo"):
+        at = gc.kernel_attrs(kernel)
+        assert 0 < at["registers"] <= 255 and at["local_bytes"] == 0, (kernel, at)
+    for N in (256, 1152, 2048, 8192):
+        for A in (3, 32):
+            cap = gc.dfs_slot_cap(N, A)
+            assert gc.dfs_smem(N, A) == (cap, gc.dfs_fixed_bytes(N) + 4 * cap)
+            assert gc.dfs_smem(N, A)[1] <= gc.SMEM_OPTIN
 
 
 def test_graph_kernels_empty_batch_and_wrong_inputs(cuda):
@@ -1662,23 +1708,72 @@ def _t(d, keys, device):
     return [torch.from_numpy(np.ascontiguousarray(d[k])).to(device) for k in keys]
 
 
-@pytest.mark.parametrize("N", [256, 1152, 2048])
-def test_graph_topo_bundled_kernel_matches_plain(cuda, N):
-    """G3 at the build's batch (B = 64) and node ladder, in-slots whole (P =
-    16) and cut short (P = 2), rings within R and past it."""
-    st = build_state(N, 64, N, ring_over=N == 1152)
+def topo_bundled_inputs(N, B, p_cap, ring_over=False):
+    """G3's inputs on `build_state`'s graphs: in-slots of p_cap, the rings."""
+    st = build_state(N, B, N, ring_over=ring_over)
     t, h, ne = (torch.from_numpy(st[k]) for k in ("tails", "heads", "n_edges"))
     valid = torch.arange(2 * N)[None, :] < ne.long()[:, None]
+    in_nbr, indeg, _, _ = gc.build_in_slots(t, h, valid, N, p_cap)
+    return [in_nbr, indeg, torch.from_numpy(st["aligned"]), torch.from_numpy(st["acount"]),
+            torch.from_numpy(st["n_nodes"])]
+
+
+def _topo_bundled_equals(cuda, args, want, label):
+    """G3 on the card against `want`, with its launch and form counted;
+    returns the form."""
+    N, P, R = args[0].shape[1], args[0].shape[2], args[2].shape[2]
+    form = gb.kernel_form("graph_topo_bundled", N, R=R, P=P)
+    before = _build.LAUNCHES["graph_topo_bundled"]
+    forms = _build.BUILD_FORMS[("graph_topo_bundled", N, form)]
+    got = gb.topo_ranks_bundled(*(a.to(cuda) for a in args))
+    assert _build.LAUNCHES["graph_topo_bundled"] == before + 1
+    assert _build.BUILD_FORMS[("graph_topo_bundled", N, form)] == forms + 1
+    for name, g, w in zip(("rank_of", "rank_to_node"), got, want):
+        assert torch.equal(g.cpu().long(), w.cpu().long()), (name, label)
+    return form
+
+
+@pytest.mark.parametrize("N", [256, 1152, 2048, 4096])
+def test_graph_topo_bundled_kernel_matches_plain(cuda, N):
+    """G3 at the build's batch (B = 64) and node ladder, in-slots whole (P =
+    16) and cut short (P = 2), rings within R and past it; at N = 4096
+    (B = 16) with P = 16 past a block's shared memory, the global form (P
+    = 2 still fits). A ring past R
+    scatters several ranks into one slot: the plain machine on the CPU
+    keeps the last of them, on the card any, so those windows are held to
+    it on the CPU."""
+    B = 16 if N > 2048 else 64
+    ring_over = N == 1152
     for p_cap in (16, 2):
-        in_nbr, indeg, _, _ = gc.build_in_slots(t, h, valid, N, p_cap)
-        args = [in_nbr, indeg, torch.from_numpy(st["aligned"]), torch.from_numpy(st["acount"]),
-                torch.from_numpy(st["n_nodes"])]
-        before = _build.LAUNCHES["graph_topo_bundled"]
-        got = gb.topo_ranks_bundled(*(a.to(cuda) for a in args))
-        assert _build.LAUNCHES["graph_topo_bundled"] == before + 1
-        want = gb._topo_bundled_plain(*(a.to(cuda) for a in args))
-        for name, g, w in zip(("rank_of", "rank_to_node"), got, want):
-            assert torch.equal(g.long(), w.long()), (name, p_cap)
+        args = topo_bundled_inputs(N, B, p_cap, ring_over=ring_over)
+        want = gb._topo_bundled_plain(*(a if ring_over else a.to(cuda) for a in args))
+        form = _topo_bundled_equals(cuda, args, want, p_cap)
+        assert form == ("global" if N > 2048 and p_cap == 16 else "shared")
+
+
+@pytest.mark.parametrize("N", [1152, 4096])
+@pytest.mark.parametrize("case", ["cyclic", "counts_past_caps"])
+def test_graph_topo_bundled_kernel_on_flagged_windows(cuda, case, N):
+    """G3 in both forms on windows only a flagged build gives it, against
+    the plain machine on the CPU, whose scatters keep the last of several
+    writes to one slot (on the card their order is not fixed): cycles (the
+    stack past N, every write clamped, the machine stopped by
+    topo_steps(N)), in-degrees past P and ring counts past R (rings of
+    padding, ranks past N)."""
+    args = topo_bundled_inputs(N, 8, 16)
+    in_nbr, indeg, aligned, acount, n_nodes = args
+    if case == "cyclic":
+        in_nbr[::2, 0, 0], in_nbr[::2, 1, 0] = 1, 0
+        indeg[::2, :2] = indeg[::2, :2].clamp_min(1)
+        in_nbr[1::2, 40, 0], indeg[1::2, 40] = 60, indeg[1::2, 40].clamp_min(1)
+    else:
+        rng = np.random.default_rng(N)
+        for b in range(8):
+            nodes = torch.from_numpy(rng.integers(0, int(n_nodes[b]), size=40))
+            indeg[b, nodes[:20]] += 16
+            acount[b, nodes[20:]] = aligned.shape[2] + torch.from_numpy(rng.integers(1, 40, size=20)).int()
+    form = _topo_bundled_equals(cuda, args, gb._topo_bundled_plain(*args), case)
+    assert form == ("global" if N > 2048 else "shared")
 
 
 @pytest.mark.parametrize("N", [256, 1152, 2048, 8192])
@@ -1816,9 +1911,9 @@ def test_graph_fuse_kernel_edge_lookup_cases_match_plain(cuda, N, case, labels):
 
 
 def test_build_kernels_do_not_spill(cuda):
-    """G3, and G4 and G5 in both forms: no local memory (no spills), and
+    """G3, G4 and G5 in both forms: no local memory (no spills), and
     registers within the block's share."""
-    for kernel, forms in (("graph_topo_bundled", ("shared",)), ("graph_fuse", ("shared", "global")),
+    for kernel, forms in (("graph_topo_bundled", ("shared", "global")), ("graph_fuse", ("shared", "global")),
                           ("graph_reach", ("shared", "global"))):
         for form in forms:
             at = gb.kernel_attrs(kernel, form)

@@ -338,47 +338,73 @@ def test_fuse_alignments_flags_full_rings_alike(built):
 # ------------------------------------------- numpy models of the warps
 
 
-def g3_warp(in_nbr, indeg, aligned, acount, n_nodes):
+def g3_warp(in_nbr, indeg, aligned, acount, n_nodes, staged=True):
     """csrc/graph_build.cu:graph_topo_bundled_kernel for one window, step for
-    step: the root from a cursor that only moves forward past emitted and
-    bundled ids; lanes 0..P-1 the in-slots, P..P+R-1 the ring; the last
-    unmet by 31 - __clz; the claims; a representative's ring emitted."""
+    step: the rows staged as uint16 ids [N, P + R] beside the (indeg, acount)
+    pairs (the shared form; `staged` False: read where they lie); the root
+    from a cursor that moves forward a word of both bitmaps at a time;
+    lanes 0..P-1 the in-slots, P..P+R-1 the ring; the top's row and counts
+    carried from the step before; read first, the bits the step tests and
+    the node below the top with its row (the next top after a pop); the
+    pushed node's row loaded as the step decides; the last unmet by 31 -
+    __clz; the claims (none of a node already claimed); a representative's ring emitted, its slots' last
+    writes winning where a ring past R or ranks past N make them collide."""
     n, p = in_nbr.shape
     r_cap = aligned.shape[1]
+    k_row = p + r_cap
     words = (n + 31) // 32
     emitted, bundled = np.zeros(words, np.uint32), np.zeros(words, np.uint32)
     rank_of, rank_to_node, stack = (np.zeros(n, np.int64) for _ in range(3))
+    if staged:
+        ids = np.concatenate([in_nbr, aligned], axis=1).astype(np.uint16)
+        counts = np.stack([indeg, acount], axis=1).astype(np.int32)
+
+    def load(v):
+        if staged:
+            return [int(ids[v, k]) if k < k_row else 0 for k in range(32)], tuple(counts[v])
+        row = [int(in_nbr[v, k]) if k < p else int(aligned[v, k - p]) if k < k_row else 0
+               for k in range(32)]
+        return row, (int(indeg[v]), int(acount[v]))
+
     nn = int(n_nodes)
-    ids = min(nn, n)
-    sp = rcnt = cursor = 0
+    last = min(nn, n)
+    sp = rcnt = cursor = v = 0
+    node, (dv, av) = [0] * 32, (0, 0)
     for _ in range(tgb.topo_steps(n)):
         if not (sp > 0 or rcnt < nn):
             break
         if sp == 0:
-            while cursor < ids and (_bit(emitted, cursor) or _bit(bundled, cursor)):
-                cursor += 1
-            stack[0], sp = (cursor if cursor < ids else 0), 1
+            while cursor < last:
+                w = cursor >> 5
+                avail = ~(int(emitted[w]) | int(bundled[w])) & (0xFFFFFFFF << (cursor & 31))
+                avail &= 0xFFFFFFFF
+                if avail:
+                    cursor = (cursor & ~31) + _ffs(avail) - 1
+                    break
+                cursor = (cursor & ~31) + 32
+            v = cursor if cursor < last else 0
+            node, (dv, av) = load(v)
+            stack[0], sp = v, 1
             continue
-        v = int(stack[min(sp - 1, n - 1)])
-        dv, av, vb = int(indeg[v]), int(acount[v]), _bit(bundled, v)
-        node, unmet = [0] * 32, [False] * 32
-        for lane in range(32):
+        below = int(stack[min(max(sp - 2, 0), n - 1)])
+        below_row = load(below)
+        vb = _bit(bundled, v)
+        unmet = [False] * 32
+        for lane in range(k_row):
             r = lane - p
-            if lane < p:
-                node[lane] = int(in_nbr[v, lane])
-                unmet[lane] = lane < dv and not _bit(emitted, node[lane])
-            elif r < r_cap:
-                node[lane] = int(aligned[v, r])
-                unmet[lane] = not vb and r < av and not _bit(emitted, node[lane])
+            live = lane < dv if lane < p else (not vb and r < av)
+            unmet[lane] = live and not _bit(emitted, node[lane])
         ball = _ballot(unmet)
         if ball:
             u = node[31 - _clz(ball)]
+            nxt = load(u)
             for lane in range(p, 32):
                 if unmet[lane]:
                     _set(bundled, node[lane])
             stack[min(sp, n - 1)] = u
-            sp += 1
+            sp, v = sp + 1, u
         else:
+            nxt = below_row
             _set(emitted, v)
             if not vb:
                 rank_to_node[min(rcnt, n - 1)], rank_of[v] = v, rcnt
@@ -388,7 +414,8 @@ def g3_warp(in_nbr, indeg, aligned, acount, n_nodes):
                         rank_to_node[min(pos, n - 1)] = node[p + r]
                         rank_of[node[p + r]] = pos
                 rcnt += 1 + av
-            sp -= 1
+            sp, v = sp - 1, below
+        node, (dv, av) = nxt[0], nxt[1]
     return rank_of, rank_to_node
 
 
@@ -580,15 +607,47 @@ class G4Warp:
             self.ovf |= tgb.OVF_E_CAP
 
 
+def _g3_model_equals_plain(args):
+    """The warp model of G3, both forms, against the plain machine, window by
+    window; returns the plain machine's outputs."""
+    rank_of, r2n = tgb.topo_ranks_bundled(*map(torch.from_numpy, args))
+    for b in range(len(args[4])):
+        for staged in (True, False):
+            ro, rn = g3_warp(*(a[b] for a in args), staged=staged)
+            _eq(ro, rank_of[b])
+            _eq(rn, r2n[b])
+    return rank_of, r2n
+
+
 @pytest.mark.parametrize("p_cap", [16, 2])
 def test_warp_model_of_g3_equals_the_plain_machine(built, p_cap):
     for seed in range(3):
-        args = _topo_inputs(built, 10 + seed, p_cap)
-        rank_of, r2n = tgb.topo_ranks_bundled(*map(torch.from_numpy, args))
-        for b in range(len(args[4])):
-            ro, rn = g3_warp(*(a[b] for a in args))
-            _eq(ro, rank_of[b])
-            _eq(rn, r2n[b])
+        _g3_model_equals_plain(_topo_inputs(built, 10 + seed, p_cap))
+
+
+@pytest.mark.parametrize("case", ["cyclic", "counts_past_caps"])
+def test_warp_model_of_g3_on_flagged_windows(built, case):
+    """Windows only a flagged build gives G3, against JAX and the warp
+    model: a cycle (node 0 waits on node 1 and 1 on 0, so the stack grows
+    past N and every write clamps until topo_steps(N) stops the machine),
+    and in-degrees past P and ring counts past R (the lanes take their
+    caps, the ranks count the whole ring, slots of padding collide)."""
+    args = _topo_inputs(built, 12, 16)
+    in_nbr, indeg, aligned, acount, n_sub = args
+    if case == "cyclic":
+        for b in (0, 2):
+            in_nbr[b, 0, 0], in_nbr[b, 1, 0] = 1, 0
+            indeg[b, 0], indeg[b, 1] = max(indeg[b, 0], 1), max(indeg[b, 1], 1)
+    else:
+        rng = np.random.default_rng(12)
+        for b in range(len(n_sub)):
+            nodes = rng.integers(0, max(int(n_sub[b]), 1), size=6)
+            indeg[b, nodes[:3]] += 16
+            acount[b, nodes[3:]] = aligned.shape[2] + rng.integers(1, 4, size=3)
+    want = J_TOPO(*map(jnp.asarray, args))
+    got = _g3_model_equals_plain(args)
+    for w, g in zip(want, got):
+        _eq(w, g)
 
 
 def _reach_cuts(built, seed):

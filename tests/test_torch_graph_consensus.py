@@ -308,6 +308,30 @@ def test_device_linear_equals_jax():
     assert not bits.any() and (out_len > 0).all()
 
 
+def test_g3_callers_pass_their_int32_buffers_as_they_are(monkeypatch):
+    """Both builds call G3 without its checks: every argument they give it
+    is an int32 contiguous tensor, as the kernel takes it."""
+    from vechat_tpu_torch.ops.kernels import graph_build as tgb
+
+    calls = []
+
+    def spy(original):
+        def g3(*args, check=True):
+            calls.append(check)
+            if not check:
+                assert all(a.dtype == torch.int32 and a.is_contiguous() for a in args)
+            return original(*args, check=check)
+
+        return g3
+
+    monkeypatch.setattr(tgb, "topo_ranks_bundled", spy(tgb.topo_ranks_bundled))
+    monkeypatch.setattr(tgc, "topo_ranks_bundled", spy(tgc.topo_ranks_bundled))
+    arrays = _pack(_cases()[:2], weighted=True)
+    tgc.device_linear(*_t(*[arrays[k] for k in BUILD_ARGS], np.ones(2, bool)), N, E, R, 3, -5,
+                      -4, p_cap=P)
+    assert len(calls) > 2 and not any(calls)
+
+
 def _long_window(seed):
     """A backbone of ~88 bases with 7 full-span layers: its graph grows past
     N = 128 nodes."""

@@ -444,6 +444,24 @@ def test_haplotype_cycle(batch, realign):
     assert stats["cc_rounds"] >= 3
 
 
+def test_g1_caller_passes_its_buffers_as_they_are(batch, realign, monkeypatch):
+    """The cycle calls G1 without its checks: adj and deg int32, comp_mask
+    bool and root int64, all contiguous, as the kernel takes them."""
+    calls = []
+    original = tgc.dfs_preorder
+
+    def spy(adj, deg, comp_mask, root, check=True):
+        calls.append(check)
+        assert [a.dtype for a in (adj, deg, comp_mask, root)] == [torch.int32, torch.int32,
+                                                                 torch.bool, torch.int64]
+        assert all(a.is_contiguous() for a in (adj, deg, comp_mask, root))
+        return original(adj, deg, comp_mask, root, check=check)
+
+    monkeypatch.setattr(tgc, "dfs_preorder", spy)
+    tgc.haplotype_cycle(*(_t(a) for a in _cycle_args(batch, realign)), 0.2, 0.2, 3, 3, -5, -4)
+    assert calls and not any(calls)
+
+
 def test_haplotype_cycle_ont_quality_weights(batch, realign):
     """--platform ont: per-base phred weights (seq_w != 1) and the average
     weight x1000, as `run_device_cycle` packs FASTQ windows."""
@@ -690,35 +708,68 @@ def _set(words, i):
     words[i >> 5] |= np.uint32(1 << (i & 31))
 
 
-def g1_warp(adj, deg, comp, root):
+def g1_warp(adj, deg, comp, root, cap=None):
     """csrc/graph_cycle.cu:graph_dfs_kernel for one window, step for step:
-    32 lanes read slot k of the top node's row, the ballot of the
-    unvisited slots at or past the scan pointer, __ffs, lane 0's stores."""
+    the block's scan of min(deg, A, 32) into slot offsets and, where the
+    total is within `cap` (dfs_slot_cap), its compact copy of the slots
+    (else the rows read where they lie); then warp 0's walk over a stack of
+    (node, lo, hi, scan pointer) frames, the top frame and the one below it
+    in registers: 32 lanes hold slot k of the top node's row, the ballot of
+    the unvisited slots at or past the scan pointer, __ffs; a push shuffles
+    the new node and its slot bounds from its lane, loads its row, and the
+    top becomes the frame below; a pop makes the frame below the top and
+    reads the one below that back from the frames (its row at the next
+    step's start)."""
     n, a = adj.shape
     lanes = min(a, 32)
+    cap = tgc.dfs_slot_cap(n, a) if cap is None else cap
+    off = np.concatenate([[0], np.cumsum(np.clip(deg, 0, lanes))]).astype(np.int64)
+    compact = off[n] <= cap
+    slots = np.zeros(max(cap, 1), np.int64)
+    if compact:
+        for v in range(n):
+            slots[off[v] : off[v + 1]] = adj[v, : off[v + 1] - off[v]]
+
+    def row(v, lo, hi):
+        return [(int(slots[lo + k]) if compact else int(adj[v, k])) if k < hi - lo else 0
+                for k in range(32)]
+
     visited = np.zeros((n + 31) // 32, np.uint32)
     new_id, order = np.full(n, -1), np.zeros(n, np.int64)
-    stack, pptr = np.zeros(n, np.int64), np.zeros(n, np.uint8)
+    frames = [None] * n
     order[0] = root
     has = bool(comp[root])
+    sp = cnt = int(has)
+    top = (root, int(off[root]), int(off[root + 1]), 0) if has else (root, 0, 0, 0)
+    u = row(*top[:3])
+    below, pu, stale = (0, 0, 0, 0), [0] * 32, False
     if has:
         _set(visited, root)
-        new_id[root], stack[0] = 0, root
-    sp = cnt = int(has)
+        new_id[root], frames[0] = 0, top
     while sp > 0:
-        v, p = stack[sp - 1], int(pptr[sp - 1])
-        d = deg[v]
-        u = [int(adj[v, k]) if k < lanes else 0 for k in range(32)]
-        ball = _ballot(k < lanes and p <= k < d and not _bit(visited, u[k]) for k in range(32))
+        v, lo, hi, p = top
+        bounds = [(int(off[x]), int(off[x + 1])) for x in u]
+        if stale:
+            pu = row(*below[:3])
+        ball = _ballot(k < hi - lo and k >= p and not _bit(visited, u[k]) for k in range(32))
         if ball:
             j = _ffs(ball) - 1
-            w = u[j]  # __shfl_sync from lane j
-            pptr[sp - 1] = j + 1
+            w = u[j]  # __shfl_sync from lane j, with its bounds
+            wlo, whi = bounds[j]
+            wu = row(w, wlo, whi)
+            frames[sp - 1] = (v, lo, hi, j + 1)
+            frames[sp] = (w, wlo, whi, 0)
             _set(visited, w)
-            new_id[w], order[cnt], stack[sp], pptr[sp] = cnt, w, w, 0
+            new_id[w], order[cnt] = cnt, w
+            below, pu, stale = (v, lo, hi, j + 1), u, False
+            top, u = (w, wlo, whi, 0), wu
             cnt, sp = cnt + 1, sp + 1
         else:
             sp -= 1
+            top, u = below, pu
+            stale = sp > 1
+            if stale:
+                below = frames[sp - 2]
     return new_id, order, cnt
 
 
@@ -800,3 +851,43 @@ def test_warp_models_of_g1_and_g2_equal_the_plain_machines(seed):
             ro, rn = g2_warp(_np(in_nbr[b]), _np(indeg[b]), int(n_sub[b]))
             _eq(ro, rank_of[b])
             _eq(rn, r2n[b])
+
+
+@pytest.mark.parametrize("case", ["deg_past_a", "root_outside", "past_slot_cap"])
+def test_warp_model_of_g1_on_edge_windows(case):
+    """G1's warp model and plain machine against JAX's `dfs_preorder`:
+    adjacency rows cut at A = 3 with most degrees past it (the lanes take
+    A, the ballot compares against the true degree); roots outside their
+    component (order[0] the root, n_sub 0); and dense windows whose slots
+    pass dfs_slot_cap (4N), so that the kernel walks the rows where they
+    lie (the batch holds windows within it too)."""
+    rng = np.random.default_rng(200 + len(case))
+    B, n_cap = 6, 48
+    e_cap, a_cap = {"deg_past_a": (160, 3), "root_outside": (120, 32),
+                    "past_slot_cap": (8 * n_cap, 32)}[case]
+    tails, heads, n_nodes, n_edges = _random_graphs(rng, B, n_cap, e_cap)
+    if case == "past_slot_cap":
+        n_nodes[:] = n_cap
+    valid = torch.from_numpy(np.arange(e_cap)[None, :] < n_edges[:, None])
+    alive = torch.from_numpy(np.arange(n_cap)[None, :] < n_nodes[:, None])
+    t, h = torch.from_numpy(tails), torch.from_numpy(heads)
+    comp, root = tgc.select_component(tgc.cc_min_labels(t, h, valid, alive), alive)
+    adj, deg, _ = tgc.build_undirected_adjacency(t, h, valid, n_cap, a_cap)
+    if case == "root_outside":
+        comp[::2, :] = comp[::2, :] & (torch.arange(n_cap)[None, :] != root[::2, None])
+    compact = _np(tgc.dfs_compact(deg, a_cap))
+    if case == "deg_past_a":
+        assert (_np(deg) > a_cap).sum() > B * 4
+    # past the cap, some windows still fit: both of the kernel's forms
+    assert compact.all() if case != "past_slot_cap" else compact.any() and not compact.all()
+    got = tgc.dfs_preorder(adj, deg, comp, root)
+    want = jgc.dfs_preorder(*(jnp.asarray(_np(a)) for a in (adj, deg, comp, root)))
+    for w, g in zip(want, got):
+        _eq(w, g)
+    if case == "root_outside":
+        assert (_np(got[2])[::2] == 0).all() and (_np(got[1])[::2, 0] == _np(root)[::2]).all()
+    for b in range(B):
+        nid, ordr, cnt = g1_warp(_np(adj[b]), _np(deg[b]), _np(comp[b]), int(root[b]))
+        assert cnt == int(got[2][b])
+        _eq(nid, got[0][b])
+        _eq(ordr, got[1][b])

@@ -7,26 +7,39 @@
 // fuse_alignments and the fixpoint loop of positional_subgraph, three XLA
 // loops that step every window of a batch together (one node push or pop,
 // one pair, or one round of propagation a step), because the TPU has no
-// scalar threads. Here one warp runs each window's machine (in G4 and G5 a
-// block stages the window for its first warp); the plain PyTorch versions
-// in ops/kernels/graph_build.py are the batched machines, and both give the
-// same outputs, word for word.
+// scalar threads. Here a block runs each window's machine: it stages the
+// window in shared memory and its first warp walks; the plain PyTorch
+// versions in ops/kernels/graph_build.py are the batched machines, and both
+// give the same outputs, word for word.
 //
 // G3 (graph_topo_bundled_kernel), reference semantics graph.cpp:301-371,
 // the rule of csrc/poagraph.cpp:96-140: G2's machine (graph_cycle.cu) with
-// the rings. Lanes 0..P-1 hold the top node's in-slots and lanes P..P+R-1
-// its ring members (P + R <= 32). A dependency is unmet when it has not
-// been emitted; ring members count only for a node outside a bundle. The
-// ring lanes lie above the slot lanes, so the highest set bit of the ballot
-// is the last unmet ring member, else the last unmet in-slot: the one the
-// batched machine pushes. Every unmet ring member is claimed into the
-// bundle the moment the top scans it. A node emits when nothing is unmet; a
-// representative (a node outside a bundle) appends itself and then its
-// whole ring to the order. The next root is the first id neither emitted
-// nor in a bundle; both sets only grow, so a cursor that never moves back
-// finds it. The steps are capped where the JAX loop stops (topo_steps), and
-// the stack and rank writes clamp to the last slot as JAX does, so a cyclic
-// graph (only in a window already flagged) stays inside the arrays.
+// the rings. A block of 16 warps stages the window's in-slot and ring ids
+// (uint16, a row of P + R a node) and (indeg, acount) pairs in shared
+// memory beside the stack, both bitmaps and both outputs, which it writes
+// back once at the end. Warp 0 walks: lanes 0..P-1 hold the top node's
+// in-slots and lanes P..P+R-1 its ring members (P + R <= 32). A dependency
+// is unmet when it has not been emitted; ring members count only for a node
+// outside a bundle. The ring lanes lie above the slot lanes, so the highest
+// set bit of the ballot is the last unmet ring member, else the last unmet
+// in-slot: the one the batched machine pushes. Every unmet ring member is claimed into the bundle the
+// moment the top scans it (an atomicOr, skipped for a node already
+// claimed). A node emits when nothing is unmet; a representative (a node
+// outside a bundle) appends itself and then its whole ring to the order.
+// The top's row rides in registers from the step before: the lanes load
+// the next top's row and counts before lane 0's stores (the node below the
+// top, read at the step's start, for a pop; the pushed node at the
+// decision), and read the bitmaps only after the step before has stored
+// them; lane 0 sets an emitted bit by a plain store of the word it read. The next root is the first id
+// neither emitted nor in a bundle; both sets only grow, so a cursor that
+// never moves back finds it, a word of both bitmaps at a time. The steps
+// are capped where the JAX loop stops (topo_steps), one push, pop or
+// rooting a step, and the stack and rank writes clamp to the last slot as
+// JAX does, so a cyclic graph (only in a window already flagged) stays
+// inside the arrays; where a ring past R or ranks past N make several
+// lanes write one slot, the last write in the plain machine's order wins.
+// A window past shared memory (N = 4096 at P = 16, R = 8) takes the global
+// form: the same machine reading the rows and counts where they lie.
 //
 // G4 (graph_fuse_kernel), graph.cpp:182-299 and csrc/poagraph.cpp:142-201:
 // a block a window stages the window (the (tail, head) table, weights,
@@ -63,12 +76,17 @@
 //
 // What bounds them: chains of dependent steps, one window a block and one
 // warp walking (B <= 64 windows fill half the SMs). G3 takes about 2 steps
-// a node; G4 a step a pair, its edge lookup a few dependent shared loads
-// (the tail's out-degree); G5 a step for up to four kept nodes, so that
-// the graph's depth below the end node bounds its steps. Neither bytes nor
-// operations come near the card's rates; see chip_smoke.py's phase 7.
+// a node (a cyclic flagged window runs to its cap), each a shared load of
+// the bitmaps, the ballot, its last lane and a shuffle from it, and the
+// next row's shared load (`k1_probe.py latency` times each link); G4 a step a pair, its edge
+// lookup a few dependent shared loads (the tail's out-degree); G5 a step
+// for up to four kept nodes, so that the graph's depth below the end node
+// bounds its steps. Neither bytes nor operations come near the card's
+// rates; see chip_smoke.py's phase 7.
 
 #include <cuda_runtime.h>
+
+#include "block_scan.cuh"
 
 namespace {
 
@@ -91,110 +109,204 @@ __device__ __forceinline__ bool claim_bit(unsigned* bits, int i) {
 
 __device__ __forceinline__ int clamp_hi(int v, int hi) { return v < hi ? v : hi; }
 
-// One warp a window b. in_nbr [B, N, P] (in-edge tails, slot order, padding
+constexpr int kTopoThreads = 512;
+// elements a staging pass loads before it stores them
+constexpr int kStageUnroll = 8;
+
+// G3's shared memory in bytes. Both forms: the stack [N] int32 and the
+// emitted and bundled bitmaps. The shared form also: each node's (indeg,
+// acount) as an int2, rank_of and rank_to_node [N] int32, and each node's
+// row of P in-slot and R ring ids as uint16 [N, P + R] (rounded up to a
+// word).
+__host__ __device__ inline size_t topo_smem_bytes(int N, int P, int R, bool shared) {
+  const size_t n = N, words = (N + 31) / 32;
+  size_t bytes = 4 * n + 8 * words;
+  if (shared) bytes += 16 * n + ((2 * n * (P + R) + 3) & ~(size_t)3);
+  return bytes;
+}
+
+// src [N, W] int32 (a window's rows, contiguous) into columns col0 ..
+// col0 + W - 1 of dst [N, K] uint16, by the whole block, kStageUnroll
+// coalesced loads in flight a thread before their stores.
+__device__ __forceinline__ void stage_ids(unsigned short* dst, const int* __restrict__ src,
+                                          int N, int W, int K, int col0) {
+  const int n = N * W;
+  for (int base = threadIdx.x; base < n; base += kStageUnroll * kTopoThreads) {
+    int x[kStageUnroll];
+#pragma unroll
+    for (int r = 0; r < kStageUnroll; ++r) {
+      const int i = base + r * kTopoThreads;
+      x[r] = i < n ? src[i] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kStageUnroll; ++r) {
+      const int i = base + r * kTopoThreads;
+      if (i < n) {
+        const int v = i / W;
+        dst[v * K + col0 + (i - v * W)] = (unsigned short)x[r];
+      }
+    }
+  }
+}
+
+// A block a window b. in_nbr [B, N, P] (in-edge tails, slot order, padding
 // 0), indeg [B, N], aligned [B, N, R] (ring members, insertion order),
 // acount [B, N], n_nodes [B]. Writes rank_of and rank_to_node [B, N] (0
-// where nothing was ranked). Shared memory: the emitted and bundle bitmaps
-// (N bits each) and the stack (N int32).
-__global__ void __launch_bounds__(32)
+// where nothing was ranked). kShared: the block stages the window's rows
+// (ids as uint16: N <= 8192) and counts in shared memory and keeps the
+// outputs there, written back at the end; else warp 0 reads the rows and
+// counts where they lie and writes the outputs in place (zeroed by the
+// block first). Warp 0 runs the machine. The top's row and counts are
+// carried in registers and the next top's are loaded as the step decides,
+// before its stores: the pushed node's on a push, the node below the top
+// (read at the step's start) on a pop. The bitmaps are read only after the
+// step before has stored.
+template <bool kShared>
+__global__ void __launch_bounds__(kTopoThreads)
 graph_topo_bundled_kernel(const int* __restrict__ in_nbr, const int* __restrict__ indeg,
                           const int* __restrict__ aligned, const int* __restrict__ acount,
                           const int* __restrict__ n_nodes, int* __restrict__ rank_of,
                           int* __restrict__ rank_to_node, int N, int P, int R, int max_steps) {
-  extern __shared__ unsigned smem[];
-  const int words = (N + 31) >> 5;
-  unsigned* emitted = smem;
-  unsigned* bundled = smem + words;
-  int* stack = reinterpret_cast<int*>(smem + 2 * words);
-  const int b = blockIdx.x, lane = threadIdx.x;
+  extern __shared__ int4 smem4[];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int K = P + R, words = (N + 31) >> 5;
   const size_t row0 = (size_t)b * N;
-  for (int i = lane; i < N; i += 32) {
-    rank_of[row0 + i] = 0;
-    rank_to_node[row0 + i] = 0;
+  char* p = reinterpret_cast<char*>(smem4);
+  int2* cnt = nullptr;
+  unsigned short* ids = nullptr;
+  int *rk = rank_of + row0, *r2n = rank_to_node + row0;
+  if constexpr (kShared) {
+    cnt = reinterpret_cast<int2*>(p);
+    rk = reinterpret_cast<int*>(cnt + N);
+    r2n = rk + N;
+    p = reinterpret_cast<char*>(r2n + N);
   }
-  for (int i = lane; i < words; i += 32) emitted[i] = bundled[i] = 0;
-  __syncwarp();
-  const int n = n_nodes[b];
-  const int ids = clamp_hi(n, N);  // the ids a root can take
-  int sp = 0, rcnt = 0, cursor = 0;
-  for (int step = 0; step < max_steps && (sp > 0 || rcnt < n); ++step) {
-    if (sp == 0) {
-      while (cursor < ids && (bit_of(emitted, cursor) || bit_of(bundled, cursor))) ++cursor;
-      if (lane == 0) stack[0] = cursor < ids ? cursor : 0;  // none: argmax of nothing, 0
-      sp = 1;
-      __syncwarp();
-      continue;  // the root's dependencies are read at the next step
-    }
-    const int v = stack[clamp_hi(sp - 1, N - 1)];
-    const size_t rv = row0 + v;
-    // one load a lane (its in-slot or ring slot), in flight with the two
-    // counts: no branch between the slot lanes and the ring lanes
+  int* stack = reinterpret_cast<int*>(p);
+  unsigned* emitted = reinterpret_cast<unsigned*>(stack + N);
+  unsigned* bundled = emitted + words;
+  if constexpr (kShared) ids = reinterpret_cast<unsigned short*>(bundled + words);
+  for (int i = tid; i < N; i += kTopoThreads) {
+    rk[i] = 0;
+    r2n[i] = 0;
+  }
+  for (int i = tid; i < words; i += kTopoThreads) emitted[i] = bundled[i] = 0;
+  if constexpr (kShared) {
+    for (int i = tid; i < N; i += kTopoThreads) cnt[i] = make_int2(indeg[row0 + i], acount[row0 + i]);
+    stage_ids(ids, in_nbr + row0 * P, N, P, K, 0);
+    stage_ids(ids, aligned + row0 * R, N, R, K, P);
+  }
+  __syncthreads();
+  if (tid < 32) {
+    const int n = n_nodes[b];
+    const int last = clamp_hi(n, N);  // the ids a root can take
     const int r = lane - P;
-    const bool held = lane < P + R;
-    const int* src = lane < P ? in_nbr + rv * P + lane : aligned + rv * R + r;
-    const int node = held ? *src : 0;
-    const int dv = indeg[rv];
-    const int av = acount[rv];
-    const bool vb = bit_of(bundled, v);
-    const bool live = lane < P ? lane < dv : (!vb && r < av);
-    const bool unmet = held && live && !bit_of(emitted, node);
-    const unsigned ball = __ballot_sync(kFull, unmet);
-    if (ball) {
-      // the ballot has synchronised the warp: every read of the bundle
-      // bitmap above is done before these claims
-      const int u = __shfl_sync(kFull, node, 31 - __clz(ball));
-      if (unmet && lane >= P) atomicOr(&bundled[node >> 5], 1u << (node & 31));
-      if (lane == 0) stack[clamp_hi(sp, N - 1)] = u;
-      ++sp;
-    } else {
-      if (lane == 0) set_bit(emitted, v);
-      if (!vb) {
-        if (lane == 0) {
-          rank_to_node[row0 + clamp_hi(rcnt, N - 1)] = v;
-          rank_of[rv] = rcnt;
-        }
-        if (lane >= P && r < R && r < av) {
-          const int pos = rcnt + 1 + r;
-          rank_to_node[row0 + clamp_hi(pos, N - 1)] = node;
-          rank_of[row0 + node] = pos;
-        }
-        rcnt += 1 + av;
+    const bool held = lane < K;
+    // lane's slot of node v (an in-slot, a ring slot or nothing) and v's
+    // (indeg, acount)
+    auto load = [&](int v, int& node, int2& c) {
+      if constexpr (kShared) {
+        node = held ? ids[v * K + lane] : 0;
+        c = cnt[v];
+      } else {
+        const size_t rv = row0 + v;
+        node = lane < P ? in_nbr[rv * P + lane] : (held ? aligned[rv * R + r] : 0);
+        c = make_int2(indeg[rv], acount[rv]);
       }
-      --sp;
+    };
+    int sp = 0, rcnt = 0, cursor = 0, v = 0, node = 0;
+    int2 c = make_int2(0, 0);
+    for (int step = 0; step < max_steps && (sp > 0 || rcnt < n); ++step) {
+      if (sp == 0) {
+        // the first id neither emitted nor bundled, a word at a time
+        while (cursor < last) {
+          const unsigned avail =
+              ~(emitted[cursor >> 5] | bundled[cursor >> 5]) & (kFull << (cursor & 31));
+          if (avail) {
+            cursor = (cursor & ~31) + __ffs(avail) - 1;
+            break;
+          }
+          cursor = (cursor & ~31) + 32;
+        }
+        v = cursor < last ? cursor : 0;  // none: argmax of nothing, 0
+        load(v, node, c);
+        if (lane == 0) stack[0] = v;
+        sp = 1;
+        __syncwarp();
+        continue;  // the root's dependencies are read at the next step
+      }
+      // v = stack[min(sp - 1, N - 1)]. Read first, side by side: the bits
+      // this step tests (a lane's slot of no live dependency reads a bit it
+      // ignores; a claim of a node already bundled is skipped), v's word of
+      // the emitted bitmap, and `below`, the top after a pop, with its row
+      const int at = (unsigned)node < (unsigned)N ? node : 0;
+      const bool done = bit_of(emitted, at);
+      const bool claimed = bit_of(bundled, at);
+      const unsigned ew = emitted[v >> 5];  // v's word, as it stands
+      const bool vb = bit_of(bundled, v);
+      const int below = stack[clamp_hi(sp > 1 ? sp - 2 : 0, N - 1)];
+      int below_node;
+      int2 below_c;
+      load(below, below_node, below_c);
+      const int dv = c.x, av = c.y;
+      const bool live = lane < P ? lane < dv : (!vb && r < av);
+      const bool unmet = held && live && !done;
+      const unsigned ball = __ballot_sync(kFull, unmet);
+      if (ball) {
+        // the ballot has synchronised the warp: every read of the bundle
+        // bitmap above is done before these claims
+        const int u = __shfl_sync(kFull, node, 31 - __clz(ball));
+        if (unmet && lane >= P && !claimed) atomicOr(&bundled[node >> 5], 1u << (node & 31));
+        load(u, node, c);  // the pushed node's row, before the stack's store
+        if (lane == 0) stack[clamp_hi(sp, N - 1)] = u;
+        ++sp;
+        v = u;
+      } else {
+        if (lane == 0) emitted[v >> 5] = ew | (1u << (v & 31));  // only lane 0 writes it
+        if (!vb) {
+          if (lane == 0) {
+            r2n[clamp_hi(rcnt, N - 1)] = v;
+            rk[v] = rcnt;
+          }
+          const bool ring_on = lane >= P && r < R && r < av;
+          const int pos = clamp_hi(rcnt + 1 + r, N - 1);
+          if (av > R || rcnt + av > N - 1) {
+            // a ring past its cap (its slots may repeat a node) or ranks
+            // past N (clamped to one slot), only in a flagged window: the
+            // plain machine's scatters, where the last write to a slot
+            // wins, lane 0's first
+            __syncwarp();
+            const unsigned on = __ballot_sync(kFull, ring_on);
+            const unsigned later = ~((2u << lane) - 1);
+            const unsigned same_pos = __match_any_sync(kFull, pos) & on & later;
+            const unsigned same_node = __match_any_sync(kFull, node) & on & later;
+            if (ring_on && !same_pos) r2n[pos] = node;
+            if (ring_on && !same_node) rk[node] = rcnt + 1 + r;
+          } else if (ring_on) {
+            r2n[pos] = node;
+            rk[node] = pos;
+          }
+          rcnt += 1 + av;
+        }
+        --sp;
+        v = below;
+        node = below_node;
+        c = below_c;
+      }
+      __syncwarp();
     }
-    __syncwarp();
+  }
+  if constexpr (kShared) {
+    __syncthreads();
+    for (int i = tid; i < N; i += kTopoThreads) {
+      rank_of[row0 + i] = rk[i];
+      rank_to_node[row0 + i] = r2n[i];
+    }
   }
 }
 
 constexpr int kReachThreads = 256;
 // G5's traversal pops up to kPops nodes a step, kPopLanes lanes a node
 constexpr int kPopLanes = 8, kPops = 32 / kPopLanes;
-
-// Inclusive prefix sums of a[0, n) in place, by G5's whole block (a
-// contiguous run of elements a thread); `tot` holds a word a warp. Ends
-// with a barrier.
-__device__ void block_scan(int* a, int n, int* tot) {
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int per = (n + kReachThreads - 1) / kReachThreads;
-  const int lo = min(tid * per, n), hi = min(lo + per, n);
-  int s = 0;
-  for (int i = lo; i < hi; ++i) s += a[i];
-  int x = s;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) tot[w] = x;
-  __syncthreads();
-  int run = x - s;
-  for (int k = 0; k < w; ++k) run += tot[k];
-  for (int i = lo; i < hi; ++i) {
-    run += a[i];
-    a[i] = run;
-  }
-  __syncthreads();
-}
 
 // A block a window b; tails/heads [B, E], n_edges [B], aligned [B, N, R],
 // acount [B, N], begin/end/n_nodes [B], use_full [B]. Writes keep [B, N]
@@ -260,7 +372,7 @@ graph_reach_kernel(const int* __restrict__ tails, const int* __restrict__ heads,
   }
   __syncthreads();
   // pos[h]: the edges into heads <= h; pos[N] (no edge) the total
-  block_scan(pos, N + 1, tot);
+  vk::block_scan(pos, N + 1, tot);
   for (int k = tid; k < ne; k += kReachThreads) {
     const int t = tb[k], h = hb[k];
     if (t >= first && t < real && h >= first && h < real) csr[atomicSub(&pos[h], 1) - 1] = t;
@@ -641,15 +753,23 @@ extern "C" {
 
 const char* cuda_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
+// shared: the shared form (topo_smem_bytes of the window in shared memory),
+// else the global form
 int graph_topo_bundled_launch(const int* in_nbr, const int* indeg, const int* aligned,
                               const int* acount, const int* n_nodes, int* rank_of,
                               int* rank_to_node, int B, int N, int P, int R, int max_steps,
-                              void* stream) {
-  const size_t smem = (size_t)((N + 31) / 32) * 8 + (size_t)N * 4;
-  int rc = set_smem((const void*)graph_topo_bundled_kernel, smem);
+                              int shared, void* stream) {
+  const size_t smem = topo_smem_bytes(N, P, R, shared);
+  const void* kernel = shared ? (const void*)graph_topo_bundled_kernel<true>
+                              : (const void*)graph_topo_bundled_kernel<false>;
+  int rc = set_smem(kernel, smem);
   if (rc) return rc;
-  graph_topo_bundled_kernel<<<B, 32, smem, (cudaStream_t)stream>>>(
-      in_nbr, indeg, aligned, acount, n_nodes, rank_of, rank_to_node, N, P, R, max_steps);
+  if (shared)
+    graph_topo_bundled_kernel<true><<<B, kTopoThreads, smem, (cudaStream_t)stream>>>(
+        in_nbr, indeg, aligned, acount, n_nodes, rank_of, rank_to_node, N, P, R, max_steps);
+  else
+    graph_topo_bundled_kernel<false><<<B, kTopoThreads, smem, (cudaStream_t)stream>>>(
+        in_nbr, indeg, aligned, acount, n_nodes, rank_of, rank_to_node, N, P, R, max_steps);
   return (int)cudaGetLastError();
 }
 
@@ -704,15 +824,16 @@ int graph_fuse_launch(int* codes, int* tails, int* heads, int* weights, int* n_n
 }
 
 // registers a thread, static shared memory and local memory of G3 (which
-// 0), G5 (1: shared form, 2: global) or G4 (3: shared form, 4: global):
-// out[0..2]
+// 0: shared form, 5: global), G5 (1: shared form, 2: global) or G4 (3:
+// shared form, 4: global): out[0..2]
 int graph_build_attrs(int which, int* out) {
-  const void* kernels[] = {(const void*)graph_topo_bundled_kernel,
+  const void* kernels[] = {(const void*)graph_topo_bundled_kernel<true>,
                            (const void*)graph_reach_kernel<true>,
                            (const void*)graph_reach_kernel<false>,
                            (const void*)graph_fuse_kernel<true>,
-                           (const void*)graph_fuse_kernel<false>};
-  if (which < 0 || which > 4) return (int)cudaErrorInvalidValue;
+                           (const void*)graph_fuse_kernel<false>,
+                           (const void*)graph_topo_bundled_kernel<false>};
+  if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes at;
   const cudaError_t e = cudaFuncGetAttributes(&at, kernels[which]);
   if (e != cudaSuccess) return (int)e;

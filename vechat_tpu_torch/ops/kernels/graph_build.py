@@ -34,9 +34,11 @@ the kernels of `csrc/graph_build.cu` on CUDA tensors and run their plain
 versions, the batched machines of the JAX program, on CPU tensors.
 `device_build` keeps its graph in int32 buffers that `fuse_walk_` updates
 in place, one G4 launch a layer step with no copies; G5 groups the
-in-edges by head itself. G4 and G5 take their shared form where the window
-fits a block's shared memory (`kernel_form`), else their global form on a
-scratch buffer. Everything else is the array work XLA ran, as torch ops
+in-edges by head itself; G3 takes the build's int32 buffers as they are
+(`check=False`). G3, G4 and G5 take their shared form where the window
+fits a block's shared memory (`kernel_form`), else their global form (G4
+and G5 on a scratch buffer, G3 reading its rows where they lie).
+Everything else is the array work XLA ran, as torch ops
 on the tensors' device. A write that JAX drops at index N or E goes into
 a padded extra column that is sliced away; a write past a capacity is
 clamped to the last slot and flags the window, as in JAX.
@@ -45,8 +47,8 @@ clamped to the last slot and flags the window, as in JAX.
 for nodes past N, edges past E, a ring past R, in-slots past P, or a
 predecessor distance past 511 (K1's 9-bit field; JAX's int32 DP has no such
 limit). A window once flagged is frozen: its later layers are neither
-aligned nor fused (JAX goes on with clamped writes); its result is thrown
-away either way, and its flag is the same.
+ranked, aligned nor fused (JAX goes on with clamped writes); its result is
+thrown away either way, and its flag is the same.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ from . import _build
 from .graph_cycle import (
     BIG,
     PLAIN_CHECK,
+    SMEM_OPTIN,
     _ar,
     _int32,
     build_dp_arrays,
@@ -80,12 +83,10 @@ BUILD_OVF_BITS = dict(n_cap=OVF_N_CAP, e_cap=OVF_E_CAP, r_cap=OVF_R_CAP, p_cap=O
 # rounds of the plain reachability between two reads of its `changed` flag
 REACH_CHECK = 8
 # largest N and E a launch takes (G3's bitmaps and stack, and G5's bitmap,
-# in shared memory; G4's and G5's global forms' scratch)
+# in shared memory, G3's node ids as uint16; G4's and G5's global forms'
+# scratch)
 N_MAX = 8192
 E_MAX = 16384
-# shared memory a block can opt into on Hopper (227 KB): G4 and G5 take
-# their shared form where the window fits, else their global form
-SMEM_OPTIN = 232448
 
 
 def fuse_smem_bytes(N: int, E: int, R: int, track: bool) -> int:
@@ -114,11 +115,26 @@ def reach_scratch_ints(N: int, E: int) -> int:
     return 2 * N + 1 + E
 
 
-def kernel_form(kernel: str, N: int, E: int, R: int, track: bool = False) -> str:
+def topo_smem_bytes(N: int, P: int, R: int) -> int:
+    """Shared memory of G3's shared form (csrc/graph_build.cu:topo_smem_bytes):
+    the stack, rank_of and rank_to_node [N] int32, the (indeg, acount) pairs
+    [N], the emitted and bundled bitmaps, and the in-slot and ring ids [N,
+    P + R] as uint16, rounded up to a word."""
+    return 4 * N + 8 * ((N + 31) // 32) + 16 * N + (2 * N * (P + R) + 3) // 4 * 4
+
+
+def kernel_form(kernel: str, N: int, E: int = 0, R: int = 0, track: bool = False,
+                P: int = 0) -> str:
     """"shared" where the window fits the block's shared memory, else
-    "global": the form the launch of G4 ("graph_fuse") or G5
-    ("graph_reach") takes."""
-    need = fuse_smem_bytes(N, E, R, track) if kernel == "graph_fuse" else reach_smem_bytes(N, E, R)
+    "global": the form the launch of G4 ("graph_fuse", from N, E, R and
+    track), G5 ("graph_reach", N, E, R) or G3 ("graph_topo_bundled", N, P,
+    R) takes."""
+    if kernel == "graph_fuse":
+        need = fuse_smem_bytes(N, E, R, track)
+    elif kernel == "graph_reach":
+        need = reach_smem_bytes(N, E, R)
+    else:
+        need = topo_smem_bytes(N, P, R)
     return "shared" if need <= SMEM_OPTIN else "global"
 
 
@@ -135,7 +151,7 @@ def _bit32(j: int) -> int:
     return v - (1 << 32) if v >= 1 << 31 else v
 
 
-_TOPO_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TOPO_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _REACH_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _FUSE_ARGS = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _ATTRS_OUT = ctypes.c_int * 3
@@ -155,11 +171,11 @@ def _lib():
 
 def kernel_attrs(kernel: str, form: str = "shared") -> dict:
     """Registers a thread, static shared memory and local memory (spills)
-    of G3 ("graph_topo_bundled"), or of G4 ("graph_fuse") or G5
-    ("graph_reach") in `form`, as the card's loader reports them."""
+    of G3 ("graph_topo_bundled"), G4 ("graph_fuse") or G5 ("graph_reach")
+    in `form`, as the card's loader reports them."""
     which = {("graph_topo_bundled", "shared"): 0, ("graph_reach", "shared"): 1,
              ("graph_reach", "global"): 2, ("graph_fuse", "shared"): 3,
-             ("graph_fuse", "global"): 4}[(kernel, form)]
+             ("graph_fuse", "global"): 4, ("graph_topo_bundled", "global"): 5}[(kernel, form)]
     out = _ATTRS_OUT()
     rc = _lib().graph_build_attrs(which, out)
     _build.check(_lib(), rc, "graph_build_attrs")
@@ -243,12 +259,15 @@ def _topo_bundled_plain(in_nbr, indeg, aligned, acount, n_nodes):
     return rank_of[:, :N], rank_to_node[:, :N]
 
 
-def topo_ranks_bundled(in_nbr, indeg, aligned, acount, n_nodes):
+def topo_ranks_bundled(in_nbr, indeg, aligned, acount, n_nodes, check=True):
     """Topological emission order with aligned-node bundles
     (graph.cpp:301-371; csrc/poagraph.cpp:96-140). in_nbr [B, N, P] (in-edge
     tails, slot order), indeg [B, N], aligned [B, N, R], acount [B, N],
     n_nodes [B]. Returns (rank_of [B, N], rank_to_node [B, N]). CPU tensors
-    run the plain machine; CUDA tensors launch G3 or raise."""
+    run the plain machine; CUDA tensors launch G3 or raise. With `check`
+    the inputs are made int32 and contiguous and checked; the build passes
+    False for its own buffers, which are so already: G3 is launched on them
+    as they are."""
     B, N, P = in_nbr.shape
     R = aligned.shape[2]
     dev = in_nbr.device
@@ -256,32 +275,36 @@ def topo_ranks_bundled(in_nbr, indeg, aligned, acount, n_nodes):
         return _topo_bundled_plain(in_nbr, indeg, aligned, acount, n_nodes)
     if P + R > 32 or N > N_MAX:
         raise ValueError(f"G3 takes P + R <= 32 and N <= {N_MAX}, got P={P}, R={R}, N={N}")
-    args = [_int32(t) for t in (in_nbr, indeg, aligned, acount, n_nodes)]
-    _check_inputs(dict(zip(("in_nbr", "indeg", "aligned", "acount", "n_nodes"), args)),
-                  torch.int32, dev)
-    if aligned.shape[:2] != (B, N) or indeg.shape != (B, N) or acount.shape != (B, N):
-        raise ValueError("G3 takes in_nbr [B, N, P], indeg and acount [B, N], aligned [B, N, R]")
-    rank_of = torch.empty((B, N), dtype=torch.int32, device=dev)
-    rank_to_node = torch.empty_like(rank_of)
+    if check:
+        in_nbr, indeg, aligned, acount, n_nodes = (_int32(t) for t in (in_nbr, indeg, aligned,
+                                                                        acount, n_nodes))
+        _check_inputs(dict(in_nbr=in_nbr, indeg=indeg, aligned=aligned, acount=acount,
+                           n_nodes=n_nodes), torch.int32, dev)
+        if aligned.shape[:2] != (B, N) or indeg.shape != (B, N) or acount.shape != (B, N):
+            raise ValueError("G3 takes in_nbr [B, N, P], indeg and acount [B, N], "
+                             "aligned [B, N, R]")
+    rank_of, rank_to_node = torch.empty((2, B, N), dtype=torch.int32, device=dev)
     if B:
-        launch_topo_bundled(*args, rank_of, rank_to_node)
+        launch_topo_bundled(in_nbr, indeg, aligned, acount, n_nodes, rank_of, rank_to_node)
     return rank_of, rank_to_node
 
 
 def launch_topo_bundled(in_nbr, indeg, aligned, acount, n_nodes, rank_of, rank_to_node):
-    """G3 alone, on the int32 buffers `topo_ranks_bundled` makes, all on the
-    card; `chip_smoke.py` times it apart from that glue. The kernel writes
-    every element of its outputs."""
+    """G3 alone, on the int32 buffers of `topo_ranks_bundled`, all on the
+    card, in the form `kernel_form` gives; `chip_smoke.py` times it apart
+    from that glue. The kernel writes every element of its outputs."""
     B, N, P = in_nbr.shape
     R = aligned.shape[2]
+    form = kernel_form("graph_topo_bundled", N, R=R, P=P)
     stream = torch.cuda.current_stream(in_nbr.device).cuda_stream
     with torch.cuda.device(in_nbr.device):
         rc = _lib().graph_topo_bundled_launch(
             in_nbr.data_ptr(), indeg.data_ptr(), aligned.data_ptr(), acount.data_ptr(),
             n_nodes.data_ptr(), rank_of.data_ptr(), rank_to_node.data_ptr(), B, N, P, R,
-            topo_steps(N), stream)
+            topo_steps(N), int(form == "shared"), stream)
     _build.check(_lib(), rc, "graph_topo_bundled")
     _build.LAUNCHES["graph_topo_bundled"] += 1
+    _build.BUILD_FORMS[("graph_topo_bundled", N, form)] += 1
 
 
 # ------------------------------------------------------------ G4: fusion
@@ -778,8 +801,12 @@ def device_build(bb_codes, bb_w, bb_len, lseqs, lw, llen, lbegin, lend, lfull, n
                                   lbegin_s[s], lend_s[s], lfull_s[s] | ~active, n_nodes)
         in_nbr, indeg, out_deg, ovf_p = build_in_slots(
             sub["tails"], sub["heads"], ar_e < sub["n_edges"].long()[:, None], N, p_cap)
+        # only a live window's order is read (a frozen one's layer is
+        # neither aligned nor fused): G3 ranks no node of the others, whose
+        # clamped graphs can hold cycles that run its machine to the cap
         rank_of, rank_to_node = topo_ranks_bundled(in_nbr, indeg, sub["aligned"], sub["acount"],
-                                                   sub["n_sub"])
+                                                   torch.where(live, sub["n_sub"], 0),
+                                                   check=False)
         codes_dp, preds_dp, is_sink = build_dp_arrays(rank_of, rank_to_node, in_nbr, indeg,
                                                       out_deg, sub["codes"], sub["n_sub"])
         # K1 sees a frozen window's rows with row 0 as their one predecessor

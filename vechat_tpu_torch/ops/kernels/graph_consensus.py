@@ -356,7 +356,7 @@ def device_linear(bb_codes, bb_w, bb_len, lseqs, lw, llen, lbegin, lend, lfull, 
     slots = ovf_in | ovf_out
     n_nodes = torch.where(bad | slots, 0, built["n_nodes"].clamp_max(n_cap))
     rank_of, rank_to_node = topo_ranks_bundled(in_nbr, indeg, built["aligned"], built["acount"],
-                                               n_nodes)
+                                               n_nodes, check=False)
     cons, cons_len, branch = heaviest_bundle(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of,
                                              rank_to_node, n_nodes)
     cov = consensus_coverage(cons, cons_len, tails, heads, valid, built["lab_lo"],

@@ -33,7 +33,10 @@ as PyTorch ops on the tensors' device. Semantics kept bit for bit:
 
 `dfs_preorder` (G1) and `topo_ranks` (G2) launch the kernels of
 `csrc/graph_cycle.cu` on CUDA tensors and run their plain versions, the
-batched machines of the JAX program, on CPU tensors. `poa_align_mixed` runs
+batched machines of the JAX program, on CPU tensors. G1 stages a window's
+adjacency compactly in shared memory where its slots fit `dfs_slot_cap`,
+else walks the rows where they lie; the cycle gives it its own tensors as
+they are (`check=False`). `poa_align_mixed` runs
 K1 once for each align mode that has sequences (nw at the command line's
 scores, sw at 3/-5/-4) and the dense walk with the node ids of the ranks,
 in launches cut by the backend's `LAUNCH_BYTES`; its results do not depend
@@ -247,18 +250,35 @@ def build_undirected_adjacency(tails, heads, valid, n_nodes_cap: int, a_cap: int
 
 _DFS_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _TOPO_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-# largest N a launch takes (the shared-memory stack and bitmap of one warp)
+_INTS3 = ctypes.c_int * 3
+# largest N a launch takes (G1's frames, offsets, outputs and bitmap, and G2's
+# stack and bitmap, in a block's shared memory)
 N_MAX = 8192
+# shared memory a block can opt into on Hopper (227 KB)
+SMEM_OPTIN = 232448
+# G1's block (csrc/graph_cycle.cu:kDfsThreads): the scan keeps a word a warp
+DFS_THREADS = 512
 
 
 def _lib():
     lib = _build.get_lib("graph_cycle")
     if lib.graph_dfs_launch.argtypes is None:
-        lib.graph_dfs_launch.argtypes = _DFS_ARGS
-        lib.graph_dfs_launch.restype = ctypes.c_int
-        lib.graph_topo_launch.argtypes = _TOPO_ARGS
-        lib.graph_topo_launch.restype = ctypes.c_int
+        for fn, args in ((lib.graph_dfs_launch, _DFS_ARGS), (lib.graph_topo_launch, _TOPO_ARGS),
+                         (lib.graph_dfs_smem, [ctypes.c_int, ctypes.c_int, _INTS3]),
+                         (lib.graph_cycle_attrs, [ctypes.c_int, _INTS3])):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_attrs(kernel: str) -> dict:
+    """Registers a thread, static shared memory and local memory (spills)
+    of G1 ("graph_dfs") or G2 ("graph_topo"), as the card's loader reports
+    them."""
+    out = _INTS3()
+    rc = _lib().graph_cycle_attrs({"graph_dfs": 0, "graph_topo": 1}[kernel], out)
+    _build.check(_lib(), rc, "graph_cycle_attrs")
+    return dict(registers=out[0], static_smem_bytes=out[1], local_bytes=out[2])
 
 
 def _int32(t):
@@ -266,6 +286,29 @@ def _int32(t):
 
 
 # ------------------------------------------------------------ G1: DFS
+
+
+def dfs_fixed_bytes(N: int) -> int:
+    """G1's shared memory without its slots (csrc/graph_cycle.cu:
+    dfs_fixed_bytes): the scan's word a warp, the stack's frames [N] int4,
+    the slot offsets [N + 1], new_id and order [N], the visited bitmap."""
+    return 4 * (DFS_THREADS // 32 + 7 * N + 1 + (N + 31) // 32)
+
+
+def dfs_slot_cap(N: int, A: int) -> int:
+    """The adjacency slots G1 stages compactly in shared memory
+    (dfs_slot_cap): 4N (the cycle's graphs have E = 2N edges, so their
+    slots below min(deg, A) sum to at most 4N), at most N a lane, and no
+    more than the block's shared memory holds beside the rest. A window
+    with more slots is walked from its rows where they lie."""
+    return max(0, min(4 * N, min(A, 32) * N, (SMEM_OPTIN - dfs_fixed_bytes(N)) // 4))
+
+
+def dfs_compact(deg, A: int):
+    """[B] bool: True where G1 stages the window's slots compactly in shared
+    memory, False where it walks the rows where they lie; its slots,
+    min(deg, A, 32) a node, within dfs_slot_cap."""
+    return deg.long().clamp(0, min(A, 32)).sum(dim=1) <= dfs_slot_cap(deg.shape[1], A)
 
 
 def _dfs_plain(adj, deg, comp_mask, root):
@@ -316,12 +359,15 @@ def _dfs_plain(adj, deg, comp_mask, root):
     return new_id, order, cnt
 
 
-def dfs_preorder(adj, deg, comp_mask, root):
+def dfs_preorder(adj, deg, comp_mask, root, check=True):
     """Preorder DFS numbering of the winning component from its min-id root
     (graph.cpp:984-1019). adj [B, N, A], deg [B, N], comp_mask [B, N] bool,
     root [B]. Returns (new_id [B, N], -1 outside the component; order
     [B, N], preorder position -> node id; n_sub [B]). CPU tensors run the
-    plain machine; CUDA tensors launch G1 or raise."""
+    plain machine; CUDA tensors launch G1 or raise. With `check` the inputs
+    are made int32 (root int64, comp_mask bytes) and contiguous and
+    checked; the cycle passes False for its own tensors, which are so
+    already: G1 is launched on them as they are."""
     B, N, A = adj.shape
     dev = adj.device
     if dev.type == "cpu":
@@ -330,21 +376,28 @@ def dfs_preorder(adj, deg, comp_mask, root):
         raise ValueError(f"unsupported device {dev}")
     if A > 32 or N > N_MAX:
         raise ValueError(f"G1 takes A <= 32 and N <= {N_MAX}, got A={A}, N={N}")
-    adj, deg, root = _int32(adj), _int32(deg), _int32(root)
-    comp = comp_mask.to(torch.uint8).contiguous()
-    _check_inputs(dict(adj=adj, deg=deg, root=root), torch.int32, dev)
-    new_id = torch.empty((B, N), dtype=torch.int32, device=dev)
-    order = torch.empty_like(new_id)
-    n_sub = torch.empty((B,), dtype=torch.int32, device=dev)
+    if check:
+        adj, deg, root = _int32(adj), _int32(deg), root.to(torch.int64).contiguous()
+        if comp_mask.dtype not in (torch.bool, torch.uint8):
+            comp_mask = comp_mask.to(torch.uint8)
+        comp_mask = comp_mask.contiguous()
+        _check_inputs(dict(adj=adj, deg=deg), torch.int32, dev)
+        _check_inputs(dict(root=root), torch.int64, dev)
+        _check_inputs(dict(comp_mask=comp_mask), comp_mask.dtype, dev)
+        if deg.shape != (B, N) or comp_mask.shape != (B, N) or root.shape != (B,):
+            raise ValueError("G1 takes adj [B, N, A], deg and comp_mask [B, N], root [B]")
+    out = torch.empty((2 * B * N + B,), dtype=torch.int32, device=dev)
+    new_id, order = out[: 2 * B * N].view(2, B, N)
+    n_sub = out[2 * B * N :]
     if B:
-        launch_dfs(adj, deg, comp, root, new_id, order, n_sub)
+        launch_dfs(adj, deg, comp_mask, root, new_id, order, n_sub)
     return new_id, order, n_sub
 
 
 def launch_dfs(adj, deg, comp, root, new_id, order, n_sub):
-    """G1 alone, on the int32 (comp: uint8) buffers `dfs_preorder` makes, all
-    on the card; `chip_smoke.py` times it apart from that glue. The kernel
-    writes every element of its outputs."""
+    """G1 alone, on `dfs_preorder`'s buffers (adj, deg int32; comp bool or
+    uint8; root int64), all on the card; `chip_smoke.py` times it apart
+    from that glue. The kernel writes every element of its outputs."""
     B, N, A = adj.shape
     stream = torch.cuda.current_stream(adj.device).cuda_stream
     with torch.cuda.device(adj.device):
@@ -353,6 +406,15 @@ def launch_dfs(adj, deg, comp, root, new_id, order, n_sub):
                                      n_sub.data_ptr(), B, N, A, stream)
     _build.check(_lib(), rc, "graph_dfs")
     _build.LAUNCHES["graph_dfs"] += 1
+
+
+def dfs_smem(N: int, A: int) -> tuple:
+    """(slot capacity, shared memory in bytes) of a G1 launch at (N, A), as
+    the library computes them: `dfs_slot_cap` and `dfs_fixed_bytes` are
+    their mirror."""
+    out = _INTS3()
+    _lib().graph_dfs_smem(N, A, out)
+    return out[0], out[1]
 
 
 # ------------------------------------------------------- subgraph renumber
@@ -719,7 +781,7 @@ def prune_and_rebuild(tails, heads, weights, valid, codes, n_alive, avg_weight, 
     labels = cc_min_labels(tails, heads, keep, node_alive, stats)
     comp_mask, root = select_component(labels, node_alive)
     adj, deg, ovf_a = build_undirected_adjacency(tails, heads, keep, n_cap, a_cap)
-    new_id, order, n_sub = dfs_preorder(adj, deg, comp_mask, root)
+    new_id, order, n_sub = dfs_preorder(adj, deg, comp_mask, root, check=False)
     t2, h2, w2, v2, ne2, codes2 = renumber_subgraph(tails, heads, keep, new_id, order, codes)
     in_nbr, indeg, out_deg, ovf_p = build_in_slots(t2, h2, v2, n_cap, p_cap)
     n_sub = n_sub.long()
