@@ -5,8 +5,9 @@
     python3 chip_smoke.py --save-k3 PATH   # also save phase 3c's K3 inputs
     python3 chip_smoke.py --save-k4 PATH   # also save phase 3d's and every phase-3 K4 launch's inputs
     python3 chip_smoke.py --save-full PATH # also save phase 9a's inputs and 9b's heaviest launch's
-    python3 chip_smoke.py --save-build PATH  # also save phase 6's heaviest G1 and phase 7's
-                                             # heaviest G3, G4 and G5 launches
+    python3 chip_smoke.py --save-build PATH  # also save phase 6's heaviest G1 and G2, phase
+                                             # 7's heaviest G3, G4 and G5 and phase 8's
+                                             # heaviest G6 launches at each N
                                              # (any of the four may be given)
 
 Phases (each raises on failure; the script exits non-zero on any):
@@ -71,7 +72,7 @@ Phases (each raises on failure; the script exits non-zero on any):
      launches and device seconds of K1, the dense walk, G1 and G2; then G1
      and G2 on the inputs of their heaviest launches, each held to its plain
      version and timed (wrapper as the cycle calls it, kernel alone, plain),
-     with its registers and shared memory, and G1's form
+     with its registers, shared memory and form
   7. the device build (VECHAT_DEVICE_BUILD=1: round 1's incremental build
      and prune cycle on the card, G3, G4 and G5 with K1 and the dense walk,
      then G1 and G2): (a) both goldens through `vechat --backend cuda`,
@@ -86,8 +87,8 @@ Phases (each raises on failure; the script exits non-zero on any):
      heaviest launches, each held to its plain version and timed (wrapper
      as the build calls it, kernel alone, plain), with its registers and
      shared memory and form (`--save-build PATH` saves the heaviest G3,
-     G4 and G5 launch at each N, and phase 6's G1, for `k1_probe.py
-     time-build`)
+     G4 and G5 launch at each N, and phase 6's G1 and G2 and phase 8's G6,
+     for `k1_probe.py time-build`)
   8. the device round-2 consensus (VECHAT_DEVICE_LINEAR=1: round 2's build,
      heaviest bundle with branch completion, coverage and trim on the card,
      G3, G4, G5, K1, the dense walk and G6): (a) both goldens through
@@ -99,7 +100,8 @@ Phases (each raises on failure; the script exits non-zero on any):
      routes by reason, dispatches, the program's pack/device/fetch seconds
      and every kernel's launches (no profiler); then G6 on the inputs of
      its heaviest launch, held to its plain version and timed (wrapper,
-     kernel alone, plain)
+     kernel alone, plain), with the rank steps of its longest window, its
+     registers, shared memory and form
   9. B10, the full-matrix DP (`--backend full`, F1 and F2 in
      `csrc/poa_full.cu`): (a) F1 and F2 on a synthesized batch of 64 native
      window graphs at B10's buckets (N=1024, S=767, P=8) in nw, sw and ov,
@@ -1813,6 +1815,8 @@ def scale_out_phase(tmp, reads_path, stream_host, n_reads, backend_name="cuda",
 # bit, id or rank, stack)
 GRAPH_OPS_STEP = 12
 CYCLE_KERNELS = ("graph_dfs", "graph_topo")
+# their launches' tags in --save-build's npz
+CYCLE_TAGS = {"graph_dfs": "dfs", "graph_topo": "rank"}
 
 
 def graph_work(name, args, got):
@@ -1841,12 +1845,13 @@ def graph_work(name, args, got):
 def graph_kernel_row(name, args):
     """G1 or G2 on the inputs of phase 6's heaviest launch (`args`, as the
     cycle gave them to the wrapper): held to its plain version (exact), the
-    wrapper as the cycle calls it (G1 without its checks) and the plain
+    wrapper as the cycle calls it (without its checks) and the plain
     version by CUDA events, the kernel alone (`kernel_ms()`, on one copy of
     the inputs: on the path the torch ops have just written them, so they
     are in the L2), the bound, µs a step (2 a node of the largest
-    component), and the kernel's registers and shared memory; G1's also
-    its form (its windows whose slots it staged in shared memory)."""
+    component), the kernel's registers, spills and shared memory as its
+    launcher sizes it, and its form (the windows whose slots or rows it
+    staged in shared memory)."""
     import torch
 
     from vechat_tpu_torch.ops.kernels import graph_cycle as gc
@@ -1854,7 +1859,8 @@ def graph_kernel_row(name, args):
     wrapper, plain, launch, names = {
         "graph_dfs": (lambda *a: gc.dfs_preorder(*a, check=False), gc._dfs_plain, gc.launch_dfs,
                       ("new_id", "order", "n_sub")),
-        "graph_topo": (gc.topo_ranks, gc._topo_plain, gc.launch_topo, ("rank_of", "rank_to_node")),
+        "graph_topo": (lambda *a: gc.topo_ranks(*a, check=False), gc._topo_plain, gc.launch_topo,
+                       ("rank_of", "rank_to_node")),
     }[name]
     B, N, K = args[0].shape
     shape = f"B={B} N={N} {'A' if name == 'graph_dfs' else 'P'}={K} (phase 6's heaviest launch)"
@@ -1869,7 +1875,10 @@ def graph_kernel_row(name, args):
                      form="shared" if bool(compact.all()) else "global in some windows",
                      slots_most=int(args[1].long().clamp(0, min(K, 32)).sum(1).max()))
     else:
-        extra.update(smem_bytes=4 * ((N + 31) // 32 + N))
+        staged = gc.topo_staged(args[0], args[2])
+        cap, smem = gc.topo_smem(N, K)
+        extra.update(smem_bytes=smem, row_cap=cap, windows_staged=int(staged.sum()),
+                     form="shared" if bool(staged.all()) else "global in some windows")
     if name == "graph_dfs":
         ins = (args[0].to(torch.int32).contiguous(), args[1].to(torch.int32).contiguous(),
                args[2].contiguous(), args[3].to(torch.int64).contiguous())
@@ -1902,8 +1911,9 @@ def device_cycle_phase(tmp, backend_name="cuda", goldens=GOLDENS):
     cc_min_labels' rounds, and the launches and device seconds of K1, the
     dense walk, G1 and G2. Then G1 and G2 on the inputs of their heaviest
     launches (`graph_kernel_row`). Returns (the kernels' launches in the
-    phase, {G1, G2: row}, {N: the inputs of G1's heaviest launch at N}).
-    With another `backend_name` it is a rehearsal on the CPU."""
+    phase, {G1, G2: row}, {(tag, N): the inputs of G1's ("dfs") or G2's
+    ("rank") heaviest launch at N}). With another `backend_name` it is a
+    rehearsal on the CPU."""
     import torch
 
     from vechat_tpu_torch.cli.vechat_main import build_parser, run
@@ -1970,21 +1980,23 @@ def device_cycle_phase(tmp, backend_name="cuda", goldens=GOLDENS):
         for k in ("poa_dp", "poa_walk_dense", *CYCLE_KERNELS):
             if launches[k] == 0:
                 raise RuntimeError(f"6: kernel {k} was not launched by the device cycle")
-    rows, dfs_by_n = {}, {}
+    rows, by_n = {}, {}
     for name in CYCLE_KERNELS:
         nodes = torch.stack([n for n, _, _ in kept[name]]).tolist() if kept[name] else []
         heaviest = max(range(len(nodes)), key=lambda i: (nodes[i], kept[name][i][1]))
         args = kept[name][heaviest][2]
-        if name == "graph_dfs":  # the heaviest at each N, for --save-build
-            for i in sorted(range(len(nodes)), key=lambda i: (nodes[i], kept[name][i][1])):
-                dfs_by_n[kept[name][i][2][0].shape[1]] = kept[name][i][2]
+        # the heaviest at each N, for --save-build
+        for i in sorted(range(len(nodes)), key=lambda i: (nodes[i], kept[name][i][1])):
+            by_n[(CYCLE_TAGS[name], kept[name][i][2][0].shape[1])] = kept[name][i][2]
         kept[name] = None
         rows[name] = graph_kernel_row(name, args) if on_card else {}
     log(dict(phase="device_cycle_total", wall_s=time.perf_counter() - t_phase,
              wall_s_runs=walls, device_busy_s=busy,
              device_idle_share=1 - busy / walls if on_card else "not measured",
-             launches={k: v for k, v in launches.items() if v}))
-    return launches, rows, dfs_by_n
+             launches={k: v for k, v in launches.items() if v},
+             forms={f"{k} N={n} {f}": v for (k, n, f), v in sorted(_build.BUILD_FORMS.items())
+                    if k in CYCLE_KERNELS}))
+    return launches, rows, by_n
 
 
 # ---------------------------------------------- phase 7: the device build
@@ -2325,9 +2337,10 @@ def heaviest_by_n(best, name):
 
 
 def save_build_inputs(path, launches, **extra):
-    """G1, G3, G4 and G5 launches {(tag "dfs", "topo", "fuse" or "reach",
-    N): [argument or None]} to an npz for `k1_probe.py time-build --inputs
-    PATH` (`--save-build PATH`: phase 6's and 7's heaviest at each N):
+    """G1, G2, G3, G4, G5 and G6 launches {(tag "dfs", "rank", "topo",
+    "fuse", "reach" or "bundle", N): [argument or None]} to an npz for
+    `k1_probe.py time-build --inputs PATH` (`--save-build PATH`: phase 6's,
+    7's and 8's heaviest at each N):
     `{tag}_N{N}_n` the count of arguments, `{tag}_N{N}_{i}` each that is
     not None; `extra` as it is."""
     out = dict(extra)
@@ -2384,15 +2397,12 @@ def synth_build_batch(rng, B, N, depth=12, W=576):
             np.full(B, depth, np.int32))
 
 
-def synth_dfs_batch(rng, B, N, A=32):
-    """G1's arguments (adj, deg, comp_mask, root) for B windows at node
-    capacity N, as the prune cycle makes them from POA-like DAGs: a chain
-    through n in [N/2, N] nodes plus forward skip edges of 2-40 nodes, 2N
-    edges at most, inserted in a random order, every edge kept. For
-    `k1_probe.py time-build` at an N that phase 6 did not launch."""
+def _dag_batch(rng, B, N):
+    """B POA-like DAGs at node capacity N: a chain through n in [N/2, N]
+    nodes plus forward skip edges of 2-40 nodes, 2N edges at most, inserted
+    in a random order. Returns torch (tails, heads, valid [B, 2N], alive
+    [B, N])."""
     import torch
-
-    from vechat_tpu_torch.ops.kernels import graph_cycle as gc
 
     E = 2 * N
     tails = np.zeros((B, E), np.int64)
@@ -2408,16 +2418,68 @@ def synth_dfs_batch(rng, B, N, A=32):
         pairs = [pairs[k] for k in rng.permutation(len(pairs))][:E]
         n_edges[b] = len(pairs)
         tails[b, : len(pairs)], heads[b, : len(pairs)] = zip(*pairs)
-    t, h = torch.from_numpy(tails), torch.from_numpy(heads)
     valid = torch.from_numpy(np.arange(E)[None, :] < n_edges[:, None])
     alive = torch.from_numpy(np.arange(N)[None, :] < n_nodes[:, None])
+    return torch.from_numpy(tails), torch.from_numpy(heads), valid, alive
+
+
+def synth_dfs_batch(rng, B, N, A=32):
+    """G1's arguments (adj, deg, comp_mask, root) for B windows at node
+    capacity N, as the prune cycle makes them from `_dag_batch`'s graphs,
+    every edge kept. For `k1_probe.py time-build` at an N that phase 6 did
+    not launch."""
+    from vechat_tpu_torch.ops.kernels import graph_cycle as gc
+
+    t, h, valid, alive = _dag_batch(rng, B, N)
     comp, root = gc.select_component(gc.cc_min_labels(t, h, valid, alive), alive)
     adj, deg, _ = gc.build_undirected_adjacency(t, h, valid, N, A)
     return [x.numpy() for x in (adj, deg, comp, root)]
 
 
-def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GOLDENS,
-                       save=None, saved=None):
+def synth_rank_batch(rng, B, N, device, P=16):
+    """G2's arguments (in_nbr, indeg, n_sub) for B windows at node capacity
+    N, as the prune cycle makes them from `_dag_batch`'s graphs, every edge
+    kept: the largest component numbered by G1 on `device` and renumbered,
+    in-slots of P. For `k1_probe.py time-build` at an N that phase 6 did
+    not launch."""
+    from vechat_tpu_torch.ops.kernels import graph_cycle as gc
+
+    t, h, valid, alive = (x.to(device) for x in _dag_batch(rng, B, N))
+    comp, root = gc.select_component(gc.cc_min_labels(t, h, valid, alive), alive)
+    adj, deg, _ = gc.build_undirected_adjacency(t, h, valid, N, 32)
+    new_id, order, n_sub = gc.dfs_preorder(adj, deg, comp, root)
+    codes = t.new_zeros((B, N))
+    t2, h2, _, v2, _, _ = gc.renumber_subgraph(t, h, valid, new_id, order, codes)
+    in_nbr, indeg, _, _ = gc.build_in_slots(t2, h2, v2, N, P)
+    return [x.cpu().numpy() for x in (in_nbr, indeg, n_sub)]
+
+
+def synth_bundle_batch(rng, B, N, device):
+    """G6's arguments for B windows at node capacity N, as round 2's device
+    consensus gives them: `device_linear` on `synth_build_batch`'s windows
+    on `device` (E = 2N, R = 8, P = 16), its one G6 launch captured. For
+    `k1_probe.py time-build` at an N that phase 8 did not launch."""
+    import torch
+
+    from vechat_tpu_torch.ops.kernels import graph_consensus as gcs
+
+    args = [torch.from_numpy(a).to(device) for a in synth_build_batch(rng, B, N)]
+    caught, real = [], gcs.heaviest_bundle
+
+    def keep(*a, **kw):
+        caught.append(a)
+        return real(*a, **kw)
+
+    gcs.heaviest_bundle = keep
+    try:
+        gcs.device_linear(*args, torch.ones(B, dtype=torch.bool, device=device), N, 2 * N, 8, 3,
+                          -5, -4, p_cap=16)
+    finally:
+        gcs.heaviest_bundle = real
+    return [x.cpu().numpy() for x in caught[0]]
+
+
+def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GOLDENS):
     """Phase 7, the device build (VECHAT_DEVICE_BUILD=1): (a) both goldens
     through the command line's `run`, byte for byte against the committed
     goldens; (b) `reads_path`, the first `n_reads` reads of phase 3's
@@ -2430,11 +2492,9 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
     their device seconds (7b alone, by CUDA events around each launch,
     `_event_timed`), and the form each G4 and G5 launch took (shared or
     global memory, by N). Then G3, G4 and G5 on the inputs of their
-    heaviest launches (`build_kernel_row`); `save`, a path, also gets the
-    heaviest G3, G4 and G5 launch at each N and the launches of `saved`
-    (phase 6's G1 at each N: {(tag, N): arguments}; `save_build_inputs`).
-    Returns (the
-    kernels' launches in the phase, {G3, G4, G5: row}). With another
+    heaviest launches (`build_kernel_row`). Returns (the kernels' launches
+    in the phase, {G3, G4, G5: row}, {(tag, N): the inputs of the heaviest
+    G3, G4 and G5 launch at N}, for `save_build_inputs`). With another
     `backend_name` it is a rehearsal on the CPU."""
     import torch
 
@@ -2511,10 +2571,8 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
         for k in ("poa_dp", "poa_walk_dense", *BUILD_KERNELS):
             if launches[k] == 0:
                 raise RuntimeError(f"7: kernel {k} was not launched by the device build")
-    if save:
-        save_build_inputs(save, {**(saved or {}), **{
-            (tag, N): args for name, tag in BUILD_TAGS.items()
-            for N, args in heaviest_by_n(best, name).items()}})
+    by_n = {(tag, N): args for name, tag in BUILD_TAGS.items()
+            for N, args in heaviest_by_n(best, name).items()}
     rows = {}
     for name in BUILD_KERNELS:
         entries = list(best[name].values())
@@ -2526,7 +2584,7 @@ def device_build_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=GO
              wall_s_7b=walls, capture_host_s_7b=captured, kernels_device_s_7b=busy,
              launches={k: v for k, v in launches.items() if v},
              forms={f"{k} N={n} {f}": v for (k, n, f), v in sorted(_build.BUILD_FORMS.items())}))
-    return launches, rows
+    return launches, rows, by_n
 
 
 # ------------------------------------- phase 8: the device round-2 consensus
@@ -2562,17 +2620,23 @@ def bundle_work(args, stats):
 def bundle_kernel_row(args):
     """G6 on the inputs of phase 8's heaviest launch (`args`, as the program
     gave them to the wrapper): held to its plain version (exact), the
-    wrapper (median of 5) and the plain version (once, with its counts) by
-    CUDA events, the kernel alone (`kernel_ms()` on one copy of the inputs:
-    on the path the torch ops have just written them, so they are in the
-    L2), and the bound."""
+    wrapper as the program calls it (without its checks; median of 5) and
+    the plain version (once, with its counts) by CUDA events, the kernel
+    alone (`kernel_ms()` on one copy of the inputs: on the path the torch
+    ops have just written them, so they are in the L2), the bound, µs a
+    rank step over the longest window's steps (`steps_longest`, all its
+    passes: the launch lasts as long as its slowest window) and over all
+    of them a warp, the kernel's registers, spills and shared memory as
+    its launcher sizes it, and its form (the windows whose ranks it staged
+    in shared memory)."""
     import torch
 
     from vechat_tpu_torch.ops.kernels import graph_consensus as gcs
 
     B, N, P = args[0].shape
     shape = f"B={B} N={N} P={P} Q={args[3].shape[2]} (phase 8's heaviest launch)"
-    got = gcs.heaviest_bundle(*args)
+    wrapper = lambda: gcs.heaviest_bundle(*args, check=False)  # noqa: E731
+    got = wrapper()
     stats = {}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2581,8 +2645,8 @@ def bundle_kernel_row(args):
     end.synchronize()
     pms = start.elapsed_time(end)
     err = _max_err(f"graph_bundle {shape}", ("cons", "cons_len", "overflow"), got, want,
-                   again=lambda: gcs.heaviest_bundle(*args))
-    ms = time_ms(lambda: gcs.heaviest_bundle(*args))
+                   again=wrapper)
+    ms = time_ms(wrapper)
     ins = tuple(a.to(torch.int32).contiguous() for a in args)
     res = (torch.empty_like(got[0]), torch.empty_like(got[1]), torch.empty_like(got[1]))
     kms = kernel_ms(lambda r: gcs.launch_bundle(*ins, *res))
@@ -2591,10 +2655,17 @@ def bundle_kernel_row(args):
         raise RuntimeError(f"graph_bundle {shape}: the timed launches differ from the wrapper's")
     nbytes, ops = bundle_work(args, stats)
     b_ms, b_by = bound_ms(nbytes, ops)
+    longest = int(stats["bundle_steps_window"].max())
+    staged = gcs.bundle_staged(args[7], N, P)
+    cap, smem = gcs.bundle_smem(N, P)
     row = dict(kernel="graph_bundle", shape=shape, ms=ms, kernel_ms=kms, plain_ms=pms,
                max_abs_err=err, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
                rank_steps=stats["bundle_steps"], branch_passes=stats["branch_passes"],
-               us_a_step_a_warp=kms * 1e3 * B / max(stats["bundle_steps"], 1))
+               steps_longest=longest, us_a_step=kms * 1e3 / max(longest, 1),
+               us_a_step_a_warp=kms * 1e3 * B / max(stats["bundle_steps"], 1),
+               **gcs.kernel_attrs(), smem_bytes=smem, rank_cap=cap,
+               windows_staged=int(staged.sum()),
+               form="shared" if bool(staged.all()) else "global in some windows")
     log_row(row)
     return row
 
@@ -2611,7 +2682,9 @@ def device_linear_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=G
     and the launches of every kernel (8b: round 1's build counts too). No
     run is profiled. Then G6 on the inputs of its heaviest launch
     (`bundle_kernel_row`). Returns (the kernels' launches in the phase,
-    {G6: row}). With another `backend_name` it is a rehearsal on the CPU."""
+    {G6: row}, {("bundle", N): the inputs of G6's heaviest launch at N},
+    for `save_build_inputs`). With another `backend_name` it is a
+    rehearsal on the CPU."""
     import torch
 
     from vechat_tpu_torch.cli.vechat_main import build_parser, run
@@ -2685,11 +2758,15 @@ def device_linear_phase(tmp, reads_path, n_reads, backend_name="cuda", goldens=G
     entries = list(best.values())
     works = torch.stack([w for w, _ in entries]).tolist()
     args = entries[max(range(len(works)), key=lambda i: works[i])][1]
+    by_n = {("bundle", N): a for N, a in heaviest_by_n({"graph_bundle": best},
+                                                        "graph_bundle").items()}
     best.clear()
     rows = {"graph_bundle": bundle_kernel_row(args) if on_card else {}}
     log(dict(phase="device_linear_total", wall_s=time.perf_counter() - t_phase, wall_s_runs=walls,
-             launches={k: v for k, v in launches.items() if v}))
-    return launches, rows
+             launches={k: v for k, v in launches.items() if v},
+             forms={f"{k} N={n} {f}": v for (k, n, f), v in sorted(_build.BUILD_FORMS.items())
+                    if k in LINEAR_KERNELS}))
+    return launches, rows, by_n
 
 
 # ------------------------------ phase 9: B10, the full-matrix DP (--backend full)
@@ -3195,13 +3272,17 @@ def main(argv=()):
             scale_out_launches, dense_row = scale_out_phase(tmp, part, stream_host,
                                                             SCALE_OUT_READS)
             lap("phase 5")
-            cycle_launches, cycle_rows, dfs_by_n = device_cycle_phase(tmp)
+            cycle_launches, cycle_rows, cycle_by_n = device_cycle_phase(tmp)
             lap("phase 6")
-            build_launches, build_rows = device_build_phase(
-                tmp, part, SCALE_OUT_READS, save=saves.get("--save-build"),
-                saved={("dfs", N): args for N, args in dfs_by_n.items()})
+            build_launches, build_rows, build_by_n = device_build_phase(tmp, part,
+                                                                        SCALE_OUT_READS)
             lap("phase 7")
-            linear_launches, linear_rows = device_linear_phase(tmp, part, SCALE_OUT_READS)
+            linear_launches, linear_rows, linear_by_n = device_linear_phase(tmp, part,
+                                                                            SCALE_OUT_READS)
+            if "--save-build" in saves:
+                save_build_inputs(saves["--save-build"],
+                                  {**cycle_by_n, **build_by_n, **linear_by_n})
+            del cycle_by_n, build_by_n, linear_by_n
             lap("phase 8")
             arrays_9a = full_kernels_phase(rng)
             lap("phase 9a")

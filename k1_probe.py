@@ -148,16 +148,21 @@ longest walk's steps), with ptxas's registers of each kernel.
 
 `time-build` runs G4, G5 and G3, the device build's fusion walk,
 reachability and bundled topological order
-(`vechat_tpu_torch/csrc/graph_build.cu`), and G1, the prune cycle's DFS
-(`csrc/graph_cycle.cu`), of each DIR's package in a process of its own,
-in the order given, on the inputs of phase 7's heaviest G3, G4 and G5
-launch and phase 6's heaviest G1 launch at N = 256, 1152 and 2048, as
+(`vechat_tpu_torch/csrc/graph_build.cu`), G1 and G2, the prune cycle's
+DFS and topological order (`csrc/graph_cycle.cu`), and G6, round 2's
+heaviest bundle (`csrc/graph_consensus.cu`), of each DIR's package in a
+process of its own, in the order given, on the inputs of phase 7's
+heaviest G3, G4 and G5 launch, phase 6's heaviest G1 and G2 launch and
+phase 8's heaviest G6 launch at N = 256, 1152 and 2048, as
 `chip_smoke.py --save-build NPZ` saved them; an N that phase 7 did not
 launch (or every N, without --inputs) is filled by a device build of 64
 windows drawn by chip_smoke.py's `synth_build_batch` at that N, this
-checkout's package capturing its heaviest launches, and one that phase 6
-did not by G1's inputs on 64 DAGs drawn by `synth_dfs_batch`. Each
-package's outputs are held to the plain versions first. Each line is one
+checkout's package capturing its heaviest launches, one that phase 6
+did not by G1's and G2's inputs on 64 DAGs drawn by `synth_dfs_batch`
+and `synth_rank_batch`, and one that phase 8 did not by G6's inputs from
+`device_linear` on 64 windows of `synth_bundle_batch`. G2 and G6 are
+timed as `_time_rank_bundle` says. Each package's outputs are held to
+the plain versions first. Each line is one
 (DIR, kernel, N): the wrapper as the build or the cycle calls it (`ms`:
 G4's in-place call without checks, G5's `reach_keep`, G3's and G1's
 without checks; for a package without `fuse_walk_`, G4's copying
@@ -978,18 +983,21 @@ BUILD_NS = (256, 1152, 2048)
 
 
 def _prep_build(inputs_path, out_path):
-    """time-build's inputs, with this checkout's package: the G1, G3, G4 and
-    G5 launches of `inputs_path` (chip_smoke.py --save-build) at each of
+    """time-build's inputs, with this checkout's package: the G1 to G6
+    launches of `inputs_path` (chip_smoke.py --save-build) at each of
     BUILD_NS; the build's others captured from a device build of synthetic
     windows (`synth_build_batch`) on the card, G1's drawn by
-    `synth_dfs_batch`; saved to out_path as `save_build_inputs` saves, with
-    `source_N{N}` and `dfs_source_N{N}`."""
+    `synth_dfs_batch`, G2's by `synth_rank_batch` and G6's by
+    `synth_bundle_batch`; saved to out_path as `save_build_inputs` saves,
+    with `source_N{N}`, `{dfs,rank,bundle}_source_N{N}` and G6's rank steps
+    a window, `bundle_steps_N{N}`."""
     import numpy as np
     import torch
 
     sys.path.insert(0, REPO)
     import chip_smoke as cs
     from vechat_tpu_torch.ops.kernels import graph_build as gb
+    from vechat_tpu_torch.ops.kernels import graph_consensus as gcs
 
     have = cs.load_build_inputs(inputs_path) if inputs_path else {}
     sources, dev = {}, torch.device("cuda")
@@ -1009,19 +1017,37 @@ def _prep_build(inputs_path, out_path):
         if ("dfs", N) not in have:
             sources[f"dfs_source_N{N}"] = np.array("synthesized: 64 windows, synth_dfs_batch")
             have[("dfs", N)] = cs.synth_dfs_batch(np.random.default_rng(cs.SEED + 29 + N), 64, N)
+        sources[f"rank_source_N{N}"] = np.array("phase 6's heaviest launch")
+        if ("rank", N) not in have:
+            sources[f"rank_source_N{N}"] = np.array("synthesized: 64 windows, synth_rank_batch")
+            have[("rank", N)] = cs.synth_rank_batch(np.random.default_rng(cs.SEED + 31 + N), 64,
+                                                    N, dev)
+        sources[f"bundle_source_N{N}"] = np.array("phase 8's heaviest launch")
+        if ("bundle", N) not in have:
+            sources[f"bundle_source_N{N}"] = np.array(
+                "synthesized: 64 windows, synth_bundle_batch")
+            have[("bundle", N)] = cs.synth_bundle_batch(np.random.default_rng(cs.SEED + 37 + N),
+                                                        64, N, dev)
+        # G6's rank steps a window over all its passes, by this checkout's
+        # plain version (an older one may not count them a window)
+        stats = {}
+        gcs._heaviest_bundle_plain(*(torch.from_numpy(a).to(dev) for a in have[("bundle", N)]),
+                                   stats=stats)
+        sources[f"bundle_steps_N{N}"] = stats["bundle_steps_window"].cpu().numpy()
     cs.save_build_inputs(out_path, {k: v for k, v in have.items() if k[1] in BUILD_NS},
                          **sources)
 
 
 def _time_cycle_build(pkg_dir, cs, inputs, sources, gpu):
-    """G3 and G1 of the package under pkg_dir on time-build's inputs (its
-    API, with the check switch or without, read off its wrappers); one
-    JSON line a (kernel, N)."""
+    """G3, G1, G2 and G6 of the package under pkg_dir on time-build's
+    inputs (its API, with the check switch or without, read off its
+    wrappers); one JSON line a (kernel, N)."""
     import inspect
 
     import torch
 
     from vechat_tpu_torch.ops.kernels import graph_build as gb
+    from vechat_tpu_torch.ops.kernels import graph_consensus as gcs
     from vechat_tpu_torch.ops.kernels import graph_cycle as gc
 
     dev = torch.device("cuda")
@@ -1080,6 +1106,79 @@ def _time_cycle_build(pkg_dir, cs, inputs, sources, gpu):
                               inputs=str(sources[f"dfs_source_N{N}"]), form=form, ms=ms,
                               kernel_ms=kms, idle_ms=idle_ms, steps_longest=steps,
                               us_a_step=kms * 1e3 / max(steps, 1), gpu=gpu)), flush=True)
+        _time_rank_bundle(pkg_dir, cs, inputs, sources, gpu, N, gc, gcs)
+
+
+def _time_rank_bundle(pkg_dir, cs, inputs, sources, gpu, N, gc, gcs):
+    """G2 and G6 of the package under pkg_dir at N (gc, gcs: its modules),
+    held to their plain versions: the wrapper as the cycle or round 2's
+    program calls it (a package with the check switch without its checks
+    and with G1's int32 n_sub; one without, as it was, its cycle's n_sub
+    int64), the kernel alone, the kernel with nothing to walk (`idle_ms`:
+    n_sub or n_nodes 0, the staging and write-back alone), µs a step over
+    the longest window's steps (G2: two a node; G6: all its passes, as
+    `_prep_build` counted them), the form, shared memory and registers;
+    one JSON line a kernel."""
+    import inspect
+
+    import torch
+
+    dev = torch.device("cuda")
+    i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+    new = "check" in inspect.signature(gc.topo_ranks).parameters
+    ins = [i32(torch.from_numpy(x).to(dev)) for x in inputs[("rank", N)]]
+    got = gc.topo_ranks(*ins)
+    for name, g, w in zip(("rank_of", "rank_to_node"), got, gc._topo_plain(*ins)):
+        assert torch.equal(g.long(), w.long()), f"G2 N={N}: {name}"
+    n_sub64 = ins[2].long()
+    call = (lambda: gc.topo_ranks(*ins, check=False)) if new else (
+        lambda: gc.topo_ranks(ins[0], ins[1], n_sub64))
+    ms = cs.time_ms(call, warmup=2, reps=20)
+    res = [torch.empty_like(t) for t in got]
+    kms = cs.kernel_ms(lambda r: gc.launch_topo(*ins, *res))
+    assert all(torch.equal(x, y) for x, y in zip(res, got)), f"G2 N={N}: the kernel alone"
+    idle = ins[:2] + [torch.zeros_like(ins[2])]
+    idle_ms = cs.kernel_ms(lambda r: gc.launch_topo(*idle, *res))
+    P = ins[0].shape[2]
+    if new:
+        staged = gc.topo_staged(ins[0], ins[2])
+        form = "shared" if bool(staged.all()) else "global in some windows"
+        smem = gc.topo_smem(N, P)[1]
+    else:
+        form, smem = "one warp", 4 * ((N + 31) // 32 + N)
+    steps = 2 * int(ins[2].clamp_max(N).max())
+    print(json.dumps(dict(pkg=pkg_dir, kernel="graph_topo", N=N, B=ins[0].shape[0], P=P,
+                          inputs=str(sources[f"rank_source_N{N}"]), form=form, smem_bytes=smem,
+                          ms=ms, kernel_ms=kms, idle_ms=idle_ms, steps_longest=steps,
+                          us_a_step=kms * 1e3 / max(steps, 1), **gc.kernel_attrs("graph_topo"),
+                          gpu=gpu)), flush=True)
+
+    new = "check" in inspect.signature(gcs.heaviest_bundle).parameters
+    ins = [i32(torch.from_numpy(x).to(dev)) for x in inputs[("bundle", N)]]
+    got = gcs.heaviest_bundle(*ins)
+    for name, g, w in zip(("cons", "cons_len", "overflow"), got, gcs._heaviest_bundle_plain(*ins)):
+        assert torch.equal(g.long(), w.long()), f"G6 N={N}: {name}"
+    call = (lambda: gcs.heaviest_bundle(*ins, check=False)) if new else (
+        lambda: gcs.heaviest_bundle(*ins))
+    ms = cs.time_ms(call, warmup=2, reps=20)
+    res = (torch.empty_like(got[0]), torch.empty_like(got[1]), torch.empty_like(got[1]))
+    kms = cs.kernel_ms(lambda r: gcs.launch_bundle(*ins, *res))
+    assert (torch.equal(res[0], got[0]) and torch.equal(res[1], got[1])
+            and torch.equal(res[2] != 0, got[2])), f"G6 N={N}: the kernel alone"
+    idle = ins[:7] + [torch.zeros_like(ins[7])]
+    idle_ms = cs.kernel_ms(lambda r: gcs.launch_bundle(*idle, *res))
+    P = ins[0].shape[2]
+    if new:
+        staged = gcs.bundle_staged(ins[7], N, P)
+        form = "shared" if bool(staged.all()) else "global in some windows"
+        extra = dict(smem_bytes=gcs.bundle_smem(N, P)[1], **gcs.kernel_attrs())
+    else:
+        form, extra = "one warp", dict(smem_bytes=8 * N)
+    steps = int(sources[f"bundle_steps_N{N}"].max())
+    print(json.dumps(dict(pkg=pkg_dir, kernel="graph_bundle", N=N, B=ins[0].shape[0], P=P,
+                          inputs=str(sources[f"bundle_source_N{N}"]), form=form, ms=ms,
+                          kernel_ms=kms, idle_ms=idle_ms, steps_longest=steps,
+                          us_a_step=kms * 1e3 / max(steps, 1), **extra, gpu=gpu)), flush=True)
 
 
 def _time_build(pkg_dir, inputs_path):

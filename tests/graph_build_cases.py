@@ -3,7 +3,9 @@ lookup's hard cases: duplicate (tail, head) pairs and appends at the E - 1
 clamp. The card tests (tests/test_torch_cuda.py) and the CPU warp model
 (tests/test_torch_graph_build.py) both use them. Each takes the walk's
 arguments as numpy arrays in `fuse_walk`'s order and returns a new list;
-the arrays it changes are copies."""
+the arrays it changes are copies. And windows of G6, the heaviest bundle,
+whose branch completion runs to its pass cap (`chain_bundle_windows`),
+for the card tests and G6's warp model (tests/test_torch_graph_consensus.py)."""
 
 import numpy as np
 
@@ -86,3 +88,31 @@ def at_the_edge_cap(args, windows=(0, 1, 2, 3)):
         _stream(out, b, [(x, cx), (-1, ca), (-1, cb), (a, ca), (bb, cb), (bb, cb), (bb, cb),
                          (x, cx), (a, ca)])
     return out
+
+
+def chain_bundle_windows(B, N, seed, P=16):
+    """`heaviest_bundle`'s arguments (numpy, int32) for B windows of one
+    chain each (40 to N nodes, rank = id), whose edge weights fall to 0
+    past a node near the start: the first strict maximum is that node, and
+    each branch-completion pass moves it one node on, so that a chain of
+    more than about 70 nodes stops at the 64-pass cap. One window in four
+    also has ties of weight and score: a second in-edge into every node,
+    from two nodes back, of the same weight as the first."""
+    rng = np.random.default_rng(seed)
+    in_nbr = np.zeros((B, N, P), np.int32)
+    in_w = np.zeros((B, N, P), np.int32)
+    indeg = np.zeros((B, N), np.int32)
+    out_nbr = np.zeros((B, N, P), np.int32)
+    out_deg = np.zeros((B, N), np.int32)
+    n_nodes = rng.integers(min(40, N), N + 1, size=B).astype(np.int32)
+    for b in range(B):
+        n, flat = int(n_nodes[b]), int(rng.integers(1, 5))
+        for v in range(1, n):
+            in_nbr[b, v, 0], in_w[b, v, 0], indeg[b, v] = v - 1, (3 if v <= flat else 0), 1
+            out_nbr[b, v - 1, 0], out_deg[b, v - 1] = v, 1
+            if b % 4 == 0 and v >= 2:
+                in_nbr[b, v, 1], in_w[b, v, 1], indeg[b, v] = v - 2, in_w[b, v, 0], 2
+                out_nbr[b, v - 2, out_deg[b, v - 2]] = v
+                out_deg[b, v - 2] += 1
+    ids = np.broadcast_to(np.arange(N, dtype=np.int32), (B, N)).copy()
+    return [in_nbr, in_w, indeg, out_nbr, out_deg, ids, ids.copy(), n_nodes]

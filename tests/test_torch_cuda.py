@@ -27,7 +27,7 @@ from vechat_tpu_torch.ops.native_graph import make_graph
 
 # from the test directory, which pytest puts on sys.path (it holds no
 # __init__.py): a `tests` package installed elsewhere may shadow `tests.`
-from graph_build_cases import at_the_edge_cap, with_duplicate_edges
+from graph_build_cases import at_the_edge_cap, chain_bundle_windows, with_duplicate_edges
 
 pytestmark = pytest.mark.cuda
 
@@ -1518,17 +1518,17 @@ def test_device_aligner_tiled_route_matches_cpu(cuda):
     assert gpu.device_tiles == cpu.device_tiles
 
 
-def graph_batch(seed, B, N, per_node=2, a_cap=32):
-    """B random POA-like DAGs of up to N nodes and per_node * N edges: a
-    chain through every node plus forward skip edges of up to 40 nodes,
-    inserted in a random order; the prune cycle's inputs of G1 (with every
-    edge kept, adjacency rows of a_cap slots) and of G2 (the renumbered
-    component)."""
+def graph_batch(seed, B, N, per_node=2, a_cap=32, n_lo=None):
+    """B random POA-like DAGs of n_lo (N / 2 by default) to N nodes and
+    per_node * N edges at most: a chain through every node plus forward
+    skip edges of up to 40 nodes, inserted in a random order; the prune
+    cycle's inputs of G1 (with every edge kept, adjacency rows of a_cap
+    slots) and of G2 (the renumbered component)."""
     rng = np.random.default_rng(seed)
     E = per_node * N
     tails = np.zeros((B, E), np.int64)
     heads = np.zeros((B, E), np.int64)
-    n_nodes = rng.integers(N // 2, N + 1, size=B)
+    n_nodes = rng.integers(N // 2 if n_lo is None else n_lo, N + 1, size=B)
     n_edges = np.zeros(B, np.int64)
     for b in range(B):
         n = int(n_nodes[b])
@@ -1562,10 +1562,50 @@ def test_graph_dfs_and_topo_kernels_match_plain(cuda, N):
     assert _build.LAUNCHES["graph_dfs"] == before["graph_dfs"] + 1
     for name, g, w in zip(("new_id", "order", "n_sub"), got, gc._dfs_plain(*(a.to(cuda) for a in g1_in))):
         assert torch.equal(g.long(), w.long()), name
-    got = gc.topo_ranks(*(a.to(cuda) for a in g2_in))
-    assert _build.LAUNCHES["graph_topo"] == before["graph_topo"] + 1
-    for name, g, w in zip(("rank_of", "rank_to_node"), got, gc._topo_plain(*(a.to(cuda) for a in g2_in))):
+    _topo_equals(cuda, g2_in, "shared")
+    assert gc.topo_staged(*g2_in[::2]).all()
+
+
+def _topo_equals(cuda, args, form):
+    """G2 on the card against its plain machine on the card, with its
+    launch and its form counted."""
+    N = args[0].shape[1]
+    before = _build.LAUNCHES["graph_topo"]
+    forms = _build.BUILD_FORMS[("graph_topo", N, form)]
+    got = gc.topo_ranks(*(a.to(cuda) for a in args))
+    assert _build.LAUNCHES["graph_topo"] == before + 1
+    assert _build.BUILD_FORMS[("graph_topo", N, form)] == forms + 1
+    want = gc._topo_plain(*(a.to(cuda) for a in args))
+    for name, g, w in zip(("rank_of", "rank_to_node"), got, want):
         assert torch.equal(g.long(), w.long()), name
+
+
+def test_graph_topo_kernel_rows_past_shared_memory(cuda):
+    """G2 at N = 8192 (B = 16, 1024 to 8192 nodes a window), where a
+    window of more than topo_row_cap nodes reads its rows where they lie
+    and a smaller one stages them: both in one launch, against the plain
+    machine; and at P = 2, where every window's rows fit."""
+    N = 8192
+    _, (in_nbr, indeg, n_sub) = graph_batch(31, 16, N, n_lo=1024)
+    staged = gc.topo_staged(in_nbr, n_sub)
+    assert gc.topo_row_cap(N, 16) < N and staged.any() and not staged.all()
+    _topo_equals(cuda, (in_nbr, indeg, n_sub), "by window")
+    assert gc.topo_row_cap(N, 2) == N
+    _topo_equals(cuda, (in_nbr[:, :, :2].contiguous(), indeg, n_sub), "shared")
+
+
+def test_graph_topo_kernel_tails_past_n(cuda):
+    """G2 at B = 64 N = 1152 with n_sub cut 8 below the graph in every
+    other window, so that tails lie past n there: those windows read their
+    rows where they lie, the others stage them, in one launch against the
+    plain machine."""
+    N = 1152
+    _, (in_nbr, indeg, n_sub) = graph_batch(N + 5, 64, N)
+    n_sub = n_sub.clone()
+    n_sub[::2] -= 8
+    staged = gc.topo_staged(in_nbr, n_sub)
+    assert staged[1::2].all() and int((~staged[::2]).sum()) >= 16
+    _topo_equals(cuda, (in_nbr, indeg, n_sub), "shared")
 
 
 @pytest.mark.parametrize("case", ["deg_past_a", "root_outside", "past_slot_cap"])
@@ -1603,12 +1643,17 @@ def test_cycle_kernels_do_not_spill(cuda):
     them, within the 227 KB a block can opt into."""
     for kernel in ("graph_dfs", "graph_topo"):
         at = gc.kernel_attrs(kernel)
-        assert 0 < at["registers"] <= 255 and at["local_bytes"] == 0, (kernel, at)
+        assert 0 < at["registers"] <= 128 and at["local_bytes"] == 0, (kernel, at)
     for N in (256, 1152, 2048, 8192):
         for A in (3, 32):
             cap = gc.dfs_slot_cap(N, A)
             assert gc.dfs_smem(N, A) == (cap, gc.dfs_fixed_bytes(N) + 4 * cap)
             assert gc.dfs_smem(N, A)[1] <= gc.SMEM_OPTIN
+        for P in (2, 16, 32):
+            cap = gc.topo_row_cap(N, P)
+            assert gc.topo_smem(N, P) == (cap, gc.topo_smem_bytes(N, P, cap))
+            assert gc.topo_smem(N, P)[1] <= gc.SMEM_OPTIN
+            assert cap == N or N == 8192
 
 
 def test_graph_kernels_empty_batch_and_wrong_inputs(cuda):
@@ -1666,17 +1711,18 @@ def test_haplotype_cycle_on_the_card_matches_cpu(cuda):
 # ------------------------------------------- the device build: G3, G4, G5
 
 
-def build_state(seed, B, N, R=8, ring_over=False):
+def build_state(seed, B, N, R=8, ring_over=False, n_lo=None):
     """B random graph states as the device build keeps them: a chain through
     every node plus forward skip edges (graph_batch's DAGs, E = 2N), and
     columns of 2-4 nearby nodes aligned to each other (every member's ring
-    the other members, in a random order), over up to N nodes. With
-    `ring_over`, some ring counts pass R (the rings cut at R slots)."""
+    the other members, in a random order), over n_lo (N / 2 by default) to
+    N nodes. With `ring_over`, some ring counts pass R (the rings cut at R
+    slots)."""
     rng = np.random.default_rng(seed)
     E = 2 * N
     tails = np.zeros((B, E), np.int32)
     heads = np.zeros((B, E), np.int32)
-    n_nodes = rng.integers(N // 2, N + 1, size=B).astype(np.int32)
+    n_nodes = rng.integers(N // 2 if n_lo is None else n_lo, N + 1, size=B).astype(np.int32)
     n_edges = np.zeros(B, np.int32)
     aligned = np.zeros((B, N, R), np.int32)
     acount = np.zeros((B, N), np.int32)
@@ -1989,11 +2035,11 @@ def test_device_build_and_cycle_on_the_card_match_cpu(cuda):
 # ------------------------------------- the device round-2 consensus: G6
 
 
-def bundle_inputs(st, seed, P=16):
+def bundle_inputs(st, seed, P=16, device="cpu"):
     """The heaviest bundle's inputs on build_state's graphs (ids in
     topological order), weights 1-8 with one in twenty set to 0 (so
-    branch completion runs), in-slots of P, ranked by G3's plain machine
-    without rings; window 3 flagged (no nodes)."""
+    branch completion runs), in-slots of P, ranked without rings by G3 on
+    `device` (its plain machine on the CPU); window 3 flagged (no nodes)."""
     rng = np.random.default_rng(seed)
     B, E = st["tails"].shape
     N = st["codes"].shape[1]
@@ -2004,9 +2050,27 @@ def bundle_inputs(st, seed, P=16):
     out_nbr, out_deg, _ = gcs.build_out_slots(t, h, valid, N, P)
     n_nodes = torch.from_numpy(st["n_nodes"]).clone()
     n_nodes[3] = 0
-    rank_of, r2n = gb.topo_ranks_bundled(in_nbr, indeg, torch.from_numpy(st["aligned"]),
-                                         torch.zeros((B, N), dtype=torch.int32), n_nodes)
-    return [in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, r2n, n_nodes]
+    ranks = gb.topo_ranks_bundled(*(a.to(device) for a in (
+        in_nbr, indeg, torch.from_numpy(st["aligned"]), torch.zeros((B, N), dtype=torch.int32),
+        n_nodes)))
+    return [in_nbr, in_w, indeg, out_nbr, out_deg, *(a.cpu() for a in ranks), n_nodes]
+
+
+def _bundle_equals(cuda, args, cap, form):
+    """G6 on the card against its plain version on the card, with its
+    launch and its form counted; returns the plain version's outputs and
+    counts."""
+    N = args[0].shape[1]
+    before = _build.LAUNCHES["graph_bundle"]
+    forms = _build.BUILD_FORMS[("graph_bundle", N, form)]
+    got = gcs.heaviest_bundle(*args, max_branch_iters=cap)
+    assert _build.LAUNCHES["graph_bundle"] == before + 1
+    assert _build.BUILD_FORMS[("graph_bundle", N, form)] == forms + 1
+    stats = {}
+    want = gcs._heaviest_bundle_plain(*args, max_branch_iters=cap, stats=stats)
+    for name, g, w in zip(("cons", "cons_len", "overflow"), got, want):
+        assert torch.equal(g.long(), w.long()), (name, cap)
+    return want, stats
 
 
 @pytest.mark.parametrize("N", [256, 1152, 2048])
@@ -2016,17 +2080,50 @@ def test_graph_bundle_kernel_matches_plain(cuda, N):
     default cap (no window flagged) and at a cap of 2 passes (some
     flagged); the window without nodes gives an empty path."""
     args = [a.to(cuda) for a in bundle_inputs(build_state(N + 9, 64, N), N)]
+    assert gcs.bundle_staged(args[7], N, 16).all()
     for cap in (64, 2):
-        before = _build.LAUNCHES["graph_bundle"]
-        got = gcs.heaviest_bundle(*args, max_branch_iters=cap)
-        assert _build.LAUNCHES["graph_bundle"] == before + 1
-        stats = {}
-        want = gcs._heaviest_bundle_plain(*args, max_branch_iters=cap, stats=stats)
-        for name, g, w in zip(("cons", "cons_len", "overflow"), got, want):
-            assert torch.equal(g.long(), w.long()), (name, cap)
-        assert int(got[1][3]) == 0 and stats["branch_passes"] > 0
-        assert bool(got[2].any()) == (cap == 2)
+        want, stats = _bundle_equals(cuda, args, cap, "shared")
+        assert int(want[1][3]) == 0 and stats["branch_passes"] > 0
+        assert bool(want[2].any()) == (cap == 2)
     assert (want[1] > 10).sum() >= 60
+
+
+def test_graph_bundle_kernel_ranks_past_shared_memory(cuda):
+    """G6 at N = 8192 (B = 8, 1024 to 8192 nodes a window), where a window
+    of more than bundle_rank_cap ranks reads its rows where they lie and a
+    smaller one stages them: both in one launch, against the plain
+    version."""
+    N = 8192
+    args = [a.to(cuda) for a in bundle_inputs(build_state(41, 8, N, n_lo=1024), 41,
+                                               device=cuda)]
+    staged = gcs.bundle_staged(args[7], N, 16)
+    assert gcs.bundle_rank_cap(N, 16) < N and staged.any() and not staged.all()
+    want, stats = _bundle_equals(cuda, args, 64, "by window")
+    assert stats["branch_passes"] > 0 and (want[1] > 900).sum() >= 4
+
+
+def test_graph_bundle_kernel_at_the_branch_cap(cuda):
+    """G6 on chains whose branch completion runs to the 64-pass cap (B =
+    64, N = 256), against the plain version: the flags, the paths and
+    their lengths, with ties of weight and score in a quarter of them."""
+    args = [torch.from_numpy(a).to(cuda) for a in chain_bundle_windows(64, 256, 5)]
+    want, stats = _bundle_equals(cuda, args, 64, "shared")
+    assert int(want[2].sum()) >= 48 and stats["branch_passes"] >= 48 * 64
+
+
+def test_bundle_kernel_does_not_spill(cuda):
+    """G6: no local memory (no spills), registers within the block's share;
+    its rank capacity and shared memory as its Python mirror gives them,
+    within what a block can opt into beside its static word."""
+    at = gcs.kernel_attrs()
+    assert 0 < at["registers"] <= 128 and at["local_bytes"] == 0, at
+    assert at["static_smem_bytes"] <= 232448 - gcs.SMEM_ROOM
+    for N in (256, 1152, 2048, 4096, 8192):
+        for P in (2, 16, 32):
+            cap = gcs.bundle_rank_cap(N, P)
+            assert gcs.bundle_smem(N, P) == (cap, gcs.bundle_smem_bytes(N, P, cap))
+            assert gcs.bundle_smem(N, P)[1] <= gcs.SMEM_ROOM
+            assert cap == N or gcs.bundle_smem_bytes(N, P, N) > gcs.SMEM_ROOM
 
 
 def test_graph_bundle_kernel_empty_batch_and_wrong_inputs(cuda):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.graph_build_cases import chain_bundle_windows
 from tests.test_graph_consensus import _DevBackend, _mk_window, _oracle_build
 from tests.test_torch_graph_build import BUILD_ARGS, J_TOPO, _cases, _pack
 from tests.test_torch_graph_cycle import (
@@ -221,8 +222,13 @@ def test_heaviest_bundle_on_random_dags_equals_jax():
         _bundle_both(args)
 
 
-def _random_bundle_args(rng, cap):
+def _random_bundle_args(rng, cap, n_full=False):
+    """Random DAGs (`_random_graphs`) with weights 0-3, in-slots of cap,
+    ranked by G2's plain machine; with `n_full`, every window of N nodes
+    (those past its graph isolated)."""
     tails, heads, n_nodes, n_edges = _random_graphs(rng, 8, N, E)
+    if n_full:
+        n_nodes[:] = N
     tails, heads = tails.astype(np.int32), heads.astype(np.int32)
     weights = rng.integers(0, 4, size=(8, E)).astype(np.int32)
     valid = np.arange(E)[None, :] < n_edges[:, None]
@@ -332,6 +338,78 @@ def test_g3_callers_pass_their_int32_buffers_as_they_are(monkeypatch):
     assert len(calls) > 2 and not any(calls)
 
 
+def _spied(monkeypatch, module, name, made):
+    """Wrap module.name so that its outputs are kept in made[name]."""
+    real = getattr(module, name)
+
+    def spy(*args, **kw):
+        made[name] = real(*args, **kw)
+        return made[name]
+
+    monkeypatch.setattr(module, name, spy)
+
+
+def test_g2_caller_passes_its_int32_buffers_as_they_are(monkeypatch):
+    """The prune cycle calls G2 without its checks, on the very tensors it
+    made: `build_in_slots`' table and in-degrees and the n_sub of G1 (int32
+    on the card, as here), no copy."""
+    made, calls = {}, []
+    _spied(monkeypatch, tcy, "build_in_slots", made)
+    real_dfs, real_topo = tcy.dfs_preorder, tcy.topo_ranks
+
+    def g1(*args, **kw):  # G1's outputs as the card gives them: int32
+        made["g1"] = tuple(t.to(torch.int32) for t in real_dfs(*args, **kw))
+        return made["g1"]
+
+    def g2(in_nbr, indeg, n_sub, check=True):
+        calls.append(check)
+        mine = (made["build_in_slots"][0], made["build_in_slots"][1], made["g1"][2])
+        assert all(a is b for a, b in zip((in_nbr, indeg, n_sub), mine))
+        assert all(t.dtype == torch.int32 and t.is_contiguous() for t in mine)
+        return real_topo(in_nbr, indeg, n_sub, check=check)
+
+    monkeypatch.setattr(tcy, "dfs_preorder", g1)
+    monkeypatch.setattr(tcy, "topo_ranks", g2)
+    rng = np.random.default_rng(5)
+    tails, heads, n_nodes, n_edges = _random_graphs(rng, 4, N, E)
+    valid = np.arange(E)[None, :] < n_edges[:, None]
+    weights = rng.integers(1, 6, size=(4, E))
+    codes = rng.integers(0, 4, size=(4, N))
+    st = tcy.prune_and_rebuild(*_t(tails, heads, weights, valid, codes, n_nodes),
+                               torch.full((4,), 2.0), 0.2, 0.2, N, 32, P)
+    assert calls == [False] and int(st["n_sub"].sum()) > 0
+
+
+def test_g6_caller_passes_its_int32_buffers_as_they_are(monkeypatch):
+    """`device_linear` calls G6 without its checks, on the very tensors it
+    made: the weighted in-slots, the out-slots, G3's ranks and n_nodes,
+    int32 and contiguous, no copy."""
+    made, calls = {}, []
+    for name in ("build_in_slots_weighted", "build_out_slots"):
+        _spied(monkeypatch, tgc, name, made)
+    real_g3, real = tgc.topo_ranks_bundled, tgc.heaviest_bundle
+
+    def g3(*args, **kw):  # G3's outputs as the card gives them: int32
+        made["topo_ranks_bundled"] = tuple(t.to(torch.int32) for t in real_g3(*args, **kw))
+        return made["topo_ranks_bundled"]
+
+    def g6(*args, max_branch_iters=64, check=True):
+        calls.append(check)
+        (in_nbr, in_w, indeg, _), (out_nbr, out_deg, _) = (made["build_in_slots_weighted"],
+                                                          made["build_out_slots"])
+        mine = (in_nbr, in_w, indeg, out_nbr, out_deg, *made["topo_ranks_bundled"])
+        assert all(a is b for a, b in zip(args, mine))
+        assert all(t.dtype == torch.int32 and t.is_contiguous() for t in args)
+        return real(*args, max_branch_iters=max_branch_iters, check=check)
+
+    monkeypatch.setattr(tgc, "topo_ranks_bundled", g3)
+    monkeypatch.setattr(tgc, "heaviest_bundle", g6)
+    arrays = _pack(_cases()[:2], weighted=True)
+    out = tgc.device_linear(*_t(*[arrays[k] for k in BUILD_ARGS], np.ones(2, bool)), N, E, R, 3,
+                            -5, -4, p_cap=P)
+    assert calls == [False] and (out[1] > 0).all()
+
+
 def _long_window(seed):
     """A backbone of ~88 bases with 7 full-span layers: its graph grows past
     N = 128 nodes."""
@@ -363,51 +441,92 @@ def _i32(v):
     return (v + 2**31) % 2**32 - 2**31
 
 
-def g6_warp(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, r2n, n_nodes, max_iters=64):
+def g6_warp(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, r2n, n_nodes, max_iters=64, cap=None,
+            rng=None):
     """csrc/graph_consensus.cu:graph_bundle_kernel for one window, step for
-    step: the next rank's row loaded ahead, lanes 0..P-1 the in-slots, two
-    warp maxima and the last lane of a ballot, lane 0's stores; the rival
-    tails of the start's out-heads a lane each; the walk into the scores'
-    row, then the path reversed."""
+    step. The block stages the window's n = min(n_nodes, N) ranks in rank
+    order where n <= cap (bundle_rank_cap by default): rank r's node and
+    min(indeg, P) packed in a word, its tails (clamped, uint16) and weights;
+    else each row is read where it lies (rank_to_node, then the row). A
+    pass holds rank r's row and its tails' scores and rank r + 1's row in
+    registers; step r first reads rank r + 2's row and rank r + 1's tails'
+    scores (and, in a pass without skips, reduces rank r + 1's usable slots
+    and weight maximum), side by side with the step's store of rank r's
+    node (with `rng`, a lane whose tail is that node sees the old or the
+    new value at random: the kernel does not order them), and takes the
+    last written (node, score) for a tail that is that node; lanes 0..P-1
+    the in-slots, two warp maxima and the last lane of a ballot, the
+    stores (every lane's, of the same values). The rival tails of the
+    start's out-heads a lane each; the walk into the scores' row, then the
+    path reversed."""
     n_cap, p = in_nbr.shape
     q = out_nbr.shape[1]
+    cap = tgc.bundle_rank_cap(n_cap, p) if cap is None else cap
     scores = np.full(n_cap, -1, np.int64)
     preds = np.full(n_cap, -1, np.int64)
 
     def cl(v):
         return min(max(int(v), 0), n_cap - 1)
 
-    def row(r):
+    def lie(r):
         v = cl(r2n[r])
         t = [cl(in_nbr[v, k]) if k < p else 0 for k in range(32)]
         w = [int(in_w[v, k]) if k < p else 0 for k in range(32)]
         return v, min(int(indeg[v]), p), t, w
 
+    n = min(int(n_nodes), n_cap)
+    ranks = n if 0 < n <= cap else 0
+    staged = []
+    for r in range(ranks):
+        v, d, t, w = lie(r)
+        word = _i32((d << 16) | v)  # unpacked as the kernel does
+        staged.append((word & 0xFFFF, word >> 16, [int(np.uint16(x)) for x in t], w))
+
+    def row(r):
+        return staged[r] if r < ranks else lie(r)
+
+    def weight_max(x, sc, skip):
+        """A rank's usable slots, their ballot and their weight maximum."""
+        ok = [k < x[1] and (not skip or sc[k] != -1) for k in range(32)]
+        return ok, _ballot(ok), max(x[3][k] if ok[k] else INT_MIN for k in range(32))
+
     def bundle_pass(lo, n, skip):
-        maxn, maxsc, r = -1, 0, lo + 1
+        r = lo + 1
         if r >= n:
             return -1
-        nxt = row(r)
+        maxn, maxsc = -1, 0
+        cur = row(r)
+        nxt = row(r + 1) if r + 1 < n else cur
+        pre = [int(scores[x]) for x in cur[2]]
+        last_v, last_sc = -1, 0
+        if not skip:  # no skips: reduced a step ahead, off the chain
+            ok, any_ok, mw = weight_max(cur, None, False)
         while r < n:
-            v, d, t, w = nxt
-            if r + 1 < n:
-                nxt = row(r + 1)
-            sc = [int(scores[t[k]]) for k in range(32)]
-            ok = [k < d and (not skip or sc[k] != -1) for k in range(32)]
-            new_sc = new_pred = -1
-            if _ballot(ok):
-                mw = max(w[k] if ok[k] else INT_MIN for k in range(32))
-                c2 = [ok[k] and w[k] == mw for k in range(32)]
-                ms = max(sc[k] if c2[k] else INT_MIN for k in range(32))
-                c3 = _ballot(c2[k] and sc[k] == ms for k in range(32))
-                new_pred, new_sc = t[31 - _clz(c3)], _i32(mw + ms)
-            scores[v], preds[v] = new_sc, new_pred
+            after = row(r + 2) if r + 2 < n else nxt
+            v, d, t, w = cur
+            old = [int(scores[x]) for x in nxt[2]]
+            if not skip:
+                ahead = weight_max(nxt, None, False)
+            sc = [last_sc if t[k] == last_v else pre[k] for k in range(32)]
+            if skip:
+                ok, any_ok, mw = weight_max(cur, sc, True)
+            c2 = [ok[k] and w[k] == mw for k in range(32)]
+            ms = max(sc[k] if c2[k] else INT_MIN for k in range(32))
+            c3 = _ballot(c2[k] and sc[k] == ms for k in range(32))
+            tail = t[31 - _clz(c3) if c3 else 0]
+            new_sc = _i32(mw + ms) if any_ok else -1
+            scores[v], preds[v] = new_sc, (tail if any_ok else -1)
+            nxt_pre = [int(scores[x]) if rng is not None and x == v and rng.random() < 0.5
+                       else old[k] for k, x in enumerate(nxt[2])]
             if maxn == -1 or maxsc < new_sc:
                 maxn, maxsc = v, new_sc
+            last_v, last_sc = v, new_sc
+            cur, nxt, pre = nxt, after, nxt_pre
+            if not skip:
+                ok, any_ok, mw = ahead
             r += 1
         return maxn
 
-    n = min(int(n_nodes), n_cap)
     maxn, active = 0, False
     if n > 0:
         maxn = bundle_pass(-1, n, False)
@@ -438,19 +557,41 @@ def g6_warp(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, r2n, n_nodes, max_it
     return np.array(cons), k, active
 
 
+def _chain_args():
+    """`chain_bundle_windows` at this file's N: 8 chains, most of them
+    stopped by the 64-pass cap, two with ties of weight and score."""
+    return chain_bundle_windows(8, N, 3)
+
+
 def test_warp_model_of_g6_equals_the_plain_machine(built, hand):
-    """Built graphs, hand-made ones at caps 64 and 2, and random DAGs with
-    whole and cut in-slots: the model gives the plain machine's outputs,
-    window by window."""
+    """Built graphs, hand-made ones at caps 64 and 2 (ties of weight and
+    score, an empty window), random DAGs with whole and cut in-slots and
+    with n = N, and chains that stop at the 64-pass cap: the model gives
+    the plain machine's outputs, window by window, with the window's rows
+    staged, read where they lie (a cap of 0) and the window just past its
+    cap, and with a lane that reads a score as the step stores it seeing
+    either value."""
     rng = np.random.default_rng(77)
+    chains = _chain_args()
     cases = [(built[2], 64), (hand, 64), (hand, 2), (_random_bundle_args(rng, P), 64),
-             (_random_bundle_args(rng, 2), 64)]
+             (_random_bundle_args(rng, 2), 64), (_random_bundle_args(rng, P, n_full=True), 64),
+             (chains, 64)]
     for args, cap in cases:
         cons, k, ovf = tgc.heaviest_bundle(*_t(*args), max_branch_iters=cap)
         for b in range(len(args[7])):
-            c, kk, a = g6_warp(*(x[b] for x in args), max_iters=cap)
-            _eq(c, cons[b])
-            assert kk == int(k[b]) and a == bool(ovf[b])
+            n = int(args[7][b])
+            for rows, seen in ((None, None), (0, None), (max(n - 1, 0), rng)):
+                c, kk, a = g6_warp(*(x[b] for x in args), max_iters=cap, cap=rows, rng=seen)
+                _eq(c, cons[b])
+                assert kk == int(k[b]) and a == bool(ovf[b])
+    assert int(tgc.heaviest_bundle(*_t(*chains))[2].sum()) >= 4
+
+
+def test_heaviest_bundle_at_the_branch_cap_equals_jax():
+    """Chains whose branch completion runs to the 64-pass cap, two with ties
+    of weight and score: JAX's flags and paths, and the port's."""
+    _, _, ovf = _bundle_both(_chain_args())
+    assert 4 <= int(np.asarray(ovf).sum()) < 8
 
 
 # ------------------------------------------------------------ the pipeline

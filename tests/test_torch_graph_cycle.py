@@ -773,32 +773,65 @@ def g1_warp(adj, deg, comp, root, cap=None):
     return new_id, order, cnt
 
 
-def g2_warp(in_nbr, indeg, n_sub):
+def g2_warp(in_nbr, indeg, n_sub, cap=None):
     """csrc/graph_cycle.cu:graph_topo_kernel for one window, step for step:
-    the root from a cursor that only moves forward, the ballot of the unmet
-    in-slots, the last of them by 31 - __clz."""
-    n, p = in_nbr.shape
-    lanes = min(p, 32)
-    emitted = np.zeros((n + 31) // 32, np.uint32)
-    rank_of, rank_to_node, stack = np.zeros(n, np.int64), np.zeros(n, np.int64), np.zeros(n, np.int64)
-    nn = min(int(n_sub), n)
-    sp = cnt = cursor = 0
-    while sp > 0 or cnt < nn:
+    the block stages the rows of the window's n = min(n_sub, N) nodes (the
+    tails as uint16, min(indeg, P) as a byte) where n <= cap (topo_row_cap
+    by default), and the walk reads them there where every staged tail lies
+    below n (a flag of the block's staging), else every row where it lies; the root
+    from a cursor that moves forward a word of the bitmap at a time
+    (__ffs); warp 0's walk with the top's row and count in registers: the
+    bits of its tails, its own word and the node below it with its row
+    read at the step's start, the ballot of the unmet slots, the last of
+    them by 31 - __clz, with no branch: the row of the node it names (the
+    top's on an emit) loaded before the step's stores, an emit taking the
+    node below at once and setting its bit by a plain store of the word it
+    read; the outputs kept and written back."""
+    n_cap, p = in_nbr.shape
+    cap = tgc.topo_row_cap(n_cap, p) if cap is None else cap
+    n = min(int(n_sub), n_cap)
+    rows = n if 0 < n <= cap else 0
+    ids = in_nbr[:rows].astype(np.uint16)
+    deg = np.clip(indeg[:rows], 0, p).astype(np.uint8)
+    staged = rows > 0 and not ((in_nbr[:rows] < 0) | (in_nbr[:rows] >= n)).any()
+
+    def load(v):
+        if staged:
+            return [int(ids[v, k]) if k < p else 0 for k in range(32)], int(deg[v])
+        return [int(in_nbr[v, k]) if k < p else 0 for k in range(32)], min(max(int(indeg[v]), 0), p)
+
+    emitted = np.zeros((n_cap + 31) // 32, np.uint32)
+    rank_of, rank_to_node, stack = (np.zeros(n_cap, np.int64) for _ in range(3))
+    sp = cnt = cursor = v = d = 0
+    t = [0] * 32
+    while sp > 0 or cnt < n:
         if sp == 0:
-            while cursor < nn and _bit(emitted, cursor):
-                cursor += 1
-            stack[0], sp = cursor, 1
+            while cursor < n:
+                avail = ~int(emitted[cursor >> 5]) & (0xFFFFFFFF << (cursor & 31)) & 0xFFFFFFFF
+                if avail:
+                    cursor = (cursor & ~31) + _ffs(avail) - 1
+                    break
+                cursor = (cursor & ~31) + 32
+            v = cursor if cursor < n else 0
+            t, d = load(v)
+            stack[0], sp = v, 1
             continue
-        v = stack[sp - 1]
-        t = [int(in_nbr[v, k]) if k < lanes else 0 for k in range(32)]
-        ball = _ballot(k < lanes and k < indeg[v] and not _bit(emitted, t[k]) for k in range(32))
-        if ball:
-            stack[sp] = t[31 - _clz(ball)]
-            sp += 1
+        done = [_bit(emitted, x) for x in t]
+        ew = int(emitted[v >> 5])
+        below = int(stack[sp - 2 if sp > 1 else 0])
+        bt, bd = load(below)
+        ball = _ballot(k < d and not done[k] for k in range(32))
+        push = ball != 0
+        w = t[(31 - _clz(ball)) & 31]  # __shfl_sync from the last unmet lane
+        wt, wd = load(w if push else v)
+        if push:
+            stack[min(sp, n_cap - 1)] = w
+            sp, v, t, d = sp + 1, w, wt, wd
         else:
-            _set(emitted, v)
-            rank_of[v], rank_to_node[cnt] = cnt, v
+            emitted[v >> 5] = np.uint32(ew | (1 << (v & 31)))
+            rank_of[v], rank_to_node[min(cnt, n_cap - 1)] = cnt, v
             cnt, sp = cnt + 1, sp - 1
+            v, t, d = below, bt, bd
     return rank_of, rank_to_node
 
 
@@ -828,7 +861,8 @@ def _random_graphs(rng, B, n_cap, e_cap):
 def test_warp_models_of_g1_and_g2_equal_the_plain_machines(seed):
     """On random graphs, with adjacency and in-slot rows cut short (A = 3,
     P = 2) and not (A = P = 32): the warp models of both kernels give the
-    plain machines' outputs, window by window."""
+    plain machines' outputs, window by window; G2's with its rows staged
+    and read where they lie."""
     rng = np.random.default_rng(100 + seed)
     B, n_cap, e_cap = 6, 48, 120
     tails, heads, n_nodes, n_edges = _random_graphs(rng, B, n_cap, e_cap)
@@ -848,9 +882,70 @@ def test_warp_models_of_g1_and_g2_equal_the_plain_machines(seed):
             assert cnt == int(n_sub[b])
             _eq(nid, new_id[b])
             _eq(ordr, order[b])
-            ro, rn = g2_warp(_np(in_nbr[b]), _np(indeg[b]), int(n_sub[b]))
-            _eq(ro, rank_of[b])
-            _eq(rn, r2n[b])
+            for cap in (None, 0):  # rows staged, and read where they lie
+                ro, rn = g2_warp(_np(in_nbr[b]), _np(indeg[b]), int(n_sub[b]), cap)
+                _eq(ro, rank_of[b])
+                _eq(rn, r2n[b])
+
+
+def _g2_case(case, rng, B, n_cap):
+    """G2's inputs (in_nbr, indeg, n_sub; P = 2 for "deg_past_p", else 16)
+    for B windows of an edge case: "empty" (n_sub 0 in every other
+    window), "full" (n_sub = N, a random DAG over every node), "chain" (node
+    v's one dependency v + 1: the root's walk fills the stack to N), "many_roots"
+    (N / 8 edges, most nodes isolated), "deg_past_p" (in-degrees past P),
+    "past_n" (n_sub 8 below the graph's nodes, so that tails lie past it:
+    G2 then reads every row where it lies)."""
+    p_cap = 2 if case == "deg_past_p" else 16
+    tails = np.zeros((B, 4 * n_cap), np.int64)
+    heads = np.zeros((B, 4 * n_cap), np.int64)
+    n_edges = np.zeros(B, np.int64)
+    n_sub = np.full(B, n_cap, np.int64)
+    for b in range(B):
+        if case == "chain":
+            pairs = [(v + 1, v) for v in range(n_cap - 1)]
+        else:
+            m = {"many_roots": n_cap // 8, "deg_past_p": 4 * n_cap}.get(case, 2 * n_cap)
+            order = rng.permutation(n_cap)
+            pairs = {(int(order[min(i, j)]), int(order[max(i, j)]))
+                     for i, j in rng.integers(0, n_cap, size=(m, 2)) if i != j}
+            pairs = sorted(pairs)
+            rng.shuffle(pairs)
+        n_edges[b] = len(pairs)
+        if pairs:
+            tails[b, : len(pairs)], heads[b, : len(pairs)] = zip(*pairs)
+        if case == "empty" and b % 2 == 0:
+            n_sub[b] = 0
+        if case == "past_n":
+            n_sub[b] = n_cap - 8
+    valid = torch.from_numpy(np.arange(4 * n_cap)[None, :] < n_edges[:, None])
+    in_nbr, indeg, _, _ = tgc.build_in_slots(torch.from_numpy(tails), torch.from_numpy(heads),
+                                             valid, n_cap, p_cap)
+    return in_nbr, indeg, torch.from_numpy(n_sub)
+
+
+@pytest.mark.parametrize("case", ["empty", "full", "chain", "many_roots", "deg_past_p", "past_n"])
+def test_warp_model_of_g2_on_edge_windows(case):
+    """G2's warp model and plain machine against JAX's `topo_ranks` on edge
+    windows (`_g2_case`): the model with the window's rows staged, read
+    where they lie (a cap of 0) and with the window just past its cap."""
+    rng = np.random.default_rng(300 + len(case))
+    B, n_cap = 4, 48
+    in_nbr, indeg, n_sub = _g2_case(case, rng, B, n_cap)
+    got = tgc.topo_ranks(in_nbr, indeg, n_sub)
+    want = jgc.topo_ranks(*(jnp.asarray(_np(a).astype(np.int32)) for a in (in_nbr, indeg, n_sub)))
+    for w, g in zip(want, got):
+        _eq(w, g)
+    if case == "deg_past_p":
+        assert (_np(indeg) > 2).sum() > B * n_cap // 2
+    if case == "past_n":
+        assert (_np(in_nbr)[:, : n_cap - 8] >= n_cap - 8).any()
+    for b in range(B):
+        n = int(n_sub[b])
+        for cap in (None, 0, max(n - 1, 0)):
+            ro, rn = g2_warp(_np(in_nbr[b]), _np(indeg[b]), n, cap)
+            _eq(ro, got[0][b])
+            _eq(rn, got[1][b])
 
 
 @pytest.mark.parametrize("case", ["deg_past_a", "root_outside", "past_slot_cap"])

@@ -5,7 +5,8 @@
 // Replaces vechat_tpu/ops/kernels/graph_cycle.py: dfs_preorder and
 // topo_ranks, two XLA while_loop machines that step every window of a batch
 // together, one node push or pop a step, because the TPU has no scalar
-// threads. Here each window's machine is one warp stepping on its own; the
+// threads. Here a block stages each window in shared memory and its first
+// warp steps the window's machine on its own; the
 // plain PyTorch versions in ops/kernels/graph_cycle.py are the batched
 // machines; both give the same outputs, word for word.
 //
@@ -27,17 +28,32 @@
 // G2 (graph_topo_kernel), reference semantics graph.cpp:301-371, the rule of
 // csrc/poagraph.cpp:96-140: roots in id order, the LAST unmet in-edge
 // dependency of the top frame expanded first, a node emitted once all its
-// dependencies are. Lanes 0..P-1 hold the in-slots (P <= 32); the last unmet
-// slot is 31 - __clz of the ballot. One warp a block, the stack and the
-// emitted bitmap in shared memory, the rows read from global memory.
+// dependencies are: G3's machine (graph_build.cu) without the rings. A
+// block of 16 warps a window stages the rows of the window's n = min(n_sub,
+// N) nodes in shared memory (the in-slot tails as uint16 [n, P], min(indeg,
+// P) as a byte) beside the stack, the emitted bitmap and both outputs,
+// which it writes back once at the end. Warp 0 walks: lanes 0..P-1 hold the
+// top node's in-slots (P <= 32); the last unmet slot is 31 - __clz of the
+// ballot. The top's row rides in registers: the pushed node's is loaded as
+// the step decides, before the step's stores, and the node below the top
+// is read with its row at the step's start, for an emit; an emitted bit is
+// set by a plain store of the word the step read. A step has no branch,
+// and every lane makes its stores, so no __syncwarp orders them. The next
+// root is found a word of the bitmap at a time, by a cursor that never
+// moves back. A window whose rows pass a block's shared memory (n over
+// 4033 at N = 8192, P = 16; never at N <= 4096) reads them where they lie,
+// chosen per window inside the kernel (topo_row_cap), as does a window
+// with a tail outside its n nodes, which the cycle's renumbered graph
+// never has.
 //
 // What bounds them: the chain of dependent steps, about 2N a window, one
 // window a block and one warp walking, so that a launch of B <= 64 windows
 // fills half the SMs. A G1 push is a shared load of the bitmap and the
 // slot bounds, the ballot, its first lane and the shuffles from it, the
 // next row's shared load and lane 0's plain stores (`k1_probe.py latency`
-// times each link); a G2 step waits on a global read of its row. Neither bytes nor operations come near the
-// card's rates; see chip_smoke.py's phase 6.
+// times each link); a G2 push the same without the bounds, an emit a shared
+// load of the bits and the ballot. Neither bytes nor operations come near
+// the card's rates; see chip_smoke.py's phase 6.
 
 #include <cuda_runtime.h>
 
@@ -231,65 +247,168 @@ graph_dfs_kernel(const int* __restrict__ adj, const int* __restrict__ deg,
   }
 }
 
-// One warp a window b. in_nbr [B, N, P] int32 (slot k of node v: the tail
-// of its k-th in-edge in slot order, padding 0), indeg [B, N], n_sub [B].
-// Writes rank_of [B, N] and rank_to_node [B, N] (0 past n_sub). Shared
-// memory: the emitted bitmap (N bits) and the stack (N int32).
-__global__ void __launch_bounds__(32)
-graph_topo_kernel(const int* __restrict__ in_nbr, const int* __restrict__ indeg,
-                  const int* __restrict__ n_sub, int* __restrict__ rank_of,
-                  int* __restrict__ rank_to_node, int N, int P) {
-  extern __shared__ unsigned smem[];
-  const int words = (N + 31) >> 5;
-  unsigned* emitted = smem;
-  int* stack = reinterpret_cast<int*>(smem + words);
-  const int b = blockIdx.x, lane = threadIdx.x;
-  const size_t row0 = (size_t)b * N;
-  for (int i = lane; i < N; i += 32) {
-    rank_of[row0 + i] = 0;
-    rank_to_node[row0 + i] = 0;
-  }
-  for (int i = lane; i < words; i += 32) emitted[i] = 0;
-  __syncwarp();
-  const int n = n_sub[b] < N ? n_sub[b] : N;
-  const int lanes = P < 32 ? P : 32;
-  int sp = 0, cnt = 0, cursor = 0;
+constexpr int kTopoThreads = 512;
+
+// G2's shared memory in bytes with `cap` rows staged: rank_of, rank_to_node
+// and the stack [N] int32, the emitted bitmap, then each staged node's
+// in-slot tails as uint16 [cap, P] (rounded up to a word) and its
+// min(indeg, P) as a byte [cap]
+__host__ __device__ inline size_t topo_smem_bytes(int N, int P, int cap) {
+  return 4 * (3 * (size_t)N + (size_t)(N + 31) / 32) + ((2 * (size_t)cap * P + 3) & ~(size_t)3) +
+         (size_t)cap;
+}
+
+// The rows G2 stages: a window's n = min(n_sub, N) nodes where n is at most
+// this, N or as many as a block's shared memory holds beside the rest (4033
+// at N = 8192, P = 16; every N <= 4096 fits whole at P = 16)
+__host__ __device__ inline int topo_row_cap(int N, int P) {
+  const long long room = (long long)kSmemOptin - (long long)topo_smem_bytes(N, P, 0) - 3;
+  long long cap = room / (2LL * P + 1);
+  if (cap > N) cap = N;
+  return cap > 0 ? (int)cap : 0;
+}
+
+// Warp 0's topological walk of window b over its n nodes, its rows staged
+// (kStaged: ids, deg) or read where they lie (in_nbr, indeg). The top
+// node v's row and usable count ride in registers (lane k < P: its k-th
+// in-slot tail t; d = min(indeg, P)). A step first reads, side by side,
+// the emitted bit of each lane's tail, v's word of the bitmap, and the node
+// below the top on the stack with its row; then the ballot of the unmet
+// slots decides, with no branch: the last unmet tail is shuffled from its
+// lane (31 - __clz) and the row of the node it names (v on an emit) is
+// loaded before the step's stores; an emit takes the node below the top at
+// once and sets v's bit by a plain store of the word the step read. Every
+// lane makes each store, of the same value to the same word, so that its
+// own later reads see it: no __syncwarp orders a step's stores before the
+// next step's reads. The stack and rank stores clamp to the last slot as
+// the plain machine does.
+template <bool kStaged>
+__device__ void topo_walk(const int* __restrict__ in_nbr, const int* __restrict__ indeg,
+                          size_t row0, const unsigned short* ids, const unsigned char* deg,
+                          unsigned* emitted, int* stack, int* rk, int* r2n, int n, int N, int P) {
+  const int lane = threadIdx.x;
+  auto load = [&](int v, int& t, int& d) {
+    if constexpr (kStaged) {
+      t = lane < P ? ids[v * P + lane] : 0;
+      d = deg[v];
+    } else {
+      const size_t rv = row0 + v;
+      t = lane < P ? in_nbr[rv * P + lane] : 0;
+      const int dv = indeg[rv];
+      d = dv < 0 ? 0 : (dv < P ? dv : P);
+    }
+  };
+  int sp = 0, cnt = 0, cursor = 0, v = 0, t = 0, d = 0;
   while (sp > 0 || cnt < n) {
     if (sp == 0) {
       // The next root is the first unemitted id below n. The emitted set only
-      // grows, so that id never moves back: a cursor that only moves forward
-      // finds, at every rooting step, the node the batched machine's argmax
-      // over the whole row finds. Only ids below n are ever emitted and
-      // cnt < n, so the cursor stops below n.
-      while (cursor < n && bit_of(emitted, cursor)) ++cursor;
-      if (lane == 0) stack[0] = cursor;
+      // grows, so that id never moves back: a cursor that only moves forward,
+      // a word of the bitmap at a time, finds at every rooting step the node
+      // the batched machine's argmax over the whole row finds (none: 0)
+      while (cursor < n) {
+        const unsigned avail = ~emitted[cursor >> 5] & (kFull << (cursor & 31));
+        if (avail) {
+          cursor = (cursor & ~31) + __ffs(avail) - 1;
+          break;
+        }
+        cursor = (cursor & ~31) + 32;
+      }
+      v = cursor < n ? cursor : 0;
+      load(v, t, d);
+      stack[0] = v;
       sp = 1;
-      __syncwarp();
       continue;  // the root's dependencies are read at the next step
     }
-    const int v = stack[sp - 1];
-    const int d = indeg[row0 + v];
-    int t = 0;
-    if (lane < lanes) t = in_nbr[(row0 + v) * P + lane];
-    const bool unmet = lane < lanes && lane < d && !bit_of(emitted, t);
-    const unsigned ball = __ballot_sync(kFull, unmet);
-    if (ball) {
-      // push the last unmet dependency in slot order
-      const int j = 31 - __clz(ball);
-      const int w = __shfl_sync(kFull, t, j);
-      if (lane == 0) stack[sp] = w;
-      ++sp;
-    } else {
-      // every dependency has emitted: emit the top
-      if (lane == 0) {
-        set_bit(emitted, v);
-        rank_of[row0 + v] = cnt;
-        rank_to_node[row0 + cnt] = v;
-      }
-      ++cnt;
-      --sp;
+    const bool done = bit_of(emitted, t);
+    const unsigned ew = emitted[v >> 5];  // v's word, as it stands
+    const int below = stack[sp > 1 ? sp - 2 : 0];
+    int bt, bd;
+    load(below, bt, bd);
+    const unsigned ball = __ballot_sync(kFull, lane < d && !done);
+    // push the last unmet dependency in slot order, or, with none, emit the top
+    const bool push = ball != 0;
+    const int w = __shfl_sync(kFull, t, 31 - __clz(ball));
+    int wt, wd;
+    load(push ? w : v, wt, wd);
+    if (push) stack[sp < N ? sp : N - 1] = w;
+    if (!push) {
+      emitted[v >> 5] = ew | (1u << (v & 31));
+      rk[v] = cnt;
+      r2n[cnt < N ? cnt : N - 1] = v;
     }
-    __syncwarp();
+    sp += push ? 1 : -1;
+    cnt += push ? 0 : 1;
+    v = push ? w : below;
+    t = push ? wt : bt;
+    d = push ? wd : bd;
+  }
+}
+
+// A block a window b. in_nbr [B, N, P] int32 (slot k of node v: the tail
+// of its k-th in-edge in slot order, padding 0; P <= 32), indeg [B, N],
+// n_sub [B]. Writes rank_of [B, N] and rank_to_node [B, N] (0 where nothing
+// was ranked). The block stages the rows of the window's n = min(n_sub, N)
+// nodes (tails as uint16: N <= 8192) and their min(indeg, P) where n <=
+// cap (topo_row_cap), and keeps the stack, the bitmap and both outputs in
+// shared memory; warp 0 walks (topo_walk) the staged rows where every
+// staged tail lies below n, as the renumbered graph's do (so the walk
+// reaches no other node), else the rows where they lie; the block writes
+// the outputs back once, coalesced.
+__global__ void __launch_bounds__(kTopoThreads)
+graph_topo_kernel(const int* __restrict__ in_nbr, const int* __restrict__ indeg,
+                  const int* __restrict__ n_sub, int* __restrict__ rank_of,
+                  int* __restrict__ rank_to_node, int N, int P, int cap) {
+  extern __shared__ int4 smem4[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int words = (N + 31) >> 5;
+  const size_t row0 = (size_t)b * N;
+  int* rk = reinterpret_cast<int*>(smem4);
+  int* r2n = rk + N;
+  int* stack = r2n + N;
+  unsigned* emitted = reinterpret_cast<unsigned*>(stack + N);
+  unsigned short* ids = reinterpret_cast<unsigned short*>(emitted + words);
+  unsigned char* deg =
+      reinterpret_cast<unsigned char*>(ids) + ((2 * (size_t)cap * P + 3) & ~(size_t)3);
+  const int n = n_sub[b] < N ? n_sub[b] : N;
+  const int rows = n <= cap && n > 0 ? n : 0;  // the nodes whose rows are staged
+  for (int i = tid; i < N; i += kTopoThreads) rk[i] = r2n[i] = 0;
+  for (int i = tid; i < words; i += kTopoThreads) emitted[i] = 0;
+  for (int i = tid; i < rows; i += kTopoThreads) {
+    const int d = indeg[row0 + i];
+    deg[i] = (unsigned char)(d < 0 ? 0 : (d < P ? d : P));
+  }
+  // the rows are contiguous: a coalesced copy, kStageUnroll loads in flight
+  // a thread before their stores
+  const int* src = in_nbr + row0 * P;
+  const int m = rows * P;
+  bool outside = false;  // a staged tail at or past n
+  for (int base = tid; base < m; base += kStageUnroll * kTopoThreads) {
+    int x[kStageUnroll];
+#pragma unroll
+    for (int r = 0; r < kStageUnroll; ++r) {
+      const int i = base + r * kTopoThreads;
+      x[r] = i < m ? src[i] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kStageUnroll; ++r) {
+      const int i = base + r * kTopoThreads;
+      if (i < m) {
+        ids[i] = (unsigned short)x[r];
+        outside |= (unsigned)x[r] >= (unsigned)n;
+      }
+    }
+  }
+  const bool staged = __syncthreads_or(outside) == 0 && rows > 0;
+  if (tid < 32) {
+    if (staged)
+      topo_walk<true>(in_nbr, indeg, row0, ids, deg, emitted, stack, rk, r2n, n, N, P);
+    else
+      topo_walk<false>(in_nbr, indeg, row0, ids, deg, emitted, stack, rk, r2n, n, N, P);
+  }
+  __syncthreads();
+  for (int i = tid; i < N; i += kTopoThreads) {
+    rank_of[row0 + i] = rk[i];
+    rank_to_node[row0 + i] = r2n[i];
   }
 }
 
@@ -316,9 +435,15 @@ int graph_dfs_launch(const int* adj, const int* deg, const unsigned char* comp,
 
 int graph_topo_launch(const int* in_nbr, const int* indeg, const int* n_sub, int* rank_of,
                       int* rank_to_node, int B, int N, int P, void* stream) {
-  const size_t smem = (size_t)((N + 31) / 32) * 4 + (size_t)N * 4;
-  graph_topo_kernel<<<B, 32, smem, (cudaStream_t)stream>>>(in_nbr, indeg, n_sub, rank_of,
-                                                           rank_to_node, N, P);
+  const int cap = topo_row_cap(N, P);
+  const size_t smem = topo_smem_bytes(N, P, cap);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        graph_topo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  graph_topo_kernel<<<B, kTopoThreads, smem, (cudaStream_t)stream>>>(in_nbr, indeg, n_sub, rank_of,
+                                                                     rank_to_node, N, P, cap);
   return (int)cudaGetLastError();
 }
 
@@ -327,6 +452,14 @@ int graph_topo_launch(const int* in_nbr, const int* indeg, const int* n_sub, int
 int graph_dfs_smem(int N, int A, int* out) {
   out[0] = dfs_slot_cap(N, A);
   out[1] = (int)(dfs_fixed_bytes(N) + 4 * (size_t)out[0]);
+  return 0;
+}
+
+// G2's row capacity at (N, P) (topo_row_cap) and shared memory in bytes:
+// out[0..1]
+int graph_topo_smem(int N, int P, int* out) {
+  out[0] = topo_row_cap(N, P);
+  out[1] = (int)topo_smem_bytes(N, P, out[0]);
   return 0;
 }
 

@@ -9,12 +9,13 @@ build raises with nvcc's stderr; there is no fallback.
 
 The launch counters live here too: every wrapper adds one to its kernel's
 count where it launches the kernel, and nowhere else; K1's, K3's and K4's
-wrappers, and F1's, also tally their launch shapes, and G4's and G5's the
+wrappers, and F1's, also tally their launch shapes, and G2's to G6's the
 form each launch took.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -66,8 +67,11 @@ K3_SHAPES: Dict[tuple, int] = {}
 K4_SHAPES: Dict[tuple, int] = {}
 # F1's launch shapes since the last reset_launches(): (B, N, S, P) -> launches
 FULL_SHAPES: Dict[tuple, int] = {}
-# G4's and G5's launches since the last reset_launches(): (kernel, N, form
-# "shared" or "global") -> launches
+# G2's to G6's launches since the last reset_launches(): (kernel, N, form)
+# -> launches. G3, G4 and G5: "shared" or "global"; G2 and G6, which choose
+# a window at a time: "shared" where every window's rows fit a block's
+# shared memory, else "by window" (a window past it reads its rows where
+# they lie)
 BUILD_FORMS: Counter = Counter()
 
 _lock = threading.Lock()
@@ -82,6 +86,17 @@ def reset_launches() -> None:
     K4_SHAPES.clear()
     FULL_SHAPES.clear()
     BUILD_FORMS.clear()
+
+
+def on_device(dev):
+    """`torch.cuda.device(dev)` where `dev` is not the current CUDA device,
+    else a context that does nothing: a launch on the current device skips
+    the switch there and back."""
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def resolve_device(device) -> "torch.device":

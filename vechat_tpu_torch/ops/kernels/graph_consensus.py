@@ -33,7 +33,7 @@ of `pipeline/device_cycle.py` (N <= 2048, depth <= 64; the phred weights of
 a FASTQ window are at most 1000 a base); deeper or longer windows take the
 host route before they are packed.
 
-`heaviest_bundle` launches G6 (`csrc/graph_consensus.cu`, one warp a
+`heaviest_bundle` launches G6 (`csrc/graph_consensus.cu`, a block a
 window) on CUDA tensors and runs its plain version, the JAX program's
 batched machine, on CPU tensors. Everything else is the array work XLA
 ran, as torch ops on the tensors' device.
@@ -58,7 +58,8 @@ OVF_SLOTS = 32  # an in-degree or out-degree past the slot cap
 OVF_BRANCH = 64  # branch completion still going after max_branch_iters passes
 LINEAR_OVF_BITS = dict(BUILD_OVF_BITS, slots=OVF_SLOTS, branch=OVF_BRANCH)
 
-# largest N a launch takes (two int32 rows of a window in shared memory)
+# largest N a launch takes (the scores and predecessors of a window in a
+# block's shared memory)
 N_MAX = 8192
 
 
@@ -116,7 +117,9 @@ def _bundle_scan(scores, preds, in_nbr, in_w, indeg, rank_to_node, n_nodes, lo_r
     hi = torch.where(win_active, n_nodes, 0)
     r_lo, r_hi = int(lo.min()) if B else 0, int(hi.max()) if B else 0
     if stats is not None:
-        stats["bundle_steps"] = stats.get("bundle_steps", 0) + int((hi - lo).clamp_min(0).sum())
+        steps = (hi - lo).clamp_min(0)
+        stats["bundle_steps"] = stats.get("bundle_steps", 0) + int(steps.sum())
+        stats["bundle_steps_window"] = stats.get("bundle_steps_window", 0) + steps
     for r in range(max(r_lo, 0), r_hi):
         v = rank_to_node[:, r].long()
         process = (r >= lo) & (r < hi)
@@ -148,8 +151,9 @@ def _bundle_scan(scores, preds, in_nbr, in_w, indeg, rank_to_node, n_nodes, lo_r
 def _heaviest_bundle_plain(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, rank_to_node, n_nodes,
                            max_branch_iters: int = 64, stats: Optional[dict] = None):
     """Plain version of G6: the JAX program's batched machine. `stats`, a
-    dict, gets `bundle_steps` (ranks processed, every pass of every window)
-    and `branch_passes` (branch-completion passes, summed over windows)."""
+    dict, gets `bundle_steps` (ranks processed, every pass of every window),
+    `bundle_steps_window` (the same [B], a window at a time) and
+    `branch_passes` (branch-completion passes, summed over windows)."""
     B, N, P = in_nbr.shape
     Q = out_nbr.shape[2]
     dev = in_nbr.device
@@ -207,18 +211,67 @@ def _heaviest_bundle_plain(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, rank_
 
 
 _BUNDLE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_INTS3 = ctypes.c_int * 3
+# shared memory a block can opt into on Hopper (227 KB), less the kernel's
+# static word (csrc/graph_consensus.cu:kStaticBytes)
+SMEM_ROOM = 232448 - 16
+# the forms of a G6 launch (_build.BUILD_FORMS): every window's ranks
+# staged, or each window staged where its ranks fit (bundle_rank_cap)
+FORMS = ("shared", "by window")
 
 
 def _lib():
     lib = _build.get_lib("graph_consensus")
     if lib.graph_bundle_launch.argtypes is None:
-        lib.graph_bundle_launch.argtypes = _BUNDLE_ARGS
-        lib.graph_bundle_launch.restype = ctypes.c_int
+        for fn, args in ((lib.graph_bundle_launch, _BUNDLE_ARGS),
+                         (lib.graph_bundle_smem, [ctypes.c_int, ctypes.c_int, _INTS3]),
+                         (lib.graph_consensus_attrs, [_INTS3])):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib
 
 
+def kernel_attrs() -> dict:
+    """Registers a thread, static shared memory and local memory (spills)
+    of G6, as the card's loader reports them."""
+    out = _INTS3()
+    _build.check(_lib(), _lib().graph_consensus_attrs(out), "graph_consensus_attrs")
+    return dict(registers=out[0], static_smem_bytes=out[1], local_bytes=out[2])
+
+
+def bundle_smem_bytes(N: int, P: int, cap: int) -> int:
+    """G6's dynamic shared memory with `cap` ranks staged
+    (csrc/graph_consensus.cu:bundle_smem_bytes): the scores and
+    predecessors [N] int32, a staged rank's node and slot count in a word,
+    its weights int32 [P] and tails uint16 [P] (rounded up to a word)."""
+    return 8 * N + 4 * cap * (1 + P) + ((2 * cap * P + 3) & ~3)
+
+
+def bundle_rank_cap(N: int, P: int) -> int:
+    """The ranks G6 stages (bundle_rank_cap): a window of n = min(n_nodes,
+    N) ranks stages them in rank order where n is at most this, N or as
+    many as a block's shared memory holds beside the scores and
+    predecessors; a larger window reads its rows where they lie."""
+    return max(0, min(N, (SMEM_ROOM - 8 * N - 3) // (6 * P + 4)))
+
+
+def bundle_staged(n_nodes, N: int, P: int):
+    """[B] bool: True where G6 stages the window's ranks in shared memory,
+    False where it reads them where they lie."""
+    return n_nodes.long().clamp_max(N) <= bundle_rank_cap(N, P)
+
+
+def bundle_smem(N: int, P: int) -> tuple:
+    """(rank capacity, dynamic shared memory in bytes) of a G6 launch at
+    (N, P), as the library computes them: `bundle_rank_cap` and
+    `bundle_smem_bytes` are their mirror."""
+    out = _INTS3()
+    _lib().graph_bundle_smem(N, P, out)
+    return out[0], out[1]
+
+
 def heaviest_bundle(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, rank_to_node, n_nodes,
-                    max_branch_iters: int = 64):
+                    max_branch_iters: int = 64, check=True):
     """TraverseHeaviestBundle, the BranchCompletion loop and the backward
     walk (graph.cpp:534-638; csrc/poagraph.cpp:379-443). in_nbr/in_w
     [B, N, P] (in-edge tails and weights, slot order), indeg [B, N], out_nbr
@@ -226,7 +279,9 @@ def heaviest_bundle(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, rank_to_node
     order), n_nodes [B] (at most N). Returns (cons [B, N] consensus node ids
     left-packed in path order, cons_len [B], overflow [B] bool: branch
     completion hit `max_branch_iters`). CPU tensors run the plain machine;
-    CUDA tensors launch G6 or raise."""
+    CUDA tensors launch G6 or raise. With `check` the inputs are made int32
+    and contiguous and checked; `device_linear` passes False for its own
+    buffers, which are so already: G6 is launched on them as they are."""
     B, N, P = in_nbr.shape
     Q = out_nbr.shape[2]
     dev = in_nbr.device
@@ -235,17 +290,19 @@ def heaviest_bundle(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, rank_to_node
                                       rank_to_node, n_nodes, max_branch_iters)
     if P > 32 or Q > 32 or N > N_MAX:
         raise ValueError(f"G6 takes P, Q <= 32 and N <= {N_MAX}, got P={P}, Q={Q}, N={N}")
-    names = ("in_nbr", "in_w", "indeg", "out_nbr", "out_deg", "rank_of", "rank_to_node", "n_nodes")
-    args = [_int32(t) for t in (in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, rank_to_node,
-                                n_nodes)]
-    _check_inputs(dict(zip(names, args)), torch.int32, dev)
-    if (in_w.shape != (B, N, P) or out_nbr.shape[:2] != (B, N) or n_nodes.shape != (B,)
-            or any(t.shape != (B, N) for t in (indeg, out_deg, rank_of, rank_to_node))):
-        raise ValueError("G6 takes in_nbr and in_w [B, N, P], out_nbr [B, N, Q], indeg, out_deg, "
-                         "rank_of and rank_to_node [B, N], n_nodes [B]")
-    cons = torch.empty((B, N), dtype=torch.int32, device=dev)
-    cons_len = torch.empty((B,), dtype=torch.int32, device=dev)
-    overflow = torch.empty((B,), dtype=torch.int32, device=dev)
+    args = (in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, rank_to_node, n_nodes)
+    if check:
+        names = ("in_nbr", "in_w", "indeg", "out_nbr", "out_deg", "rank_of", "rank_to_node",
+                 "n_nodes")
+        args = [_int32(t) for t in args]
+        _check_inputs(dict(zip(names, args)), torch.int32, dev)
+        if (in_w.shape != (B, N, P) or out_nbr.shape[:2] != (B, N) or n_nodes.shape != (B,)
+                or any(t.shape != (B, N) for t in (indeg, out_deg, rank_of, rank_to_node))):
+            raise ValueError("G6 takes in_nbr and in_w [B, N, P], out_nbr [B, N, Q], indeg, "
+                             "out_deg, rank_of and rank_to_node [B, N], n_nodes [B]")
+    out = torch.empty((B * N + 2 * B,), dtype=torch.int32, device=dev)
+    cons = out[: B * N].view(B, N)
+    cons_len, overflow = out[B * N :].view(2, B)
     if B:
         launch_bundle(*args, cons, cons_len, overflow, max_branch_iters)
     return cons, cons_len, overflow != 0
@@ -253,13 +310,14 @@ def heaviest_bundle(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, rank_to_node
 
 def launch_bundle(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, rank_to_node, n_nodes, cons,
                   cons_len, overflow, max_branch_iters: int = 64):
-    """G6 alone, on the int32 buffers `heaviest_bundle` makes, all on the
-    card; `chip_smoke.py` times it apart from that glue. The kernel writes
-    every element of its outputs."""
+    """G6 alone, on the int32 buffers of `heaviest_bundle`, all on the card;
+    `chip_smoke.py` times it apart from that glue. The kernel writes every
+    element of its outputs."""
     B, N, P = in_nbr.shape
     Q = out_nbr.shape[2]
-    stream = torch.cuda.current_stream(in_nbr.device).cuda_stream
-    with torch.cuda.device(in_nbr.device):
+    dev = in_nbr.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _build.on_device(dev):
         rc = _lib().graph_bundle_launch(
             in_nbr.data_ptr(), in_w.data_ptr(), indeg.data_ptr(), out_nbr.data_ptr(),
             out_deg.data_ptr(), rank_of.data_ptr(), rank_to_node.data_ptr(), n_nodes.data_ptr(),
@@ -267,6 +325,7 @@ def launch_bundle(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of, rank_to_node, 
             max_branch_iters, walk_steps(N), stream)
     _build.check(_lib(), rc, "graph_bundle")
     _build.LAUNCHES["graph_bundle"] += 1
+    _build.BUILD_FORMS[("graph_bundle", N, FORMS[bundle_rank_cap(N, P) < N])] += 1
 
 
 # ---------------------------------------------------------------- coverage
@@ -358,7 +417,7 @@ def device_linear(bb_codes, bb_w, bb_len, lseqs, lw, llen, lbegin, lend, lfull, 
     rank_of, rank_to_node = topo_ranks_bundled(in_nbr, indeg, built["aligned"], built["acount"],
                                                n_nodes, check=False)
     cons, cons_len, branch = heaviest_bundle(in_nbr, in_w, indeg, out_nbr, out_deg, rank_of,
-                                             rank_to_node, n_nodes)
+                                             rank_to_node, n_nodes, check=False)
     cov = consensus_coverage(cons, cons_len, tails, heads, valid, built["lab_lo"],
                              built["lab_hi"], built["aligned"], built["acount"])
     cons_codes = torch.gather(built["codes"].long(), 1, cons.long())

@@ -35,8 +35,10 @@ as PyTorch ops on the tensors' device. Semantics kept bit for bit:
 `csrc/graph_cycle.cu` on CUDA tensors and run their plain versions, the
 batched machines of the JAX program, on CPU tensors. G1 stages a window's
 adjacency compactly in shared memory where its slots fit `dfs_slot_cap`,
-else walks the rows where they lie; the cycle gives it its own tensors as
-they are (`check=False`). `poa_align_mixed` runs
+else walks the rows where they lie; G2 stages a window's in-slot rows in
+shared memory where they fit `topo_row_cap`, else reads them where they
+lie. The cycle gives both its own tensors as they are (`check=False`).
+`poa_align_mixed` runs
 K1 once for each align mode that has sequences (nw at the command line's
 scores, sw at 3/-5/-4) and the dense walk with the node ids of the ranks,
 in launches cut by the backend's `LAUNCH_BYTES`; its results do not depend
@@ -252,12 +254,18 @@ _DFS_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _TOPO_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _INTS3 = ctypes.c_int * 3
 # largest N a launch takes (G1's frames, offsets, outputs and bitmap, and G2's
-# stack and bitmap, in a block's shared memory)
+# stack, bitmap and outputs, in a block's shared memory)
 N_MAX = 8192
 # shared memory a block can opt into on Hopper (227 KB)
 SMEM_OPTIN = 232448
 # G1's block (csrc/graph_cycle.cu:kDfsThreads): the scan keeps a word a warp
 DFS_THREADS = 512
+# the forms of a G2 launch (_build.BUILD_FORMS), by its N: every window's
+# rows fit a block's shared memory, or each window is staged where its rows
+# fit (topo_row_cap); either way a window with a tail outside its n nodes
+# (none in the cycle's renumbered graph) reads its rows where they lie
+# (topo_staged)
+FORMS = ("shared", "by window")
 
 
 def _lib():
@@ -265,6 +273,7 @@ def _lib():
     if lib.graph_dfs_launch.argtypes is None:
         for fn, args in ((lib.graph_dfs_launch, _DFS_ARGS), (lib.graph_topo_launch, _TOPO_ARGS),
                          (lib.graph_dfs_smem, [ctypes.c_int, ctypes.c_int, _INTS3]),
+                         (lib.graph_topo_smem, [ctypes.c_int, ctypes.c_int, _INTS3]),
                          (lib.graph_cycle_attrs, [ctypes.c_int, _INTS3])):
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -507,12 +516,15 @@ def _topo_plain(in_nbr, indeg, n_sub):
     return rank_of, rank_to_node
 
 
-def topo_ranks(in_nbr, indeg, n_sub):
+def topo_ranks(in_nbr, indeg, n_sub, check=True):
     """Topological emission order of the renumbered (bundle-free) graph
     (graph.cpp:301-371): roots in id order, the last unmet in-edge
     dependency expanded first. in_nbr [B, N, P], indeg [B, N], n_sub [B].
     Returns (rank_of [B, N], rank_to_node [B, N]). CPU tensors run the
-    plain machine; CUDA tensors launch G2 or raise."""
+    plain machine; CUDA tensors launch G2 or raise. With `check` the inputs
+    are made int32 and contiguous and checked; the cycle passes False for
+    its own buffers, which are so already: G2 is launched on them as they
+    are."""
     B, N, P = in_nbr.shape
     dev = in_nbr.device
     if dev.type == "cpu":
@@ -521,27 +533,69 @@ def topo_ranks(in_nbr, indeg, n_sub):
         raise ValueError(f"unsupported device {dev}")
     if P > 32 or N > N_MAX:
         raise ValueError(f"G2 takes P <= 32 and N <= {N_MAX}, got P={P}, N={N}")
-    in_nbr, indeg, n_sub = _int32(in_nbr), _int32(indeg), _int32(n_sub)
-    _check_inputs(dict(in_nbr=in_nbr, indeg=indeg, n_sub=n_sub), torch.int32, dev)
-    rank_of = torch.empty((B, N), dtype=torch.int32, device=dev)
-    rank_to_node = torch.empty_like(rank_of)
+    if check:
+        in_nbr, indeg, n_sub = _int32(in_nbr), _int32(indeg), _int32(n_sub)
+        _check_inputs(dict(in_nbr=in_nbr, indeg=indeg, n_sub=n_sub), torch.int32, dev)
+        if indeg.shape != (B, N) or n_sub.shape != (B,):
+            raise ValueError("G2 takes in_nbr [B, N, P], indeg [B, N], n_sub [B]")
+    rank_of, rank_to_node = torch.empty((2, B, N), dtype=torch.int32, device=dev)
     if B:
         launch_topo(in_nbr, indeg, n_sub, rank_of, rank_to_node)
     return rank_of, rank_to_node
 
 
 def launch_topo(in_nbr, indeg, n_sub, rank_of, rank_to_node):
-    """G2 alone, on the int32 buffers `topo_ranks` makes, all on the card;
+    """G2 alone, on the int32 buffers of `topo_ranks`, all on the card;
     `chip_smoke.py` times it apart from that glue. The kernel writes every
     element of its outputs."""
     B, N, P = in_nbr.shape
-    stream = torch.cuda.current_stream(in_nbr.device).cuda_stream
-    with torch.cuda.device(in_nbr.device):
+    dev = in_nbr.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _build.on_device(dev):
         rc = _lib().graph_topo_launch(in_nbr.data_ptr(), indeg.data_ptr(), n_sub.data_ptr(),
                                       rank_of.data_ptr(), rank_to_node.data_ptr(), B, N, P,
                                       stream)
     _build.check(_lib(), rc, "graph_topo")
     _build.LAUNCHES["graph_topo"] += 1
+    _build.BUILD_FORMS[("graph_topo", N, FORMS[topo_row_cap(N, P) < N])] += 1
+
+
+def topo_smem_bytes(N: int, P: int, cap: int) -> int:
+    """G2's shared memory with `cap` rows staged (csrc/graph_cycle.cu:
+    topo_smem_bytes): rank_of, rank_to_node and the stack [N] int32, the
+    emitted bitmap, the staged rows' tails as uint16 [cap, P] (rounded up to
+    a word) and their min(indeg, P) as bytes."""
+    return 4 * (3 * N + (N + 31) // 32) + ((2 * cap * P + 3) & ~3) + cap
+
+
+def topo_row_cap(N: int, P: int) -> int:
+    """The rows G2 stages (topo_row_cap): a window of n = min(n_sub, N)
+    nodes stages them where n is at most this, N or as many as a block's
+    shared memory holds beside the rest; a larger window reads its rows
+    where they lie."""
+    return max(0, min(N, (SMEM_OPTIN - topo_smem_bytes(N, P, 0) - 3) // (2 * P + 1)))
+
+
+def topo_staged(in_nbr, n_sub):
+    """[B] bool: False where G2 reads the window's rows where they lie: its
+    n = min(n_sub, N) nodes pass `topo_row_cap`, or a tail in their rows
+    lies outside [0, n) (never in the renumbered graph of the cycle); True
+    where it walks them from shared memory."""
+    B, N, P = in_nbr.shape
+    n = n_sub.long().clamp_max(N)
+    real = torch.arange(N, device=in_nbr.device)[None, :, None] < n[:, None, None]
+    t = in_nbr.long()
+    outside = (real & ((t < 0) | (t >= n[:, None, None]))).flatten(1).any(1)
+    return (n <= topo_row_cap(N, P)) & ~outside
+
+
+def topo_smem(N: int, P: int) -> tuple:
+    """(row capacity, shared memory in bytes) of a G2 launch at (N, P), as
+    the library computes them: `topo_row_cap` and `topo_smem_bytes` are
+    their mirror."""
+    out = _INTS3()
+    _lib().graph_topo_smem(N, P, out)
+    return out[0], out[1]
 
 
 # ------------------------------------------------------- DP array assembly
@@ -784,8 +838,8 @@ def prune_and_rebuild(tails, heads, weights, valid, codes, n_alive, avg_weight, 
     new_id, order, n_sub = dfs_preorder(adj, deg, comp_mask, root, check=False)
     t2, h2, w2, v2, ne2, codes2 = renumber_subgraph(tails, heads, keep, new_id, order, codes)
     in_nbr, indeg, out_deg, ovf_p = build_in_slots(t2, h2, v2, n_cap, p_cap)
+    rank_of, rank_to_node = topo_ranks(in_nbr, indeg, n_sub, check=False)
     n_sub = n_sub.long()
-    rank_of, rank_to_node = topo_ranks(in_nbr, indeg, n_sub)
     codes_dp, preds_dp, is_sink = build_dp_arrays(rank_of, rank_to_node, in_nbr, indeg, out_deg,
                                                   codes2, n_sub)
     overflow = torch.where(ovf_a, OVF_A_CAP, 0) | torch.where(ovf_p, OVF_P_CAP, 0)
